@@ -1,0 +1,154 @@
+"""The autotuner (subset of ``repro.core.tuner``).
+
+A ``TunableKernel`` bundles a config space, a workload (what a call must
+move), a runner factory for timing a config on the card, and a heuristic
+default. ``Autotuner.best_config`` is what a kernel entry point calls:
+
+  cache hit (same environment, config still valid)  → reuse
+  miss, on_miss "tune"                              → time the space now
+  miss, on_miss "heuristic"                         → the heuristic default
+  miss, on_miss "error"                             → raise
+
+``tune`` measures with the backend (CUDA events on the card by default),
+searches the space, and stores the winner. Background tuning, config
+portfolios, quarantine and drift retuning are not in the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import measure as measure_lib
+from repro_torch.core import search as search_lib
+from repro_torch.core.config_space import Config, ConfigSpace, TuningContext
+from repro_torch.core.costmodel import KernelWorkload
+
+log = logging.getLogger("repro_torch.tuner")
+
+
+@dataclasses.dataclass
+class TunableKernel:
+    name: str
+    space: ConfigSpace
+    version: int = 1
+    workload_fn: Optional[
+        Callable[[Config, TuningContext], KernelWorkload]] = None
+    make_runner: Optional[measure_lib.RunnerFactory] = None
+    heuristic: Optional[Callable[[TuningContext], Config]] = None
+
+    def default_config(self, ctx: TuningContext) -> Config:
+        if self.heuristic is not None:
+            cfg = self.heuristic(ctx)
+            if self.space.is_valid(cfg, ctx):
+                return cfg
+        return self.space.default(ctx)
+
+
+class Autotuner:
+    def __init__(self, cache: Optional[cache_lib.TuningCache] = None,
+                 backend=None, on_miss: str = "tune"):
+        if on_miss not in ("tune", "heuristic", "error"):
+            raise ValueError(f"on_miss {on_miss!r}")
+        self.cache = cache if cache is not None else cache_lib.TuningCache()
+        self.backend = backend or measure_lib.CudaEventTimer()
+        self.on_miss = on_miss
+        self._stats = {"hits": 0, "misses": 0, "tunes": 0,
+                       "heuristic_uses": 0}
+        self._lock = threading.Lock()
+        self._dispatch: Dict[Tuple, Config] = {}
+
+    def _bump(self, key: str) -> None:
+        with self._lock:
+            self._stats[key] += 1
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._stats)
+
+    def tune(self, kernel: TunableKernel,
+             ctx: TuningContext) -> cache_lib.CacheEntry:
+        """Search the space exhaustively now, store the winner, return its
+        entry. A search in which no config ran stores a failed (inf) entry
+        holding the default config, which lookups treat as a miss."""
+        strat = search_lib.ExhaustiveSearch()
+        t0 = time.perf_counter()
+        result = strat.run(kernel.space, ctx,
+                           self.backend.evaluator(kernel, ctx))
+        seconds = time.perf_counter() - t0
+        self._bump("tunes")
+        if result.best is None:
+            entry = cache_lib.make_entry(
+                kernel.default_config(ctx), float("inf"), result.evaluations,
+                f"{strat.name}(failed)", self.backend.name, seconds)
+        else:
+            entry = cache_lib.make_entry(
+                result.best, result.best_metric, result.evaluations,
+                strat.name, self.backend.name, seconds)
+        self.cache.put(kernel.name, kernel.version, kernel.space, ctx, entry)
+        with self._lock:
+            self._dispatch.clear()
+        log.info("tuned %s ctx=%s -> %s (%.3g s/call, %d configs, %.1f s)",
+                 kernel.name, ctx.signature(), entry.config, entry.metric,
+                 entry.n_evaluated, seconds)
+        return entry
+
+    def best_config(self, kernel: TunableKernel,
+                    ctx: TuningContext) -> Config:
+        entry = self.cache.get(
+            kernel.name, kernel.version, kernel.space, ctx,
+            require_fingerprint=cache_lib.env_fingerprint(self.backend.name))
+        if entry is not None and not entry.failed():
+            self._bump("hits")
+            return dict(entry.config)
+        self._bump("misses")
+        if self.on_miss == "tune":
+            return dict(self.tune(kernel, ctx).config)
+        if self.on_miss == "heuristic":
+            self._bump("heuristic_uses")
+            return kernel.default_config(ctx)
+        raise LookupError(f"no tuned config for kernel {kernel.name!r} ctx "
+                          f"{ctx.signature()} and on_miss='error'")
+
+    def dispatch_config(self, kernel: TunableKernel, key: Tuple,
+                        make_ctx: Callable[[], TuningContext]) -> Config:
+        """``best_config`` memoized on a hashable ``key`` the caller builds
+        from its operands' shapes, dtype and device. Eager serving resolves
+        a config on every kernel call (a hundred per decode step at full
+        depth), so the context and cache key are built once per scenario;
+        any ``tune`` clears the memo so a new winner is picked up."""
+        memo_key = (kernel.name, key)
+        with self._lock:
+            cfg = self._dispatch.get(memo_key)
+        if cfg is None:
+            cfg = self.best_config(kernel, make_ctx())
+            with self._lock:
+                self._dispatch[memo_key] = cfg
+        return dict(cfg)
+
+
+_DEFAULT: Optional[Autotuner] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_tuner() -> Autotuner:
+    """Process-wide tuner the kernel entry points use: CUDA-event timing,
+    exhaustive search, in-process cache, ``on_miss`` from
+    ``$REPRO_ON_MISS`` (default "tune")."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = Autotuner(
+                on_miss=os.environ.get("REPRO_ON_MISS", "tune"))
+        return _DEFAULT
+
+
+def set_default_tuner(tuner: Optional[Autotuner]) -> None:
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        _DEFAULT = tuner

@@ -1,0 +1,190 @@
+"""Paged-KV decode attention: the wrapper around ``csrc/paged_decode.cu``.
+
+The CUDA C++ kernel replaces the TPU kernel ``paged_decode`` of
+``src/repro/kernels/paged_decode.py``; the source's header note says what
+bounds it on Hopper (HBM bytes) and how its design answers that.
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use (``build()``), into ``build/`` at the
+repository root under a name that carries the source's hash, and loaded
+with ``ctypes``. Tensor pointers and the current stream go in as
+``c_void_p``; the C function returns ``cudaGetLastError()`` and the
+wrapper raises on anything but 0.
+
+Tunables (``kernels.ops.PAGED_DECODE``): ``block_kv`` rows staged in
+shared memory per step (a multiple of the pool's page size), ``pack_gqa``
+(one block per KV head scoring its whole query group, or one block per
+query head) and ``num_warps``. Tensors on the CPU take the plain version
+in ``kernels.ref``; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+MAX_HEAD_DIM = 256
+MAX_PACKED_GROUP = 8
+MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+build_log = ""                   # nvcc's -Xptxas -v report of the last build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: paged_decode is built on the card's "
+                       "machine from csrc/paged_decode.cu")
+
+
+def build() -> Path:
+    """Compile the kernel library if this source version is not built yet;
+    returns its path. Safe to call from several threads."""
+    global build_log
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src).hexdigest()[:16]
+    out = BUILD_DIR / f"libpaged_decode_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+           "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.paged_decode_launch.argtypes = (
+                [vp] * 6 + [i32] * 7 + [ctypes.c_float] + [i32] * 4 + [vp])
+            lib.paged_decode_launch.restype = i32
+            lib.paged_decode_smem_bytes.argtypes = [i32] * 6
+            lib.paged_decode_smem_bytes.restype = i32
+            _lib = lib
+        return _lib
+
+
+def _lanes_per_row(D: int, itemsize: int) -> int:
+    n_vec, tpr = D * itemsize // 16, 1
+    while tpr < n_vec and tpr < 32:
+        tpr *= 2
+    return tpr
+
+
+def smem_bytes(D: int, itemsize: int, block_kv: int, group: int,
+               pack_gqa: bool, num_warps: int) -> int:
+    """Dynamic shared memory of one launch — the same formula as
+    ``paged_decode_smem_bytes`` in the CUDA source (kept in Python so the
+    config space can check it without the card)."""
+    g = group if pack_gqa and group > 1 else 1
+    n_rg = num_warps * 32 // _lanes_per_row(D, itemsize)
+    return max(4 * block_kv * D * itemsize, n_rg * g * (D + 2) * 4)
+
+
+def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 kv_len: torch.Tensor, *,
+                 k_scales: Optional[torch.Tensor] = None,
+                 v_scales: Optional[torch.Tensor] = None,
+                 scale: Optional[float] = None,
+                 block_kv: Optional[int] = None,
+                 pack_gqa: bool = True,
+                 num_warps: int = 4) -> torch.Tensor:
+    """Block-table-indexed decode attention over a shared page pool.
+
+    q (B, Hq, D); k/v_pages (Hkv, P, page_size, D) float32 or bfloat16 (same
+    dtype as q); block_tables (B, max_pages) int; kv_len (B,) int, clamped
+    to the table capacity. Rows with kv_len == 0 return zeros. ``block_kv``
+    defaults to one page. Returns (B, Hq, D) in q's dtype."""
+    if k_pages.dtype == torch.int8 or k_scales is not None \
+            or v_scales is not None:
+        raise NotImplementedError(
+            "int8 pools (the kv8 policy) are not ported yet")
+    if not q.is_cuda:
+        return ref.paged_decode(q, k_pages, v_pages, block_tables, kv_len,
+                                scale=scale)
+    q = q.contiguous()
+    B, Hq, D = q.shape
+    Hkv, n_pages, page_size, Dk = k_pages.shape
+    if block_kv is None:
+        block_kv = page_size
+    group = Hq // Hkv if Hkv else 0
+    errors = [
+        (q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)"),
+        (k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+         "q and the pools must share a dtype"),
+        (v_pages.shape == k_pages.shape and Dk == D, "pool shapes"),
+        (Hkv > 0 and Hq % Hkv == 0, f"Hq {Hq} not a multiple of Hkv {Hkv}"),
+        (D <= MAX_HEAD_DIM, f"head_dim {D} > {MAX_HEAD_DIM}"),
+        (D * q.element_size() % 16 == 0,
+         f"head_dim {D} rows are not 16-byte multiples"),
+        (block_kv > 0 and block_kv % page_size == 0,
+         f"block_kv {block_kv} not a multiple of page_size {page_size}"),
+        (not (pack_gqa and group > MAX_PACKED_GROUP),
+         f"pack_gqa with group {group} > {MAX_PACKED_GROUP}"),
+        (1 <= num_warps <= 32, f"num_warps {num_warps}"),
+        (block_tables.dim() == 2 and block_tables.shape[0] == B
+         and kv_len.shape == (B,), "block_tables (B, max_pages), kv_len (B,)"),
+        (all(t.is_cuda and t.device == q.device
+             for t in (k_pages, v_pages, block_tables, kv_len)),
+         "every operand on q's device"),
+        (all(t.is_contiguous() and t.data_ptr() % 16 == 0
+             for t in (q, k_pages, v_pages)),
+         "q and the pools must be contiguous and 16-byte aligned"),
+    ]
+    bad = [msg for ok, msg in errors if not ok]
+    if bad:
+        raise ValueError("paged_decode: " + "; ".join(bad))
+    smem = smem_bytes(D, q.element_size(), block_kv, group, pack_gqa,
+                      num_warps)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"paged_decode: {smem} bytes of shared memory > "
+                         f"{MAX_SMEM_BYTES} (block_kv {block_kv})")
+    if scale is None:
+        scale = D ** -0.5
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = kv_len.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _load()
+    err = lib.paged_decode_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, D, n_pages, page_size, tables.shape[1], float(scale),
+        block_kv, int(bool(pack_gqa)), num_warps, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0

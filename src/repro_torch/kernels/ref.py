@@ -1,0 +1,73 @@
+"""Plain PyTorch versions of the port's kernels (subset of
+``repro.kernels.ref``).
+
+They are the ground truth the tests hold the kernels to, and what each
+kernel's wrapper runs for tensors on the CPU. On the card ``chip_smoke.py``
+compares every kernel with its version here on the same inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30  # large-negative instead of -inf: no NaNs on masked rows
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token GQA decode in f32: q (B, Hq, D); kv cache
+    (B, Hkv, T, D); ``kv_len`` (B,) masks positions >= kv_len[b]."""
+    B, Hq, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    kq = torch.repeat_interleave(k, group, dim=1).float()
+    vq = torch.repeat_interleave(v, group, dim=1).float()
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), kq) * scale
+    if kv_len is not None:
+        mask = torch.arange(T, device=q.device)[None, :] < kv_len[:, None]
+        s = torch.where(mask[:, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhk,bhkd->bhd", p / l, vq)
+    return o.to(q.dtype)
+
+
+def gather_pages(pages: torch.Tensor,
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """Densify a paged pool: pages (Hkv, P, page_size, D) + block tables
+    (B, max_pages) -> contiguous (B, Hkv, max_pages * page_size, D)."""
+    Hkv, _, page_size, D = pages.shape
+    B, n_blocks = block_tables.shape
+    dense = pages[:, block_tables.long()]     # (Hkv, B, n_blocks, ps, D)
+    return dense.transpose(0, 1).reshape(B, Hkv, n_blocks * page_size, D)
+
+
+def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 kv_len: torch.Tensor, *,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Paged decode: gather each sequence's pages into a dense cache and run
+    the dense ragged decode. ``kv_len`` is clamped to the table capacity;
+    rows with kv_len == 0 (inactive batch slots) return zeros."""
+    k = gather_pages(k_pages, block_tables)
+    v = gather_pages(v_pages, block_tables)
+    capacity = k.shape[2]
+    lens = torch.clamp(kv_len.long(), 0, capacity)
+    o = decode_attention(q, k, v, kv_len=torch.clamp(lens, min=1),
+                         scale=scale)
+    return torch.where((lens > 0)[:, None, None], o.float(),
+                       0.0).to(q.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS layer norm over the last axis, f32 inside, cast back."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * (var + eps) ** -0.5 * weight.float()).to(x.dtype)

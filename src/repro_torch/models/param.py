@@ -1,0 +1,119 @@
+"""Parameter specifications, random init, and the reference-tree converter.
+
+Every module of the port declares its parameters once as ``ParamSpec``s
+(shape in the reference's ``(in, out)`` layout, dtype, init rule) and
+creates them with ``empty_parameter``. From that single source:
+
+  * ``init_params(cfg, generator, device)`` — random weights made on the
+    device with the reference's rules (normal × 1/√fan_in, zeros, ones);
+  * ``from_numpy_tree(params_np, cfg)`` — the reference's parameter tree,
+    handed over as numpy arrays nested as ``lm_specs`` nests them, loaded
+    into the port's modules (stacked scan units are unstacked per layer).
+
+Parameters are created with ``requires_grad=False``: the port serves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"           # normal | zeros | ones
+    scale: Optional[float] = None  # default: 1/sqrt(fan_in)
+
+
+def empty_parameter(spec: ParamSpec, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(spec.shape, dtype=spec.dtype,
+                                    device=device), requires_grad=False)
+
+
+def _init_leaf_(p: torch.Tensor, spec: ParamSpec,
+                generator: torch.Generator) -> None:
+    if spec.init == "zeros":
+        p.zero_()
+        return
+    if spec.init == "ones":
+        p.fill_(1.0)
+        return
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+    noise = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=p.device)
+    p.copy_(noise * scale)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda"):
+    """Random weights for ``cfg`` made on ``device`` from ``generator``
+    (default: seed 0 on that device). Returns the port's ``lm.LM``."""
+    from repro_torch.models.lm import LM
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    model = LM(cfg, device=device)
+    with torch.no_grad():
+        for mod in model.modules():
+            for name, spec in getattr(mod, "param_specs", {}).items():
+                _init_leaf_(getattr(mod, name), spec, generator)
+    return model
+
+
+def _to_tensor(a: Any) -> torch.Tensor:
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _load_module_(mod: nn.Module, tree: Dict[str, Any], index: Optional[int]):
+    for name, spec in getattr(mod, "param_specs", {}).items():
+        src = _to_tensor(tree[name] if index is None else tree[name][index])
+        if tuple(src.shape) != tuple(spec.shape):
+            raise ValueError(f"{type(mod).__name__}.{name}: reference shape "
+                             f"{tuple(src.shape)} != {tuple(spec.shape)}")
+        getattr(mod, name).copy_(src.to(spec.dtype))
+
+
+def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
+                    device="cpu"):
+    """Load the reference's parameter tree (numpy leaves, nested as
+    ``repro.models.lm.lm_specs``: ``embed.tok``, ``final_ln.w``,
+    ``u{i}.l{j}.{ln1,mix,ln2,ffn}``) into a new ``lm.LM``. A unit scanned
+    ``reps > 1`` times carries a leading stack axis that is unstacked
+    into consecutive layers."""
+    from repro_torch.models.lm import LM
+    model = LM(cfg, device=torch.device(device))
+    with torch.no_grad():
+        _load_module_(model.embed, params_np["embed"], None)
+        _load_module_(model.final_ln, params_np["final_ln"], None)
+        layer = 0
+        for ui, (unit, reps) in enumerate(cfg.scan_plan()):
+            unit_tree = params_np[f"u{ui}"]
+            for r in range(reps):
+                index = r if reps > 1 else None
+                for li in range(len(unit)):
+                    lt = unit_tree[f"l{li}"]
+                    block = model.layers[layer]
+                    for part in ("ln1", "mix", "ln2", "ffn"):
+                        _load_module_(getattr(block, part), lt[part], index)
+                    layer += 1
+    return model

@@ -1,0 +1,147 @@
+"""The port's kernels on the card, held against their plain versions.
+
+Every test here needs a CUDA card and skips with a reason where there is
+none; the decision is made inside a fixture, never at import. The file
+imports no JAX, so it runs on the card's machine as it is:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import Autotuner, set_default_tuner
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_decode as pd_kernel
+from repro_torch.kernels import rms_norm as rms_kernel
+from repro_torch.models import lm
+from repro_torch.models.param import init_params
+from repro_torch.serving import Request, ServingEngine
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture()
+def cuda():
+    """The card, or a skip: decided per test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; runs on the card's machine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def paged_operands(seed, B, Hq, Hkv, D, page_size, max_pages, kv_len, dtype,
+                   device):
+    """Pool with page 0 as scratch, each sequence on shuffled pages."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * max_pages
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    tables = perm.reshape(B, max_pages).copy()
+    for b, n in enumerate(kv_len):
+        tables[b, -(-min(max(n, 0), max_pages * page_size) // page_size):] = 0
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)  # noqa: E731
+    return (rand(B, Hq, D), rand(Hkv, n_pages, page_size, D),
+            rand(Hkv, n_pages, page_size, D),
+            torch.from_numpy(tables).to(device),
+            torch.tensor(kv_len, dtype=torch.int32, device=device))
+
+
+# (B, Hq, Hkv, D, page_size, max_pages, dtype): phi4-mini's heads, phi3-mini
+# (group 1, D 96), stablelm-12b (group 4, D 160), an f32 pool
+SHAPES = [(8, 24, 8, 128, 16, 36, torch.bfloat16),
+          (4, 32, 32, 96, 16, 8, torch.bfloat16),
+          (3, 32, 8, 160, 8, 6, torch.bfloat16),
+          (5, 8, 2, 64, 32, 4, torch.float32)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[3]}-{s[6]}")
+def test_paged_decode_every_valid_config_matches_plain(cuda, shape):
+    B, Hq, Hkv, D, ps, max_pages, dtype = shape
+    cap = ps * max_pages
+    kv_len = ([0, cap + 1, 1, cap] + [int(x) for x in
+                                      np.linspace(2, cap - 1, B)])[:B]
+    args = paged_operands(D, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype,
+                          cuda)
+    want = ref.paged_decode(*args).float()
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.paged_decode_context(chip, B, Hq, Hkv, D, cap,
+                                   ops.dtype_name(dtype), ps)
+    configs = ops.PAGED_DECODE.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = pd_kernel.paged_decode.launches
+        out = ops.paged_decode(*args, config=cfg)
+        torch.cuda.synchronize()
+        assert pd_kernel.paged_decode.launches == before + 1
+        torch.testing.assert_close(out.float(), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=lambda m: f"{cfg}: {m}")
+        assert not out[0].any(), "kv_len == 0 must give exact zeros"
+
+
+def test_paged_decode_rejects_what_it_does_not_take(cuda):
+    args = paged_operands(0, 2, 4, 2, 16, 8, 2, [3, 4], torch.float32, cuda)
+    with pytest.raises(ValueError, match="block_kv"):
+        pd_kernel.paged_decode(*args, block_kv=12)
+    with pytest.raises(ValueError, match="dtype"):
+        pd_kernel.paged_decode(args[0].bfloat16(), *args[1:])
+
+
+@pytest.mark.parametrize("rows", [8, 37, 512])
+def test_rms_norm_every_valid_config_matches_plain(cuda, rows):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(rows, 3072, generator=g, device=cuda) * 3).to(dtype)
+        w = torch.randn(3072, generator=g, device=cuda).to(dtype)
+        want = ref.rms_norm(x, w).float()
+        ctx = ops.rmsnorm_context(ops.device_chip(cuda.index or 0), x.shape,
+                                  ops.dtype_name(dtype))
+        for cfg in ops.RMS_NORM.space.valid_configs(ctx):
+            before = rms_kernel.rms_norm.launches
+            out = ops.rmsnorm(x, w, config=cfg)
+            torch.cuda.synchronize()
+            assert rms_kernel.rms_norm.launches == before + 1
+            torch.testing.assert_close(out.float(), want, atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """Smoke phi4-mini in f32: the engine on the card through both kernels
+    gives the CPU engine's tokens, and its logits at the f32 tolerance."""
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        cfg = get_config("phi4-mini-3.8b", smoke=True)
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(42)
+        spec = [(rng.integers(1, cfg.vocab_size, int(p)).astype(np.int32),
+                 int(g)) for p, g in zip(rng.integers(2, 10, 5),
+                                         rng.integers(1, 5, 5))]
+
+        def run(m, device, opts):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                    for i, (p, n) in enumerate(spec)]
+            eng = ServingEngine(cfg, m, num_pages=24, page_size=8,
+                                max_batch=3, max_seq_len=24, prefill_chunk=4,
+                                opts=opts, device=device, record_logits=True)
+            eng.run(reqs)
+            return [r.tokens for r in reqs], eng.logits_log
+
+        cpu_toks, cpu_logits = run(model, "cpu", lm.ForwardOpts())
+        before = (pd_kernel.paged_decode.launches,
+                  rms_kernel.rms_norm.launches)
+        gpu_toks, gpu_logits = run(
+            model.to(cuda), cuda,
+            lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel"))
+        assert pd_kernel.paged_decode.launches > before[0]
+        assert rms_kernel.rms_norm.launches > before[1]
+        assert gpu_toks == cpu_toks
+        for rid, rows in cpu_logits.items():
+            for a, b in zip(gpu_logits[rid], rows):
+                np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        set_default_tuner(None)

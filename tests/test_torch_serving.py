@@ -1,0 +1,240 @@
+"""The port's serving engine held against the JAX engine, plus the port's
+package boundary.
+
+The engine test reuses the setup of
+``tests/test_paged_serving.py::test_paged_engine_matches_dense_reference``
+(seed-42 requests, 24 pages of 8, max_batch 3, max_seq_len 24, prefill
+chunk 4) on phi4-mini SMOKE with the reference's weights. Tokens must be
+equal; since a random smoke model often repeats tokens, the logits each
+token was taken from are also held against the JAX dense path.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as jax_get_config
+from repro.models import lm as jlm
+from repro.models.param import init_params as jax_init_params
+from repro.serving import Request as JaxRequest
+from repro.serving import ServingEngine as JaxServingEngine
+
+from repro_torch.configs import get_config
+from repro_torch.models.param import from_numpy_tree
+from repro_torch.serving import (
+    PagePool, Request, RequestState, Scheduler, ServingEngine,
+)
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+ARCH = "phi4-mini-3.8b"
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
+ENGINE = dict(num_pages=24, page_size=8, max_batch=3, max_seq_len=24,
+              prefill_chunk=4)
+
+
+def _requests(cls, vocab):
+    rng = np.random.default_rng(42)
+    return [cls(rid=i, prompt=rng.integers(1, vocab, int(p)).astype(np.int32),
+                max_new_tokens=int(g))
+            for i, (p, g) in enumerate(zip(rng.integers(2, 10, 5),
+                                           rng.integers(1, 5, 5)))]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jax_get_config(ARCH, smoke=True)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jlm.lm_specs(jcfg))
+    cfg = get_config(ARCH, smoke=True)
+    return jcfg, jparams, cfg, from_numpy_tree(
+        jax.tree.map(np.asarray, jparams), cfg)
+
+
+def _dense_logits(jparams, jcfg, prompt, tokens):
+    """Logits the JAX dense path gives before each of ``tokens``."""
+    P = len(prompt)
+    lg, cache = jlm.prefill(jparams, jcfg, jnp.asarray(prompt[None]),
+                            max_len=P + len(tokens),
+                            opts=jlm.ForwardOpts(attn_impl="full"))
+    out = [np.asarray(lg[0])]
+    for i, tok in enumerate(tokens[:-1]):
+        lg, cache = jlm.decode_step(
+            jparams, jcfg, jnp.asarray([[tok]], jnp.int32), cache,
+            jnp.int32(P + i), opts=jlm.ForwardOpts(decode_impl="full"))
+        out.append(np.asarray(lg[0]))
+    return out
+
+
+def test_engine_matches_jax_engine(weights):
+    jcfg, jparams, cfg, model = weights
+    jreqs = _requests(JaxRequest, cfg.vocab_size)
+    jeng = JaxServingEngine(jcfg, jparams, **ENGINE)
+    assert jeng.run(jreqs)["requests"] == len(jreqs)
+
+    reqs = _requests(Request, cfg.vocab_size)
+    eng = ServingEngine(cfg, model, device="cpu", record_logits=True,
+                        **ENGINE)
+    res = eng.run(reqs)
+    assert res["requests"] == res["terminal_requests"] == len(reqs)
+    eng.scheduler.check_invariants()
+    assert eng.pool.num_allocated == 0
+    for mine, theirs in zip(reqs, jreqs):
+        assert mine.tokens == theirs.tokens, f"request {mine.rid}"
+        want = _dense_logits(jparams, jcfg, mine.prompt, mine.tokens)
+        got = eng.logits_log[mine.rid]
+        assert len(got) == len(want) == mine.max_new_tokens
+        for step, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(g, w, err_msg=f"req {mine.rid} "
+                                       f"token {step}", **F32_TOL)
+
+
+def test_preempted_run_matches_uninterrupted(weights):
+    """A pool too small for every sequence's growth forces preemption;
+    exact resume must give the same greedy tokens as an ample pool."""
+    _, _, cfg, model = weights
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 12, 7, 10)]
+
+    def run(num_pages):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(cfg, model, num_pages=num_pages, page_size=4,
+                            max_batch=4, max_seq_len=32, prefill_chunk=4,
+                            device="cpu")
+        res = eng.run(reqs)
+        eng.scheduler.check_invariants()
+        assert eng.pool.num_allocated == 0
+        return [r.tokens for r in reqs], res
+
+    ample, res_a = run(40)
+    tight, res_t = run(13)
+    assert res_a["preemptions"] == 0 and res_t["preemptions"] > 0
+    assert res_t["resumes"] > 0
+    assert tight == ample
+
+
+def test_scheduler_random_trace_keeps_invariants():
+    rng = np.random.default_rng(0)
+    pool = PagePool(num_pages=20, page_size=4)
+    sched = Scheduler(pool, max_batch=3, max_pages=8, prefill_chunk=4)
+    reqs = [Request(rid=i, prompt=np.ones(int(rng.integers(1, 12)), np.int32),
+                    max_new_tokens=int(rng.integers(1, 10)))
+            for i in range(12)]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(500):
+        if not sched.has_work():
+            break
+        sched.retire_finished()
+        sched.admit()
+        chunk = sched.next_prefill()
+        if chunk is not None:
+            b, _, _, valid = chunk
+            sched.mark_prefilled(b, valid)
+            seq = sched.slots[b]
+            if seq.prompt_done and not seq.req.tokens:
+                seq.req.tokens.append(1)
+        mask = sched.decode_mask()
+        for b in np.nonzero(mask)[0]:
+            sched.slots[int(b)].req.tokens.append(1)
+        sched.advance_decoded(mask)
+        sched.check_invariants()
+    sched.retire_finished()
+    assert not sched.has_work()
+    assert all(r.state is RequestState.FINISHED for r in reqs)
+    assert pool.num_allocated == 0
+
+
+def test_scheduler_lifecycle_cancel_and_deadline():
+    pool = PagePool(num_pages=12, page_size=4)
+    sched = Scheduler(pool, max_batch=1, max_pages=4, prefill_chunk=4)
+    running = Request(rid=0, prompt=np.ones(5, np.int32), max_new_tokens=3)
+    late = Request(rid=1, prompt=np.ones(3, np.int32), max_new_tokens=2,
+                   deadline=5.0)
+    dropped = Request(rid=2, prompt=np.ones(3, np.int32), max_new_tokens=2)
+    for r in (running, late, dropped):
+        sched.submit(r)
+    assert sched.admit(now=1.0) == [0]          # one slot: 1 and 2 wait
+    dropped.cancel()
+    sched.admit(now=6.0)                        # past late's deadline
+    assert late.state is RequestState.TIMED_OUT
+    assert dropped.state is RequestState.FAILED
+    assert dropped.failure_reason == "cancelled"
+    running.cancel()
+    sched.admit(now=7.0)
+    assert running.state is RequestState.FAILED
+    assert not sched.has_work() and pool.num_allocated == 0
+    sched.check_invariants()
+    assert (sched.failures, sched.timeouts) == (2, 1)
+
+
+def test_oversized_request_fails_as_result(weights):
+    _, _, cfg, model = weights
+    eng = ServingEngine(cfg, model, device="cpu", **ENGINE)
+    big = Request(rid=0, prompt=np.ones(30, np.int32), max_new_tokens=4)
+    res = eng.run([big])
+    assert big.state is RequestState.FAILED and res["failed_requests"] == 1
+
+
+def test_serve_raises_without_a_gpu(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1", "--prompt-len", "4", "--gen", "2"])
+
+
+def test_serve_sizes_pool_like_the_reference():
+    from repro_torch.launch import serve
+    assert serve.pool_page_size(64, 544) == 64
+    assert serve.pool_page_size(128, 20) == 16
+    assert serve.pool_page_size(8, 3) == 8
+
+
+# --- package boundary ----------------------------------------------------------
+
+def _port_files():
+    root = os.path.join(REPO, "src", "repro_torch")
+    for dirpath, _, files in os.walk(root):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = list(_port_files())
+    assert len(files) > 20
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), \
+                    f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+def test_importing_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.kernels.ops, "
+            "repro_torch.launch.serve; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'repro' not in sys.modules, 'repro imported'; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
