@@ -14,7 +14,9 @@ Phases, each failing loudly:
      path's shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
   4. tuning: the serve entry point's deployment lookup and the contexts the
-     engine will dispatch, tuned on the card;
+     engine will dispatch, tuned on the card; then every valid
+     ``paged_decode`` config at the pool layout the tuning chose (the
+     tuned one among them) against the plain version;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, with both kernels' launch counts read around
@@ -156,45 +158,66 @@ def time_paged_decode(chip, args, cfg, ps, max_pages) -> dict:
             "bound_by": by, "kv_tokens": kv_tokens}
 
 
-def check_paged_decode(chip) -> dict:
-    """Every valid config against the plain version, on phi4-mini's heads
-    (bf16 and f32 pools) and on phi3-mini's (group 1, D 96)."""
+def ragged_lens(cap: int, group: int) -> list:
+    """Eight lengths: empty, one past capacity, short, mid-page tails and
+    near or at capacity."""
+    if group > 1:
+        return [0, cap + 1, 1, cap // 7, cap // 2 - 1, (5 * cap) // 7,
+                (8 * cap) // 9 + 1, cap - 1]
+    return [0, cap + 1, cap // 9, cap // 6, cap // 3 + 8, cap // 2,
+            (8 * cap) // 9 - 1, cap]
+
+
+def check_paged_layout(chip, name, args, ps, max_pages):
+    """Every valid config of the context these inputs give, against the
+    plain version on the same inputs; returns (context, configs checked,
+    worst max abs error)."""
     from repro_torch.kernels import ops, ref
+    q, kp = args[0], args[1]
+    B, Hq, D = q.shape
+    ctx = ops.paged_decode_context(chip, B, Hq, kp.shape[0], D,
+                                   ps * max_pages, ops.dtype_name(q.dtype),
+                                   ps)
+    tol = BF16_TOL if q.dtype == torch.bfloat16 else F32_TOL
+    want = ref.paged_decode(*args).float()
+    configs = ops.PAGED_DECODE.space.valid_configs(ctx)
+    if not configs:
+        raise AssertionError(f"paged_decode {name}: no valid config")
+    worst = 0.0
+    for cfg in configs:
+        got = ops.paged_decode(*args, config=cfg).float()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"paged_decode {name} {cfg}: max abs "
+                                 f"err {err} over tolerance {tol}")
+        worst = max(worst, err)
+    print(f"paged_decode {name} (pages of {ps}, {max_pages} a table, "
+          f"lengths {args[4].tolist()}): {len(configs)} configs ok, "
+          f"max_abs_err {worst:.3g} (tol {tol})")
+    return ctx, configs, worst
+
+
+def check_paged_decode(chip) -> dict:
+    """Every valid config against the plain version at pages of 16, on
+    phi4-mini's heads (bf16 and f32 pools) and on phi3-mini's (group 1,
+    D 96). The serving layout is checked in phase 4, once it is known."""
+    from repro_torch.kernels import ops
     ps, max_pages = 16, 36
-    cap = ps * max_pages
-    cases = [
-        ("phi4-mini bf16", 8, 24, 8, 128, torch.bfloat16,
-         [0, cap + 1, 1, 130, 287, 400, 513, cap - 1]),
-        ("phi4-mini f32", 8, 24, 8, 128, torch.float32,
-         [0, cap + 1, 1, 130, 287, 400, 513, cap - 1]),
-        ("phi3-mini bf16", 8, 32, 32, 96, torch.bfloat16,
-         [0, cap + 1, 64, 100, 200, 300, 511, cap]),
-    ]
+    cases = [("phi4-mini bf16", 8, 24, 8, 128, torch.bfloat16),
+             ("phi4-mini f32", 8, 24, 8, 128, torch.float32),
+             ("phi3-mini bf16", 8, 32, 32, 96, torch.bfloat16)]
     out = {"max_abs_err": 0.0}
-    for name, B, Hq, Hkv, D, dtype, kv_len in cases:
-        args = paged_case(D, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype)
-        want = ref.paged_decode(*args).float()
-        ctx = ops.paged_decode_context(chip, B, Hq, Hkv, D, cap,
-                                       ops.dtype_name(dtype), ps)
-        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-        worst = 0.0
-        configs = ops.PAGED_DECODE.space.valid_configs(ctx)
-        for cfg in configs:
-            got = ops.paged_decode(*args, config=cfg).float()
-            err = float((got - want).abs().max())
-            if not torch.allclose(got, want, atol=tol, rtol=tol):
-                raise AssertionError(f"paged_decode {name} {cfg}: max abs "
-                                     f"err {err} over tolerance {tol}")
-            worst = max(worst, err)
+    for name, B, Hq, Hkv, D, dtype in cases:
+        args = paged_case(D, B, Hq, Hkv, D, ps, max_pages,
+                          ragged_lens(ps * max_pages, Hq // Hkv), dtype)
+        ctx, _, worst = check_paged_layout(chip, name, args, ps, max_pages)
         out["max_abs_err"] = max(out["max_abs_err"], worst)
         heur = ops.PAGED_DECODE.default_config(ctx)
         tm = time_paged_decode(chip, args, heur, ps, max_pages)
-        print(f"paged_decode {name}: {len(configs)} configs ok, max_abs_err "
-              f"{worst:.3g} (tol {tol}); heuristic {heur}: kernel_ms "
-              f"{tm['kernel_ms']:.4f} plain_ms {tm['plain_ms']:.4f} "
-              f"library_ms {tm['library_ms']:.4f} bound_ms "
-              f"{tm['bound_ms']:.5f} ({tm['bound_by']}, {tm['kv_tokens']} "
-              f"resident tokens)")
+        print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} plain_ms "
+              f"{tm['plain_ms']:.4f} library_ms {tm['library_ms']:.4f} "
+              f"bound_ms {tm['bound_ms']:.5f} ({tm['bound_by']}, "
+              f"{tm['kv_tokens']} resident tokens)")
     return out
 
 
@@ -283,8 +306,9 @@ def decode_state(engine, steps: int):
 
 def full_width_check(engine, steps: int = 16) -> None:
     """One decode step through both kernels against the same step through
-    the plain versions on clones of one cache, then a short greedy
-    continuation on each path (agreement printed, not asserted)."""
+    the plain versions on clones of one cache (logits within the bf16
+    tolerance in relative L2 norm, the same greedy tokens up to ties), then
+    a short greedy continuation on each path (agreement printed)."""
     from repro_torch.models import lm
     cfg, model = engine.cfg, engine.model
     cache, tables_d, lens_d, tok = decode_state(engine, steps)
@@ -309,19 +333,33 @@ def full_width_check(engine, steps: int = 16) -> None:
     a, b = first["kernel"], first["plain"]
     assert torch.isfinite(a).all() and a.shape == (B, cfg.vocab_size)
     err = float((a - b).abs().max())
-    scale = float(b.abs().max())
-    rel = err / max(scale, 1.0)
+    # Held at the logits' typical scale, not their tail: the error's norm
+    # against the plain logits' norm. Elementwise, 32 bf16 layers scatter
+    # every logit a little, so over 1.6M logits the largest error is a
+    # tail value of that scatter.
+    rel = float((a - b).norm() / b.norm())
+    std = float(b.std())
+    # The first step's greedy tokens agree, or the plain path scores the
+    # kernel path's token within the tolerance of its own best (a tie).
+    pick_a, pick_b = a.argmax(-1), b.argmax(-1)
+    gap = (b.gather(-1, pick_b[:, None])
+           - b.gather(-1, pick_a[:, None]))[:, 0]
     lens = lens_d.cpu().numpy()
     print(f"decode step, kernels vs plain, {B} sequences of {lens.min()}-"
-          f"{lens.max()} tokens: logits max_abs_err {err:.4g} against max "
-          f"|logit| {scale:.4g} (relative {rel:.3g}, tol {BF16_TOL}); "
-          f"first-step argmax agreement "
-          f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{B}; greedy "
-          f"agreement over {steps} steps "
+          f"{lens.max()} tokens: logits relative L2 error {rel:.4g} (tol "
+          f"{BF16_TOL}), max_abs_err {err:.4g}, logit std {std:.4g}, max "
+          f"|logit| {float(b.abs().max()):.4g}; first-step argmax agreement "
+          f"{int((pick_a == pick_b).sum())}/{B} (largest plain-logit gap "
+          f"at a disagreement {float(gap.max()):.4g}, tol "
+          f"{BF16_TOL * std:.4g}); greedy agreement over {steps} steps "
           f"{float((toks['kernel'] == toks['plain']).mean()):.3f}")
     if rel > BF16_TOL:
-        raise AssertionError(f"full-width decode step: relative logits "
+        raise AssertionError(f"full-width decode step: relative L2 logits "
                              f"error {rel} over {BF16_TOL}")
+    if float(gap.max()) > BF16_TOL * std:
+        raise AssertionError(f"full-width decode step: argmax differs where "
+                             f"the plain logits differ by {float(gap.max())}"
+                             f", over {BF16_TOL} of their std {std}")
 
 
 def profile_decode(engine, steps: int = 8) -> None:
@@ -420,15 +458,24 @@ def main(argv=None) -> int:
               f"{ctx['extra']}: {entry.n_evaluated} configs timed in "
               f"{entry.measure_s:.1f} s -> {entry.config} "
               f"({entry.metric * 1e3:.4f} ms)")
-    # The serving context's tuned configs, timed on inputs at the engine's
-    # pool layout with phase 3's ragged lengths.
+    # The layout the serving run launches (the engine's page size and
+    # table width): every valid config, the tuned one among them, checked
+    # against the plain version, then the tuned one timed.
     pd_ctx = serve.engine_contexts(engine)[0][1]
     pd_cfg = tuner.best_config(ops.PAGED_DECODE, pd_ctx)
     ps, max_pages = engine.pool.page_size, engine.scheduler.max_pages
-    cap = ps * max_pages
-    pd_args = paged_case(7, 8, 24, 8, 128, ps, max_pages,
-                         [0, cap + 1, 1, 130, 287, 400, 513, cap - 1],
+    cfg = engine.cfg
+    pd_args = paged_case(7, engine.scheduler.max_batch, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.head_dim, ps, max_pages,
+                         ragged_lens(ps * max_pages,
+                                     cfg.n_heads // cfg.n_kv_heads),
                          torch.bfloat16)
+    ctx, configs, worst = check_paged_layout(
+        chip, "phi4-mini bf16 at the serving layout", pd_args, ps, max_pages)
+    if ctx.signature() != pd_ctx.signature() or pd_cfg not in configs:
+        raise AssertionError(f"serving config {pd_cfg} under {pd_ctx} is "
+                             f"not among the configs checked under {ctx}")
+    pdk["max_abs_err"] = max(pdk["max_abs_err"], worst)
     pdk.update(time_paged_decode(chip, pd_args, pd_cfg, ps, max_pages))
     print(f"paged_decode at the serving layout (page {ps}, {max_pages} "
           f"pages a table) under {pd_cfg}: " + json.dumps(

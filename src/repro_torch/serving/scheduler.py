@@ -25,7 +25,9 @@ device with greedy argmax and a finite-logits flag computed there, so only
 token ids and one bit per slot cross to the host each step.
 
 Not in the port: prefix caching, speculative decoding, fault injection,
-kernel quarantine and CUDA graphs.
+kernel quarantine, CUDA graphs and the reference's wall-clock replay of
+arrivals (``run(real_time=True)``); ``ServingEngine.run`` makes every
+request eligible at once.
 """
 
 from __future__ import annotations
@@ -631,11 +633,9 @@ class ServingEngine:
         stats.timed_out = sched.timeouts - pre[2]
         return stats
 
-    def run(self, requests: List[Request], *,
-            real_time: bool = False) -> Dict[str, Any]:
-        """Serve ``requests`` until every one reaches a terminal state.
-        With ``real_time`` arrivals and deadlines follow the wall clock;
-        otherwise every request is eligible at once."""
+    def run(self, requests: List[Request]) -> Dict[str, Any]:
+        """Serve ``requests`` until every one reaches a terminal state;
+        every request is eligible at once."""
         for req in sorted(requests, key=lambda r: (r.arrival, r.rid)):
             if self._check(req):
                 self.scheduler.submit(req)
@@ -643,14 +643,10 @@ class ServingEngine:
         steps = 0
         stalls = 0
         while self.scheduler.has_work():
-            now = (time.perf_counter() - t0) if real_time else float("inf")
-            stats = self.step(now)
+            stats = self.step()
             steps += 1
             if stats.progressed():
                 stalls = 0
-                continue
-            if real_time and self.scheduler.waiting:
-                time.sleep(1e-4)       # idle: wait for the next arrival
                 continue
             if self.scheduler.backoff_pending():
                 stalls += 1
