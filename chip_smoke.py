@@ -8,28 +8,39 @@ the sources in the checkout and never imports JAX or the JAX package.
 Phases, each failing loudly:
 
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
-  2. the build of both kernels, started together: ``nvcc`` for the CUDA
-     ``paged_decode`` and the Triton compile of ``rms_norm``;
+  2. the build of every kernel, started together: ``nvcc`` for the CUDA
+     ``paged_decode`` and ``paged_verify`` and the Triton compile of
+     ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, for every valid config of its space, with its time, the
+     paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
-  4. tuning: the serve entry point's deployment lookup and the contexts the
-     engine will dispatch, tuned on the card; then every valid
-     ``paged_decode`` config at the pool layout the tuning chose (the
-     tuned one among them) against the plain version;
+  4. tuning: the serve entry point's deployment lookups (``paged_decode``;
+     ``paged_verify`` with the speculation depth free) and the contexts
+     the plain and the speculative engine will dispatch, tuned on the
+     card; then every valid ``paged_decode`` and ``paged_verify`` config at
+     the pool layout the tuning chose (the tuned ones among them) against
+     the plain versions, and the tuned ones timed;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
-     prefill chunks of 256, with both kernels' launch counts read around
-     the run;
-  6. one full-width decode step through the kernels against the same step
-     through the plain versions on the same cache, and a profiled window of
-     decode steps (wall time, device time, device busy share);
+     prefill chunks of 256, once by plain decode and once by speculative
+     decode (``--speculative``: draft and verify, depth from the tuned
+     deployment entry), with the kernels' launch counts read around each
+     run; the two runs' tokens must agree;
+  6. one full-width decode step and one full-width verify step through the
+     kernels against the same step through the plain versions on the same
+     cache, with the residual stream compared layer by layer, and a
+     profiled window of each (wall time, device time, device busy share);
+     then a small f32 model whose drafts are often rejected, served
+     speculatively on the CPU (plain versions) and on the card (kernels),
+     and by plain decode on the card: the same tokens and counts;
   7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import importlib.metadata
 import json
@@ -60,8 +71,8 @@ def card_line() -> str:
 
 
 def versions() -> dict:
-    from repro_torch.kernels import paged_decode as pd_kernel
-    nvcc = subprocess.run([pd_kernel._nvcc(), "--version"],
+    from repro_torch.kernels import build
+    nvcc = subprocess.run([build.nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     try:
         triton = importlib.metadata.version("triton")
@@ -73,36 +84,43 @@ def versions() -> dict:
 
 
 def build_kernels() -> dict:
-    """nvcc for the CUDA kernel and Triton's compile of rms_norm (on its
-    first launch), started together; returns seconds per build."""
+    """nvcc for each CUDA kernel (one process each) and Triton's compile of
+    rms_norm (on its first launch), started together; returns seconds per
+    build."""
     from repro_torch.kernels import paged_decode as pd_kernel
+    from repro_torch.kernels import paged_verify as pv_kernel
     from repro_torch.kernels import rms_norm as rms_kernel
     secs, errors = {}, []
+    libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB}
 
-    def nvcc():
+    def nvcc(name):
         t = time.perf_counter()
         try:
-            pd_kernel._load()
+            libs[name].load()
         except Exception as e:          # noqa: BLE001 — re-raised below
             errors.append(e)
-        secs["paged_decode"] = time.perf_counter() - t
+        secs[name] = time.perf_counter() - t
 
     t0 = time.perf_counter()
-    th = threading.Thread(target=nvcc)
-    th.start()
+    threads = [threading.Thread(target=nvcc, args=(name,)) for name in libs]
+    for th in threads:
+        th.start()
     x = torch.ones(8, 3072, device="cuda", dtype=torch.bfloat16)
     rms_kernel.rms_norm(x, x[0])
     torch.cuda.synchronize()
     secs["rms_norm"] = time.perf_counter() - t0
-    th.join()
+    for th in threads:
+        th.join()
     if errors:
         raise errors[0]
-    lines = [ln for ln in pd_kernel.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"ptxas (16 paged_decode instantiations): "
-          f"{max(int(ln.split('Used ')[1].split()[0]) for ln in lines if 'Used ' in ln)}"
-          f" registers at most; spills: "
-          f"{sorted({ln.strip() for ln in lines if 'spill' in ln})}")
+    for name, lib in libs.items():
+        lines = [ln for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                if "Used " in ln]
+        print(f"ptxas ({name}, {len(regs)} instantiations): {max(regs)} "
+              f"registers at most; spills: "
+              f"{sorted({ln.strip() for ln in lines if 'spill' in ln})}")
     return secs
 
 
@@ -119,8 +137,9 @@ def bound(workload, chip):
     return t * 1e3, by
 
 
-def paged_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype):
-    """Pool with page 0 as scratch and each sequence on shuffled pages."""
+def paged_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype, K=None):
+    """Pool with page 0 as scratch and each sequence on shuffled pages; q
+    is (B, Hq, D) for decode, (B, K, Hq, D) for a verify of depth K."""
     rng = np.random.default_rng(seed)
     n_pages = 1 + B * max_pages
     tables = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
@@ -129,33 +148,63 @@ def paged_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype):
         tables[b, -(-min(max(n, 0), max_pages * ps) // ps):] = 0
     g = torch.Generator(device="cuda").manual_seed(seed)
     rand = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
-    return (rand(B, Hq, D), rand(Hkv, n_pages, ps, D),
-            rand(Hkv, n_pages, ps, D), torch.from_numpy(tables).cuda(),
+    return (rand(B, Hq, D) if K is None else rand(B, K, Hq, D),
+            rand(Hkv, n_pages, ps, D), rand(Hkv, n_pages, ps, D),
+            torch.from_numpy(tables).cuda(),
             torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
 
 
-def time_paged_decode(chip, args, cfg, ps, max_pages) -> dict:
+def time_paged(chip, args, cfg, ps, max_pages) -> dict:
     """Kernel (under ``cfg``), plain version, library yardstick and the
-    roofline bound for one input set; the bound counts the resident
-    tokens these inputs have."""
+    roofline bound for one decode or verify input set; the bound counts
+    the resident tokens (and a verify's attended (row, key) pairs) these
+    inputs have."""
     from repro_torch.core import KernelWorkload
-    from repro_torch.kernels import ops, ref
-    q, kp = args[0], args[1]
-    B, Hq, D = q.shape
+    from repro_torch.kernels import ops
+    _, _, entry, plain, _ = paged_kernel(args, ps, max_pages, chip)
+    q, kp, lens = args[0], args[1], args[4]
+    B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
     cap = ps * max_pages
-    kv_tokens = int(torch.clamp(args[4], 0, cap).sum())
-    w = KernelWorkload(
-        ops.paged_decode_flops(Hq, D, kv_tokens),
-        ops.paged_decode_bytes(B, Hq, kp.shape[0], D, kv_tokens, max_pages,
-                               q.element_size()),
-        ops.dtype_name(q.dtype))
-    bound_ms, by = bound(w, chip)
+    kv_tokens = int(torch.clamp(lens, 0, cap).sum())
+    if q.dim() == 3:
+        flops = ops.paged_decode_flops(Hq, D, kv_tokens)
+        nbytes = ops.paged_decode_bytes(B, Hq, kp.shape[0], D, kv_tokens,
+                                        max_pages, q.element_size())
+    else:
+        K = q.shape[1]
+        flops = ops.paged_verify_flops(Hq, D,
+                                       ops.verify_attended(lens, K, cap))
+        nbytes = ops.paged_verify_bytes(B, K, Hq, kp.shape[0], D, kv_tokens,
+                                        max_pages, q.element_size())
+    bound_ms, by = bound(KernelWorkload(flops, nbytes,
+                                        ops.dtype_name(q.dtype)), chip)
     return {"kernel_ms": timer().time_runner(
-                lambda: ops.paged_decode(*args, config=cfg)) * 1e3,
-            "plain_ms": timer().time_runner(
-                lambda: ref.paged_decode(*args)) * 1e3,
+                lambda: entry(*args, config=cfg)) * 1e3,
+            "plain_ms": timer().time_runner(lambda: plain(*args)) * 1e3,
             "library_ms": sdpa_ms(args, cap), "bound_ms": bound_ms,
             "bound_by": by, "kv_tokens": kv_tokens}
+
+
+def sdpa_ms(args, cap) -> float:
+    """Yardstick only: PyTorch's SDPA with GQA over K/V already gathered
+    dense, each query position masked to its causal window (a decode is a
+    verify of one position; windows hold at least one key, so no row is
+    fully masked). The port never calls it."""
+    from repro_torch.kernels import ref
+    q, kp, vp, tables, kv_len = args
+    if q.dim() == 3:
+        q = q[:, None]
+    K = q.shape[1]
+    k = ref.gather_pages(kp, tables)
+    v = ref.gather_pages(vp, tables)
+    lens = torch.clamp(kv_len.long(), K, cap)
+    q_pos = lens[:, None] - K + torch.arange(K, device="cuda")[None]
+    mask = (torch.arange(k.shape[2], device="cuda")[None, None, :]
+            <= q_pos[:, :, None])[:, None]
+    qs = q.transpose(1, 2).contiguous()
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return timer().time_runner(
+        lambda: fn(qs, k, v, attn_mask=mask, enable_gqa=True)) * 1e3
 
 
 def ragged_lens(cap: int, group: int) -> list:
@@ -168,30 +217,46 @@ def ragged_lens(cap: int, group: int) -> list:
             (8 * cap) // 9 - 1, cap]
 
 
+def paged_kernel(args, ps, max_pages, chip):
+    """(kernel name, tunable, entry point, plain version, context) of the
+    paged attention kernel these inputs are for: a 3-d q is a decode, a
+    4-d q a verify of depth q.shape[1]."""
+    from repro_torch.kernels import ops, ref
+    q, kp = args[0], args[1]
+    Hkv, cap, dt = kp.shape[0], ps * max_pages, ops.dtype_name(q.dtype)
+    if q.dim() == 3:
+        B, Hq, D = q.shape
+        return ("paged_decode", ops.PAGED_DECODE, ops.paged_decode,
+                ref.paged_decode,
+                ops.paged_decode_context(chip, B, Hq, Hkv, D, cap, dt, ps))
+    B, K, Hq, D = q.shape
+    return ("paged_verify", ops.PAGED_VERIFY, ops.paged_verify,
+            ref.paged_verify,
+            ops.paged_verify_context(chip, B, Hq, Hkv, D, cap, dt, ps, K))
+
+
 def check_paged_layout(chip, name, args, ps, max_pages):
     """Every valid config of the context these inputs give, against the
     plain version on the same inputs; returns (context, configs checked,
     worst max abs error)."""
-    from repro_torch.kernels import ops, ref
-    q, kp = args[0], args[1]
-    B, Hq, D = q.shape
-    ctx = ops.paged_decode_context(chip, B, Hq, kp.shape[0], D,
-                                   ps * max_pages, ops.dtype_name(q.dtype),
-                                   ps)
+    kname, tunable, entry, plain, ctx = paged_kernel(args, ps, max_pages,
+                                                     chip)
+    q = args[0]
     tol = BF16_TOL if q.dtype == torch.bfloat16 else F32_TOL
-    want = ref.paged_decode(*args).float()
-    configs = ops.PAGED_DECODE.space.valid_configs(ctx)
+    want = plain(*args).float()
+    configs = tunable.space.valid_configs(ctx)
     if not configs:
-        raise AssertionError(f"paged_decode {name}: no valid config")
+        raise AssertionError(f"{kname} {name}: no valid config")
     worst = 0.0
     for cfg in configs:
-        got = ops.paged_decode(*args, config=cfg).float()
+        got = entry(*args, config=cfg).float()
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, atol=tol, rtol=tol):
-            raise AssertionError(f"paged_decode {name} {cfg}: max abs "
+            raise AssertionError(f"{kname} {name} {cfg}: max abs "
                                  f"err {err} over tolerance {tol}")
         worst = max(worst, err)
-    print(f"paged_decode {name} (pages of {ps}, {max_pages} a table, "
+    depth = f", K {q.shape[1]}" if q.dim() == 4 else ""
+    print(f"{kname} {name}{depth} (pages of {ps}, {max_pages} a table, "
           f"lengths {args[4].tolist()}): {len(configs)} configs ok, "
           f"max_abs_err {worst:.3g} (tol {tol})")
     return ctx, configs, worst
@@ -213,7 +278,7 @@ def check_paged_decode(chip) -> dict:
         ctx, _, worst = check_paged_layout(chip, name, args, ps, max_pages)
         out["max_abs_err"] = max(out["max_abs_err"], worst)
         heur = ops.PAGED_DECODE.default_config(ctx)
-        tm = time_paged_decode(chip, args, heur, ps, max_pages)
+        tm = time_paged(chip, args, heur, ps, max_pages)
         print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} plain_ms "
               f"{tm['plain_ms']:.4f} library_ms {tm['library_ms']:.4f} "
               f"bound_ms {tm['bound_ms']:.5f} ({tm['bound_by']}, "
@@ -221,19 +286,37 @@ def check_paged_decode(chip) -> dict:
     return out
 
 
-def sdpa_ms(args, cap) -> float:
-    """Yardstick only: PyTorch's SDPA with GQA over K/V already gathered
-    dense, masked to each row's length. The port never calls it."""
-    from repro_torch.kernels import ref
-    q, kp, vp, tables, kv_len = args
-    k = ref.gather_pages(kp, tables)
-    v = ref.gather_pages(vp, tables)
-    mask = (torch.arange(k.shape[2], device="cuda")[None, :]
-            < torch.clamp(kv_len, 1, cap)[:, None])[:, None, None, :]
-    qs = q[:, :, None, :]
-    fn = torch.nn.functional.scaled_dot_product_attention
-    return timer().time_runner(
-        lambda: fn(qs, k, v, attn_mask=mask, enable_gqa=True)) * 1e3
+def verify_lens(cap: int, K: int) -> list:
+    """Eight lengths (drafts counted): empty, one, a tail shorter than K,
+    exactly K, full, past capacity, and two ragged ones."""
+    return [0, 1, K - 1, K, cap, cap + 1, cap // 3 + 5, (2 * cap) // 3 - 1]
+
+
+def check_paged_verify(chip) -> dict:
+    """Every valid config against the plain version at pages of 16, on
+    phi4-mini's heads (bf16 and f32 pools) and on phi3-mini's (group 1,
+    D 96), at depths 2, 4 and 8. The serving layout is checked in phase
+    4, once it is known."""
+    from repro_torch.kernels import ops
+    ps, max_pages = 16, 36
+    cases = [("phi4-mini bf16", 8, 24, 8, 128, torch.bfloat16),
+             ("phi4-mini f32", 8, 24, 8, 128, torch.float32),
+             ("phi3-mini bf16", 8, 32, 32, 96, torch.bfloat16)]
+    out = {"max_abs_err": 0.0}
+    for name, B, Hq, Hkv, D, dtype in cases:
+        for K in (2, 4, 8):
+            args = paged_case(D + K, B, Hq, Hkv, D, ps, max_pages,
+                              verify_lens(ps * max_pages, K), dtype, K)
+            ctx, _, worst = check_paged_layout(chip, name, args, ps,
+                                               max_pages)
+            out["max_abs_err"] = max(out["max_abs_err"], worst)
+            heur = ops.PAGED_VERIFY.default_config(ctx)
+            tm = time_paged(chip, args, heur, ps, max_pages)
+            print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} "
+                  f"plain_ms {tm['plain_ms']:.4f} library_ms "
+                  f"{tm['library_ms']:.4f} bound_ms {tm['bound_ms']:.5f} "
+                  f"({tm['bound_by']}, {tm['kv_tokens']} resident tokens)")
+    return out
 
 
 def check_rms_norm(chip) -> dict:
@@ -304,78 +387,149 @@ def decode_state(engine, steps: int):
     return cache, tables_d, torch.from_numpy(lens.astype(np.int32)).cuda(), tok
 
 
+PATH_OPTS = {"kernel": dict(decode_impl="kernel", norm_impl="kernel"),
+             "plain": dict(decode_impl="plain", norm_impl="plain")}
+STREAM_LAYERS = (1, 2, 4, 8, 16, 32)
+
+
+@contextlib.contextmanager
+def residual_streams(model, out: dict):
+    """Record the residual stream after each layer of the forward passes
+    run inside into ``out[i]`` (i = 1..n_layers): the input of layer i's
+    first norm is the stream after layer i - 1, the final norm's input the
+    stream after the last layer. The port's code is unchanged: the norm
+    the layer loop calls is wrapped for the duration."""
+    from repro_torch.models import lm
+    index = {id(block.ln1): i for i, block in enumerate(model.layers)}
+    index[id(model.final_ln)] = len(model.layers)
+    real = lm.apply_norm
+
+    def recording(p, x, cfg, **kw):
+        i = index.get(id(p))
+        if i:                  # layer 0's norm sees the embeddings
+            out[i] = x.float().clone()
+        return real(p, x, cfg, **kw)
+
+    lm.apply_norm = recording
+    try:
+        yield out
+    finally:
+        lm.apply_norm = real
+
+
+def stream_errors(a: dict, b: dict) -> str:
+    return ", ".join(
+        f"{i}: {float((a[i] - b[i]).norm() / b[i].norm()):.3g}"
+        for i in STREAM_LAYERS if i in b)
+
+
+def hold_logits(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Kernel-path logits ``a`` against plain-path logits ``b`` of the same
+    step: relative L2 error within the bf16 tolerance, and on every row
+    the same greedy token, or one the plain path scores within 2% of the
+    logits' std of its own best (a tie). Held at the logits' typical
+    scale, not their tail: over millions of logits of 32 bf16 layers the
+    largest elementwise error is a tail value of the scatter."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    assert torch.isfinite(a).all()
+    err = float((a - b).abs().max())
+    rel = float((a - b).norm() / b.norm())
+    std = float(b.std())
+    pick_a, pick_b = a.argmax(-1), b.argmax(-1)
+    gap = (b.gather(-1, pick_b[:, None]) - b.gather(-1, pick_a[:, None]))
+    print(f"{label}: logits relative L2 error {rel:.4g} (tol {BF16_TOL}), "
+          f"max_abs_err {err:.4g}, logit std {std:.4g}, max |logit| "
+          f"{float(b.abs().max()):.4g}; argmax agreement "
+          f"{int((pick_a == pick_b).sum())}/{a.shape[0]} (largest "
+          f"plain-logit gap at a disagreement {float(gap.max()):.4g}, tol "
+          f"{BF16_TOL * std:.4g})")
+    if rel > BF16_TOL:
+        raise AssertionError(f"{label}: relative L2 logits error {rel} over "
+                             f"{BF16_TOL}")
+    if float(gap.max()) > BF16_TOL * std:
+        raise AssertionError(f"{label}: argmax differs where the plain "
+                             f"logits differ by {float(gap.max())}, over "
+                             f"{BF16_TOL} of their std {std}")
+
+
 def full_width_check(engine, steps: int = 16) -> None:
     """One decode step through both kernels against the same step through
-    the plain versions on clones of one cache (logits within the bf16
-    tolerance in relative L2 norm, the same greedy tokens up to ties), then
-    a short greedy continuation on each path (agreement printed)."""
+    the plain versions on clones of one cache (logits and greedy tokens
+    held by ``hold_logits``, residual stream compared layer by layer),
+    then a short greedy continuation on each path (agreement printed)."""
     from repro_torch.models import lm
     cfg, model = engine.cfg, engine.model
     cache, tables_d, lens_d, tok = decode_state(engine, steps)
     B = tok.shape[0]
     caches = {"kernel": [{k: v.clone() for k, v in layer.items()}
                          for layer in cache], "plain": cache}
-    opts = {"kernel": lm.ForwardOpts(decode_impl="kernel",
-                                     norm_impl="kernel"),
-            "plain": lm.ForwardOpts(decode_impl="plain", norm_impl="plain")}
-    first, toks = {}, {}
+    first, toks, streams = {}, {}, {}
     for path in ("kernel", "plain"):
         t, seq = tok, []
+        opts = lm.ForwardOpts(**PATH_OPTS[path])
         for i in range(steps):
-            logits, _ = lm.decode_step_paged(model, cfg, t, caches[path],
-                                             tables_d, lens_d + i,
-                                             opts[path])
+            record = (residual_streams(model, streams.setdefault(path, {}))
+                      if i == 0 else contextlib.nullcontext())
+            with record:
+                logits, _ = lm.decode_step_paged(model, cfg, t, caches[path],
+                                                 tables_d, lens_d + i, opts)
             if i == 0:
                 first[path] = logits
             t = torch.argmax(logits, -1, keepdim=True)
             seq.append(t[:, 0].cpu().numpy())
         toks[path] = np.stack(seq, 1)
-    a, b = first["kernel"], first["plain"]
-    assert torch.isfinite(a).all() and a.shape == (B, cfg.vocab_size)
-    err = float((a - b).abs().max())
-    # Held at the logits' typical scale, not their tail: the error's norm
-    # against the plain logits' norm. Elementwise, 32 bf16 layers scatter
-    # every logit a little, so over 1.6M logits the largest error is a
-    # tail value of that scatter.
-    rel = float((a - b).norm() / b.norm())
-    std = float(b.std())
-    # The first step's greedy tokens agree, or the plain path scores the
-    # kernel path's token within the tolerance of its own best (a tie).
-    pick_a, pick_b = a.argmax(-1), b.argmax(-1)
-    gap = (b.gather(-1, pick_b[:, None])
-           - b.gather(-1, pick_a[:, None]))[:, 0]
+    assert first["kernel"].shape == (B, cfg.vocab_size)
     lens = lens_d.cpu().numpy()
-    print(f"decode step, kernels vs plain, {B} sequences of {lens.min()}-"
-          f"{lens.max()} tokens: logits relative L2 error {rel:.4g} (tol "
-          f"{BF16_TOL}), max_abs_err {err:.4g}, logit std {std:.4g}, max "
-          f"|logit| {float(b.abs().max()):.4g}; first-step argmax agreement "
-          f"{int((pick_a == pick_b).sum())}/{B} (largest plain-logit gap "
-          f"at a disagreement {float(gap.max()):.4g}, tol "
-          f"{BF16_TOL * std:.4g}); greedy agreement over {steps} steps "
+    hold_logits(f"decode step, kernels vs plain, {B} sequences of "
+                f"{lens.min()}-{lens.max()} tokens", first["kernel"],
+                first["plain"])
+    print(f"  residual stream, relative L2 after layer "
+          f"{stream_errors(streams['kernel'], streams['plain'])}")
+    print(f"  greedy agreement over {steps} steps "
           f"{float((toks['kernel'] == toks['plain']).mean()):.3f}")
-    if rel > BF16_TOL:
-        raise AssertionError(f"full-width decode step: relative L2 logits "
-                             f"error {rel} over {BF16_TOL}")
-    if float(gap.max()) > BF16_TOL * std:
-        raise AssertionError(f"full-width decode step: argmax differs where "
-                             f"the plain logits differ by {float(gap.max())}"
-                             f", over {BF16_TOL} of their std {std}")
 
 
-def profile_decode(engine, steps: int = 8) -> None:
-    """Where a full-width decode step's time goes: the step's wall time
-    unprofiled, then the device time of its kernels under
+def verify_check(engine) -> None:
+    """One verify step (the engine's depth K, random drafts) through the
+    kernels against the same verify step through the plain versions on
+    clones of one cache: the same GEMMs of B·K rows on both paths, so only
+    attention and the norms differ. Logits and greedy tokens of all B·K
+    rows held by ``hold_logits``; residual stream compared layer by
+    layer."""
+    from repro_torch.models import lm
+    cfg, model, K = engine.cfg, engine.model, engine.spec_k
+    cache, tables_d, lens_d, tok = decode_state(engine, K)
+    B = tok.shape[0]
+    rng = np.random.default_rng(6)
+    drafts = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                           (B, K - 1))).cuda()
+    toks = torch.cat([tok, drafts], 1)
+    caches = {"kernel": [{k: v.clone() for k, v in layer.items()}
+                         for layer in cache], "plain": cache}
+    logits, streams = {}, {"kernel": {}, "plain": {}}
+    for path in ("kernel", "plain"):
+        with residual_streams(model, streams[path]):
+            logits[path], _ = lm.verify_step_paged(
+                model, cfg, toks, caches[path], tables_d, lens_d,
+                lm.ForwardOpts(**PATH_OPTS[path]))
+    assert logits["kernel"].shape == (B, K, cfg.vocab_size)
+    lens = lens_d.cpu().numpy()
+    hold_logits(f"verify step (K {K}), kernels vs plain, {B} sequences of "
+                f"{lens.min()}-{lens.max()} tokens, every position",
+                logits["kernel"], logits["plain"])
+    print(f"  residual stream, relative L2 after layer "
+          f"{stream_errors(streams['kernel'], streams['plain'])}")
+
+
+def profile_steps(label: str, step, steps: int = 8) -> None:
+    """Where a full-width step's time goes: ``step(i)`` runs the i-th step;
+    its wall time unprofiled, then the device time of its kernels under
     ``torch.profiler``; the device busy share is their ratio."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import lm
-    cfg, model = engine.cfg, engine.model
-    opts = lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel")
-    cache, tables_d, lens_d, tok = decode_state(engine, 2 * steps + 2)
 
     def run(i0):
         for i in range(steps):
-            lm.decode_step_paged(model, cfg, tok, cache, tables_d,
-                                 lens_d + i0 + i, opts)
+            step(i0 + i)
         torch.cuda.synchronize()
 
     run(0)
@@ -393,18 +547,142 @@ def profile_decode(engine, steps: int = 8) -> None:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     if not kernels:
-        print(f"decode step (8 rows, full width): wall {wall * 1e3:.2f} ms "
-              "unprofiled; the profiler saw no device events, so device "
-              "time is not measured")
+        print(f"{label}: wall {wall * 1e3:.2f} ms unprofiled; the profiler "
+              "saw no device events, so device time is not measured")
         return
     device = sum(us for us, _ in by_name.values()) * 1e-6 / steps
-    print(f"decode step (8 rows, full width): wall {wall * 1e3:.2f} ms "
-          f"unprofiled; device time of its kernels {device * 1e3:.3f} ms "
-          f"(profiler, {len(kernels) // steps} device events a step); "
-          f"device busy share {device / wall:.3f}")
+    print(f"{label}: wall {wall * 1e3:.2f} ms unprofiled; device time of "
+          f"its kernels {device * 1e3:.3f} ms (profiler, "
+          f"{len(kernels) // steps} device events a step); device busy "
+          f"share {device / wall:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {us * 1e-3 / steps:8.4f} ms/step {n // steps:4d} calls/step"
               f"  {name[:90]}")
+
+
+def profile_decode_and_verify(engine, spec_engine, steps: int = 8) -> None:
+    from repro_torch.models import lm
+    cfg, model = engine.cfg, engine.model
+    opts = lm.ForwardOpts(**PATH_OPTS["kernel"])
+    cache, tables_d, lens_d, tok = decode_state(engine, 2 * steps + 2)
+    profile_steps(
+        f"decode step ({tok.shape[0]} rows, full width)",
+        lambda i: lm.decode_step_paged(model, cfg, tok, cache, tables_d,
+                                       lens_d + i, opts), steps)
+    K = spec_engine.spec_k
+    cache, tables_d, lens_d, tok = decode_state(spec_engine,
+                                                (2 * steps + 1) * K)
+    toks = tok.repeat(1, K)
+    profile_steps(
+        f"verify step (K {K}, {tok.shape[0]} rows, full width)",
+        lambda i: lm.verify_step_paged(spec_engine.model, cfg, toks, cache,
+                                       tables_d, lens_d + i * K, opts),
+        steps)
+
+
+def first_divergences(engine, plain_reqs, spec_reqs, K: int) -> None:
+    """The plain and the speculative run's token streams agree, or at the
+    first token where one differs the plain path's logits (recomputed by
+    one kernel-path prefill of the context before it) score the two
+    tokens within 2% of the logits' std: a tie, as ``hold_logits``
+    allows."""
+    from repro_torch.models import lm
+    cfg, model, ps = engine.cfg, engine.model, engine.pool.page_size
+    equal, found = 0, []
+    for a, b in zip(plain_reqs, spec_reqs):
+        i = next((j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                  if x != y), None)
+        if i is None and len(a.tokens) == len(b.tokens):
+            equal += 1
+            continue
+        assert i is not None, (a.tokens, b.tokens)
+        ctx = np.concatenate([a.prompt, np.asarray(a.tokens[:i], np.int32)])
+        n_pages = -(-len(ctx) // ps)
+        cache = lm.init_paged_cache(cfg, 1 + n_pages, ps, device="cuda")
+        tables = torch.arange(1, 1 + n_pages, dtype=torch.int32,
+                              device="cuda")[None]
+        logits, _ = lm.prefill_paged(
+            model, cfg, torch.from_numpy(ctx[None].astype(np.int64)).cuda(),
+            cache, tables, torch.zeros(1, dtype=torch.int32, device="cuda"),
+            lm.ForwardOpts(**PATH_OPTS["kernel"]))
+        row = logits[0, -1]
+        gap = float(row[a.tokens[i]] - row[b.tokens[i]])
+        std = float(row.std())
+        found.append({"rid": a.rid, "token": i, "plain": a.tokens[i],
+                      "speculative": b.tokens[i], "plain_logit_gap": gap,
+                      "tol": BF16_TOL * std})
+        if abs(gap) > BF16_TOL * std:
+            raise AssertionError(f"request {a.rid} diverges at token {i} "
+                                 f"where the plain logits differ by {gap}, "
+                                 f"over {BF16_TOL} of their std {std}")
+    print(f"plain vs --speculative (K {K}) at full width: {equal}/"
+          f"{len(plain_reqs)} token streams equal; first divergences: "
+          f"{json.dumps(found)}")
+
+
+def rejection_run() -> None:
+    """A small f32 model whose drafts are often rejected: phi4-mini's smoke
+    widths with 4 layers, a vocabulary of 64 and untied embeddings (tied
+    ones make a random model repeat its input, so drafts always match),
+    weights from seed 1. Six requests served speculatively at depth 4 on
+    the CPU (plain versions), then on the card (kernels), then by plain
+    decode on the card: the same tokens, the same verify steps and
+    committed tokens, and an acceptance strictly between 1 and 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_tuner
+    from repro_torch.kernels import paged_decode as pd_kernel
+    from repro_torch.kernels import paged_verify as pv_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.serving import Request, ServingEngine
+    K = 4
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
+                              name="spec-reject", n_layers=4, vocab_size=64,
+                              tie_embeddings=False)
+    model = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+
+    def run(device, speculative):
+        rng = np.random.default_rng(1)
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    1, cfg.vocab_size, int(rng.integers(8, 24))).astype(
+                        np.int32), max_new_tokens=24) for i in range(6)]
+        eng = ServingEngine(cfg, model, num_pages=1 + 6 * 8, page_size=8,
+                            max_batch=4, max_seq_len=64, prefill_chunk=8,
+                            opts=lm.ForwardOpts(**PATH_OPTS["kernel"]),
+                            device=device, speculative=speculative)
+        if device == "cuda":            # tuned before the launches count
+            for kernel, ctx in serve.engine_contexts(eng):
+                default_tuner().best_config(kernel, ctx)
+        before = (pd_kernel.paged_decode.launches,
+                  pv_kernel.paged_verify.launches)
+        res = eng.run(reqs)
+        assert res["requests"] == res["terminal_requests"] == 6, res
+        eng.scheduler.check_invariants()
+        assert eng.pool.num_allocated == 0
+        res["launches"] = (pd_kernel.paged_decode.launches - before[0],
+                           pv_kernel.paged_verify.launches - before[1])
+        return [r.tokens for r in reqs], res
+
+    cpu_toks, cpu = run("cpu", K)
+    model.to("cuda")
+    card_toks, card = run("cuda", K)
+    plain_toks, plain = run("cuda", 0)
+    sp, csp = card["speculative"], cpu["speculative"]
+    print(f"rejection run (f32, 4 layers, K {K}): CPU {json.dumps(csp)}; "
+          f"card {json.dumps(sp)}, {card['verify_passes']} verify passes, "
+          f"launches (paged_decode, paged_verify) {card['launches']}; card "
+          f"plain decode: {plain['decode_steps']} decode steps, launches "
+          f"{plain['launches']}")
+    assert card_toks == cpu_toks, "card and CPU tokens differ"
+    assert plain_toks == card_toks, "speculative and plain tokens differ"
+    for key in ("verify_steps", "committed_tokens"):
+        assert sp[key] == csp[key], (key, sp, csp)
+    assert 1.0 < sp["accepted_per_step"] < K, sp
+    assert card["launches"] == (0, card["verify_passes"] * cfg.n_layers)
+    assert plain["launches"] == (plain["decode_steps"] * cfg.n_layers, 0)
+    print(f"  6/6 token streams equal (card = CPU = card plain decode); "
+          f"accepted_per_step {sp['accepted_per_step']:.4f}")
 
 
 def main(argv=None) -> int:
@@ -418,12 +696,16 @@ def main(argv=None) -> int:
     from repro_torch.core import default_tuner
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_decode as pd_kernel
+    from repro_torch.kernels import paged_verify as pv_kernel
     from repro_torch.kernels import rms_norm as rms_kernel
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def elapsed() -> str:
+        return f"[{time.perf_counter() - t_start:.0f} s]"
 
     phase("1. card and tools")
     card = card_line()
@@ -432,54 +714,76 @@ def main(argv=None) -> int:
     chip = ops.device_chip(0)
     print(f"spec: {chip}")
 
-    phase("2. build")
+    phase(f"2. build {elapsed()}")
     secs = build_kernels()
     print("build seconds: " + json.dumps({k: round(v, 1)
                                           for k, v in secs.items()}))
 
-    phase("3. kernels against their plain versions")
+    phase(f"3. kernels against their plain versions {elapsed()}")
     pdk = check_paged_decode(chip)
+    pvk = check_paged_verify(chip)
     rms = check_rms_norm(chip)
 
-    phase("4. tuning (deployment lookup and the engine's contexts)")
+    phase(f"4. tuning (deployment lookups and the engines' contexts) "
+          f"{elapsed()}")
     tuner = default_tuner()
     tuner.on_miss = "tune"
-    args = serve.build_parser().parse_args([
-        "--full-config", "--requests", "8", "--prompt-len", "512",
-        "--min-prompt-len", "128", "--gen", "32", "--max-batch", "8",
-        "--prefill-chunk", "256"])
+    argv = ["--full-config", "--requests", "8", "--prompt-len", "512",
+            "--min-prompt-len", "128", "--gen", "32", "--max-batch", "8",
+            "--prefill-chunk", "256"]
     t = time.perf_counter()
-    engine, reqs, info = serve.prepare(args, tuner)
-    print(f"prepare (weights on the card, pool, tuning): "
+    engine, reqs, info = serve.prepare(serve.build_parser().parse_args(argv),
+                                       tuner)
+    print(f"prepare plain (weights on the card, pool, tuning): "
           f"{time.perf_counter() - t:.1f} s; {json.dumps(info)}")
+    t = time.perf_counter()
+    spec_engine, spec_reqs, spec_info = serve.prepare(
+        serve.build_parser().parse_args(argv + ["--speculative"]), tuner)
+    K = spec_engine.spec_k
+    print(f"prepare --speculative: {time.perf_counter() - t:.1f} s; "
+          f"{json.dumps(spec_info)}")
+    print(f"the paged_verify deployment entry "
+          f"{spec_info['verify_deployment_config']} recommends draft_k {K}")
     for k, entry in tuner.cache.items():
         ctx = json.loads(k["ctx"])
         print(f"tuned {k['kernel']} shapes {ctx['shapes']} extra "
               f"{ctx['extra']}: {entry.n_evaluated} configs timed in "
               f"{entry.measure_s:.1f} s -> {entry.config} "
               f"({entry.metric * 1e3:.4f} ms)")
-    # The layout the serving run launches (the engine's page size and
+    # The layouts the serving runs launch (the engines' page size and
     # table width): every valid config, the tuned one among them, checked
     # against the plain version, then the tuned one timed.
-    pd_ctx = serve.engine_contexts(engine)[0][1]
-    pd_cfg = tuner.best_config(ops.PAGED_DECODE, pd_ctx)
+    contexts = dict((k.name, c) for k, c in
+                    serve.engine_contexts(spec_engine)
+                    if k.name != "rms_norm")
+    assert contexts["paged_decode"].signature() == \
+        serve.engine_contexts(engine)[0][1].signature()
     ps, max_pages = engine.pool.page_size, engine.scheduler.max_pages
     cfg = engine.cfg
-    pd_args = paged_case(7, engine.scheduler.max_batch, cfg.n_heads,
-                         cfg.n_kv_heads, cfg.head_dim, ps, max_pages,
-                         ragged_lens(ps * max_pages,
-                                     cfg.n_heads // cfg.n_kv_heads),
-                         torch.bfloat16)
-    ctx, configs, worst = check_paged_layout(
-        chip, "phi4-mini bf16 at the serving layout", pd_args, ps, max_pages)
-    if ctx.signature() != pd_ctx.signature() or pd_cfg not in configs:
-        raise AssertionError(f"serving config {pd_cfg} under {pd_ctx} is "
-                             f"not among the configs checked under {ctx}")
-    pdk["max_abs_err"] = max(pdk["max_abs_err"], worst)
-    pdk.update(time_paged_decode(chip, pd_args, pd_cfg, ps, max_pages))
-    print(f"paged_decode at the serving layout (page {ps}, {max_pages} "
-          f"pages a table) under {pd_cfg}: " + json.dumps(
-              {k: v for k, v in pdk.items() if k != "max_abs_err"}))
+    lens = {"paged_decode": ragged_lens(ps * max_pages,
+                                        cfg.n_heads // cfg.n_kv_heads),
+            "paged_verify": verify_lens(ps * max_pages, K)}
+    for name, out in (("paged_decode", pdk), ("paged_verify", pvk)):
+        tuned = tuner.best_config(
+            {"paged_decode": ops.PAGED_DECODE,
+             "paged_verify": ops.PAGED_VERIFY}[name], contexts[name])
+        args = paged_case(7, engine.scheduler.max_batch, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.head_dim, ps, max_pages,
+                          lens[name], torch.bfloat16,
+                          K if name == "paged_verify" else None)
+        ctx, configs, worst = check_paged_layout(
+            chip, "phi4-mini bf16 at the serving layout", args, ps,
+            max_pages)
+        if ctx.signature() != contexts[name].signature() \
+                or tuned not in configs:
+            raise AssertionError(f"serving config {tuned} under "
+                                 f"{contexts[name]} is not among the "
+                                 f"configs checked under {ctx}")
+        out["max_abs_err"] = max(out["max_abs_err"], worst)
+        out.update(time_paged(chip, args, tuned, ps, max_pages))
+        print(f"{name} at the serving layout (page {ps}, {max_pages} "
+              f"pages a table) under {tuned}: " + json.dumps(
+                  {k: v for k, v in out.items() if k != "max_abs_err"}))
     rms_cfg = tuner.best_config(
         ops.RMS_NORM, ops.rmsnorm_context(chip, (8, 1, 3072), "bfloat16"))
     x, w = rms["args"]
@@ -488,49 +792,69 @@ def main(argv=None) -> int:
     print(f"rms_norm (8, 3072) bf16 under {rms_cfg}: kernel_ms "
           f"{rms['kernel_ms']:.4f}")
 
-    phase("5. serving phi4-mini-3.8b at full width")
-    pd_kernel.paged_decode.launches = 0
-    rms_kernel.rms_norm.launches = 0
-    report = serve.serve(engine, reqs)
-    launches = {"paged_decode": pd_kernel.paged_decode.launches,
-                "rms_norm": rms_kernel.rms_norm.launches}
-    print("run report: " + json.dumps(report, sort_keys=True))
-    print("launches in the run: " + json.dumps(launches))
+    phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
+    counters = {"paged_decode": pd_kernel.paged_decode,
+                "paged_verify": pv_kernel.paged_verify,
+                "rms_norm": rms_kernel.rms_norm}
     n_layers = engine.cfg.n_layers
     assert n_layers == 32 and engine.cfg.d_model == 3072
-    assert report["lifecycle"]["terminal"] == len(reqs) == 8
-    assert report["lifecycle"]["failed"] == 0
-    assert all(len(r.tokens) == 32 for r in reqs)
+    runs = {}
+    for label, eng, rs in (("plain", engine, reqs),
+                           (f"--speculative {K}", spec_engine, spec_reqs)):
+        for fn in counters.values():
+            fn.launches = 0
+        report = serve.serve(eng, rs)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[label] = (report, launches)
+        print(f"run report ({label}): " + json.dumps(report, sort_keys=True))
+        print(f"launches in the run ({label}): " + json.dumps(launches))
+        assert report["lifecycle"]["terminal"] == len(rs) == 8
+        assert report["lifecycle"]["failed"] == 0
+        assert all(len(r.tokens) == 32 for r in rs)
+        assert launches["rms_norm"] > 0, launches
+        print(f"  tokens/s {report['tokens_per_s']:.1f}, TTFT p50 "
+              f"{report['ttft_p50_ms']:.1f} ms p99 "
+              f"{report['ttft_p99_ms']:.1f} ms, ITL p50 "
+              f"{report['itl_p50_ms']:.2f} ms p99 "
+              f"{report['itl_p99_ms']:.2f} ms, peak memory "
+              f"{report['peak_memory_bytes'] / 2**30:.2f} GiB")
+    (report, launches), (spec_report, spec_launches) = runs.values()
     assert launches["paged_decode"] == report["decode_steps"] * n_layers, \
         launches
-    assert launches["rms_norm"] > 0, launches
-    print(f"tokens/s {report['tokens_per_s']:.1f}, TTFT p50 "
-          f"{report['ttft_p50_ms']:.1f} ms p99 {report['ttft_p99_ms']:.1f} "
-          f"ms, ITL p50 {report['itl_p50_ms']:.2f} ms, peak memory "
-          f"{report['peak_memory_bytes'] / 2**30:.2f} GiB")
+    assert launches["paged_verify"] == 0, launches
+    sp = spec_report["speculative"]
+    assert sp["draft_k"] == K and not sp["degraded"], sp
+    assert spec_report["decode_steps"] == 0 == spec_launches["paged_decode"]
+    assert spec_launches["paged_verify"] == \
+        spec_report["verify_passes"] * n_layers > 0, spec_launches
+    first_divergences(engine, reqs, spec_reqs, K)
 
-    phase("6. full-width decode step: kernels against plain versions, "
-          "and where its time goes")
+    phase(f"6. full-width steps: kernels against plain versions, and where "
+          f"their time goes {elapsed()}")
     full_width_check(engine)
-    profile_decode(engine)
+    verify_check(spec_engine)
+    profile_decode_and_verify(engine, spec_engine)
+    rejection_run()
 
-    phase("7. summary")
+    phase(f"7. summary {elapsed()}")
+
+    def entry(name, route, source, replaces, launches, out):
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": out["max_abs_err"], "ms": out["kernel_ms"],
+                "plain_ms": out["plain_ms"], "bound_ms": out["bound_ms"],
+                "bound_by": out["bound_by"],
+                "library_ms": out["library_ms"]}
+
     kernels = [
-        {"name": "paged_decode", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_decode.cu",
-         "replaces": "src/repro/kernels/paged_decode.py:54",
-         "launches": launches["paged_decode"],
-         "max_abs_err": pdk["max_abs_err"],
-         "ms": pdk["kernel_ms"],
-         "plain_ms": pdk["plain_ms"], "bound_ms": pdk["bound_ms"],
-         "bound_by": pdk["bound_by"], "library_ms": pdk["library_ms"]},
-        {"name": "rms_norm", "route": "triton",
-         "source": "src/repro_torch/kernels/rms_norm.py",
-         "replaces": "src/repro/kernels/rms_norm.py:24",
-         "launches": launches["rms_norm"],
-         "max_abs_err": rms["max_abs_err"], "ms": rms["kernel_ms"],
-         "plain_ms": rms["plain_ms"], "bound_ms": rms["bound_ms"],
-         "bound_by": rms["bound_by"], "library_ms": rms["library_ms"]},
+        entry("paged_decode", "cuda", "src/repro_torch/csrc/paged_decode.cu",
+              "src/repro/kernels/paged_decode.py:54",
+              launches["paged_decode"], pdk),
+        entry("paged_verify", "cuda", "src/repro_torch/csrc/paged_verify.cu",
+              "src/repro/kernels/paged_verify.py:52",
+              spec_launches["paged_verify"], pvk),
+        entry("rms_norm", "triton", "src/repro_torch/kernels/rms_norm.py",
+              "src/repro/kernels/rms_norm.py:24", launches["rms_norm"], rms),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

@@ -5,9 +5,8 @@ The CUDA C++ kernel replaces the TPU kernel ``paged_decode`` of
 bounds it on Hopper (HBM bytes) and how its design answers that.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use (``build()``), into ``build/`` at the
-repository root under a name that carries the source's hash, and loaded
-with ``ctypes``. Tensor pointers and the current stream go in as
+with a plain C interface at first use (``LIB``, ``kernels.build``) and
+loaded with ``ctypes``. Tensor pointers and the current stream go in as
 ``c_void_p``; the C function returns ``cudaGetLastError()`` and the
 wrapper raises on anything but 0.
 
@@ -21,76 +20,29 @@ in ``kernels.ref``; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.build import KernelLibrary
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 MAX_HEAD_DIM = 256
 MAX_PACKED_GROUP = 8
 MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
-build_log = ""                   # nvcc's -Xptxas -v report of the last build
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.paged_decode_launch.argtypes = (
+        [vp] * 6 + [i32] * 7 + [ctypes.c_float] + [i32] * 4 + [vp])
+    lib.paged_decode_launch.restype = i32
+    lib.paged_decode_smem_bytes.argtypes = [i32] * 6
+    lib.paged_decode_smem_bytes.restype = i32
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: paged_decode is built on the card's "
-                       "machine from csrc/paged_decode.cu")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source version is not built yet;
-    returns its path. Safe to call from several threads."""
-    global build_log
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    out = BUILD_DIR / f"libpaged_decode_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.paged_decode_launch.argtypes = (
-                [vp] * 6 + [i32] * 7 + [ctypes.c_float] + [i32] * 4 + [vp])
-            lib.paged_decode_launch.restype = i32
-            lib.paged_decode_smem_bytes.argtypes = [i32] * 6
-            lib.paged_decode_smem_bytes.restype = i32
-            _lib = lib
-        return _lib
+LIB = KernelLibrary("paged_decode", _declare)
 
 
 def _lanes_per_row(D: int, itemsize: int) -> int:
@@ -174,7 +126,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     tables = block_tables.to(torch.int32).contiguous()
     lens = kv_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _load()
+    lib = LIB.load()
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(),

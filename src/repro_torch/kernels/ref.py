@@ -65,6 +65,44 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        0.0).to(q.dtype)
 
 
+def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 kv_len: torch.Tensor, *,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Speculative verify: gather each sequence's pages dense, then score
+    K consecutive query positions with a per-sequence causal tail.
+
+    q (B, K, Hq, D); ``kv_len`` (B,) counts valid tokens *including* the K
+    scattered draft positions and is clamped to the table capacity, so
+    query t (absolute position ``kv_len - K + t``) attends
+    ``k_pos <= kv_len - K + t``. Probabilities outside that window are
+    zeroed, so query rows with an empty window (inactive slots,
+    ``kv_len < K`` tails) return exact zeros. Returns (B, K, Hq, D) in q's
+    dtype."""
+    B, K, Hq, D = q.shape
+    k = gather_pages(k_pages, block_tables)     # (B, Hkv, T, D)
+    v = gather_pages(v_pages, block_tables)
+    Hkv, T = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    kq = torch.repeat_interleave(k, group, dim=1).float()
+    vq = torch.repeat_interleave(v, group, dim=1).float()
+    s = torch.einsum("bqhd,bhkd->bhqk", q.float(), kq) * scale
+    lens = torch.clamp(kv_len.long(), 0, T)
+    q_pos = (lens[:, None] - K
+             + torch.arange(K, device=q.device)[None, :])      # (B, K)
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= q_pos[:, :, None])[:, None]                     # (B,1,K,T)
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhqk,bhkd->bqhd", p, vq)
+    return o.to(q.dtype)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS layer norm over the last axis, f32 inside, cast back."""

@@ -1,7 +1,7 @@
 """Paged continuous-batching serving launcher on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
-      --requests 8 --prompt-len 512 --gen 32 --max-batch 8
+      --requests 8 --prompt-len 512 --gen 32 --max-batch 8 [--speculative [K]]
 
 The port of ``repro.launch.serve``'s ``--decode-impl paged`` path. The pool's
 page size comes from the tuner's deployment-level ``paged_decode`` config:
@@ -11,6 +11,13 @@ card on a miss. The run then tunes the exact contexts the engine will
 dispatch (``ServingEngine`` kernels at its pool layout), serves the
 requests with the ``paged_decode`` CUDA kernel and the ``rms_norm`` Triton
 kernel on every layer, and prints one structured run report.
+
+``--speculative [K]`` (``--speculative`` of the reference's paged path)
+serves by draft and verify through the ``paged_verify`` CUDA kernel
+instead, with K draft positions a step. The bare flag takes K from the
+tuned ``paged_verify`` deployment entry (the same canonical scenario with
+``draft_k`` and ``page_size`` free); the pool keeps ``paged_decode``'s
+page size either way.
 
 It runs on the card only: with no CUDA device it raises instead of
 carrying on on the CPU.
@@ -47,6 +54,12 @@ def deployment_context(full_cfg: ModelConfig, chip):
         full_cfg.head_dim, DEPLOY_TOKENS, DEPLOY_DTYPE)
 
 
+def verify_deployment_context(full_cfg: ModelConfig, chip):
+    return ops.paged_verify_context(
+        chip, DEPLOY_BATCH, full_cfg.n_heads, full_cfg.n_kv_heads,
+        full_cfg.head_dim, DEPLOY_TOKENS, DEPLOY_DTYPE)
+
+
 def pool_page_size(deploy_page_size: int, max_seq_len: int) -> int:
     """The deployment winner's page size, clamped to the largest tunable
     one a single sequence can still fill."""
@@ -69,17 +82,26 @@ def make_requests(cfg: ModelConfig, n: int, min_prompt: int, max_prompt: int,
 
 def engine_contexts(engine: ServingEngine):
     """Every (kernel, context) the engine's steps dispatch: paged_decode at
-    the pool layout, rms_norm on prefill chunks and on decode rows."""
+    the pool layout, rms_norm on prefill chunks and on decode rows, and
+    under speculation paged_verify at the pool layout and the engine's
+    depth, with rms_norm on its K rows a slot."""
     cfg, sched, pool = engine.cfg, engine.scheduler, engine.pool
     chip = ops.device_chip(engine.device.index or 0)
     dt = cfg.dtype
+    cap = sched.max_pages * pool.page_size
     out = [(ops.PAGED_DECODE, ops.paged_decode_context(
         chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-        sched.max_pages * pool.page_size, dt, pool.page_size))]
+        cap, dt, pool.page_size))]
+    norm_shapes = [(1, sched.prefill_chunk, cfg.d_model),
+                   (sched.max_batch, 1, cfg.d_model)]
+    if engine.spec_k > 1:
+        out.append((ops.PAGED_VERIFY, ops.paged_verify_context(
+            chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cap, dt, pool.page_size, engine.spec_k)))
+        norm_shapes.append((sched.max_batch, engine.spec_k, cfg.d_model))
     if engine.opts.norm_impl == "kernel":
-        for shape in ((1, sched.prefill_chunk, cfg.d_model),
-                      (sched.max_batch, 1, cfg.d_model)):
-            out.append((ops.RMS_NORM, ops.rmsnorm_context(chip, shape, dt)))
+        out += [(ops.RMS_NORM, ops.rmsnorm_context(chip, shape, dt))
+                for shape in norm_shapes]
     return out
 
 
@@ -97,27 +119,35 @@ def prepare(args, tuner: Autotuner) -> Tuple[ServingEngine, List[Request],
     chip = ops.device_chip(device.index or 0)
     deploy_cfg = tuner.best_config(ops.PAGED_DECODE,
                                    deployment_context(full_cfg, chip))
+    info = {"arch": cfg.name, "deployment_config": deploy_cfg}
+    spec_k = 0
+    if args.speculative is not None:
+        verify_cfg = tuner.best_config(
+            ops.PAGED_VERIFY, verify_deployment_context(full_cfg, chip))
+        spec_k = (args.speculative if args.speculative >= 2
+                  else int(verify_cfg["draft_k"]))
+        info.update(verify_deployment_config=verify_cfg, draft_k=spec_k)
     page_size = pool_page_size(deploy_cfg["page_size"], max_seq_len)
-    # Room for a padded prefill chunk past the longest sequence, so padded
-    # positions never clip onto live KV.
-    pages_per_seq = -(-(max_seq_len + args.prefill_chunk) // page_size)
+    # Room for a padded prefill chunk (or a verify burst) past the longest
+    # sequence, so padded positions never clip onto live KV.
+    room = max(args.prefill_chunk, spec_k)
+    pages_per_seq = -(-(max_seq_len + room) // page_size)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = init_params(cfg, gen, device)
     engine = ServingEngine(
         cfg, model, num_pages=1 + args.max_batch * pages_per_seq,
         page_size=page_size, max_batch=args.max_batch,
-        max_seq_len=max_seq_len + args.prefill_chunk,
+        max_seq_len=max_seq_len + room,
         prefill_chunk=args.prefill_chunk,
         opts=lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel"),
-        device=device)
+        device=device, speculative=spec_k)
     for kernel, ctx in engine_contexts(engine):
         tuner.best_config(kernel, ctx)
     ops.release_tuning_operands()
     reqs = make_requests(cfg, args.requests,
                          args.min_prompt_len or max(1, args.prompt_len // 2),
                          args.prompt_len, args.gen, args.seed)
-    info = {"arch": cfg.name, "deployment_config": deploy_cfg,
-            "page_size": page_size, "num_pages": engine.pool.num_pages}
+    info.update(page_size=page_size, num_pages=engine.pool.num_pages)
     return engine, reqs, info
 
 
@@ -130,11 +160,12 @@ def serve(engine: ServingEngine, reqs: List[Request]) -> dict:
     engine.scheduler.check_invariants()
     assert engine.pool.num_allocated == 0, "page leak after drain"
     lat = res["latency"]
-    return {
+    report = {
         "requests": res["requests"],
         "generated_tokens": res["generated_tokens"],
         "steps": res["steps"],
         "decode_steps": res["decode_steps"],
+        "verify_passes": res["verify_passes"],
         "wall_s": res["wall_s"],
         "tokens_per_s": res["tokens_per_s"],
         "ttft_p50_ms": lat["ttft_p50_ms"],
@@ -148,6 +179,9 @@ def serve(engine: ServingEngine, reqs: List[Request]) -> dict:
                       "timed_out": res["timed_out_requests"],
                       "terminal": res["terminal_requests"]},
     }
+    if "speculative" in res:
+        report["speculative"] = res["speculative"]
+    return report
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -163,6 +197,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--speculative", type=int, nargs="?", const=0,
+                    default=None, metavar="K",
+                    help="draft-and-verify decoding with K positions a "
+                         "step through the paged_verify kernel (output "
+                         "equals plain decode); the bare flag takes K from "
+                         "the tuned paged_verify deployment entry")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--on-miss", choices=("tune", "heuristic", "error"),
                     default="tune")

@@ -141,3 +141,35 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(f"decode impl {impl!r}")
     return _proj_out(p, o[:, None], cfg), cache
+
+
+def attn_verify_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                      cache: Dict[str, torch.Tensor],
+                      block_tables: torch.Tensor, lens: torch.Tensor, *,
+                      impl: str = "kernel"):
+    """Speculative verify: score K consecutive positions in one pass.
+
+    x (B, K, d), the last committed token plus K-1 drafts; lens (B,) tokens
+    already resident (the K inputs land at positions lens[b]..lens[b]+K-1).
+    All K positions' KV are written into the pool in place; rejected
+    drafts leave stale entries past the accepted prefix, which the next
+    scatter overwrites and attention never reads (it stops at kv_len).
+    Query t attends the resident prefix plus drafts 0..t (kv_len = lens +
+    K, causal tails in the kernel), so each accepted output is what
+    sequential ``attn_decode_paged`` calls would give. ``impl="kernel"``
+    dispatches the autotuned ``paged_verify`` kernel, ``"plain"`` its
+    PyTorch version."""
+    K = x.shape[1]
+    positions = lens[:, None].long() + torch.arange(K, device=x.device)[None]
+    q, k, v = _qkv(p, x, cfg, positions)
+    _scatter_pages(cache["k_pages"], k, block_tables, lens)
+    _scatter_pages(cache["v_pages"], v, block_tables, lens)
+    args = (q, cache["k_pages"], cache["v_pages"], block_tables, lens + K)
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        o = kops.paged_verify(*args)
+    elif impl == "plain":
+        o = kref.paged_verify(*args)
+    else:
+        raise ValueError(f"verify impl {impl!r}")
+    return _proj_out(p, o, cfg), cache

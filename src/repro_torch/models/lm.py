@@ -9,7 +9,8 @@ Entry points (paged subset of ``repro.models.lm``):
     init_paged_cache     — zero-filled page pools, one pair per layer
     prefill_paged        — one chunked-prefill step through block tables
     decode_step_paged    — one-token decode across the continuous batch
-Both steps write the pools in place and return them with f32 logits.
+    verify_step_paged    — K positions per sequence (speculative verify)
+The steps write the pools in place and return them with f32 logits.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ Cache = List[Dict[str, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class ForwardOpts:
-    decode_impl: str = "kernel"      # kernel (paged_decode) | plain
+    # kernel (paged_decode, paged_verify) | plain
+    decode_impl: str = "kernel"
     norm_impl: str = "plain"         # plain | kernel (rms_norm)
 
 
@@ -47,7 +49,7 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ModelConfig, device="cpu"):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _check_paged(cfg)
         kinds = set(cfg.layer_kinds())
@@ -76,8 +78,12 @@ def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
         if mode == "prefill":
             mix, _ = ATT.attn_prefill_paged(block.mix, hn, cfg, layer_cache,
                                             tables, start)
-        else:
+        elif mode == "decode":
             mix, _ = ATT.attn_decode_paged(block.mix, hn, cfg, layer_cache,
+                                           tables, start,
+                                           impl=opts.decode_impl)
+        else:
+            mix, _ = ATT.attn_verify_paged(block.mix, hn, cfg, layer_cache,
                                            tables, start,
                                            impl=opts.decode_impl)
         h = h + mix
@@ -118,8 +124,27 @@ def decode_step_paged(model: LM, cfg: ModelConfig, token: torch.Tensor,
     return logits_out(model.embed, h, cfg)[:, 0], cache
 
 
+@torch.no_grad()
+def verify_step_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: Cache, block_tables: torch.Tensor,
+                      lens: torch.Tensor, opts: ForwardOpts = ForwardOpts()):
+    """Speculative verify across the continuous batch: K consecutive
+    positions per sequence in one pass. tokens (B, K), the last committed
+    token plus K-1 drafts, land at positions lens[b]..lens[b]+K-1; lens
+    (B,) resident lengths (0 = inactive slot). Returns (logits (B, K,
+    vocab) f32, cache): logits[:, t] predicts the token after position t,
+    what t+1 sequential ``decode_step_paged`` calls would give when the
+    drafts before it match."""
+    _check_paged(cfg)
+    h = embed_tokens(model.embed, tokens, cfg)
+    h = _run_layers(model, h, cfg, opts, cache, block_tables, lens,
+                    mode="verify")
+    h = apply_norm(model.final_ln, h, cfg, impl=opts.norm_impl)
+    return logits_out(model.embed, h, cfg), cache
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device="cpu") -> Cache:
+                     device="cuda") -> Cache:
     """Zero-filled page pools for every layer."""
     _check_paged(cfg)
     specs = ATT.paged_cache_spec(cfg, num_pages, page_size)

@@ -94,7 +94,7 @@ def _load_module_(mod: nn.Module, tree: Dict[str, Any], index: Optional[int]):
 
 
 def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
-                    device="cpu"):
+                    device="cuda"):
     """Load the reference's parameter tree (numpy leaves, nested as
     ``repro.models.lm.lm_specs``: ``embed.tok``, ``final_ln.w``,
     ``u{i}.l{j}.{ln1,mix,ln2,ffn}``) into a new ``lm.LM``. A unit scanned

@@ -17,6 +17,11 @@ Every scheduler step:
                    and re-queued. A resumed request re-prefills
                    ``prompt + tokens[:-1]`` — exactly the KV it had — so
                    its greedy output equals an uninterrupted run's.
+                   With ``speculative=K`` the step is a **verify** instead:
+                   each slot scores its last token plus K-1 n-gram drafts
+                   in one pass through ``paged_verify`` and commits the
+                   matched prefix plus the model's own next token, so its
+                   output equals plain greedy decoding.
 
 The ``Scheduler`` is host-side bookkeeping over a ``PagePool`` (numpy block
 tables and lengths). ``ServingEngine`` binds the port's model to it and
@@ -24,10 +29,10 @@ runs ``lm.prefill_paged`` / ``lm.decode_step_paged`` eagerly on the
 device with greedy argmax and a finite-logits flag computed there, so only
 token ids and one bit per slot cross to the host each step.
 
-Not in the port: prefix caching, speculative decoding, fault injection,
-kernel quarantine, CUDA graphs and the reference's wall-clock replay of
-arrivals (``run(real_time=True)``); ``ServingEngine.run`` makes every
-request eligible at once.
+Not in the port: prefix caching, fault injection, kernel quarantine (and
+the re-jit after a verify fault), CUDA graphs and the reference's
+wall-clock replay of arrivals (``run(real_time=True)``);
+``ServingEngine.run`` makes every request eligible at once.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.serving.drafter import NgramDrafter
 from repro_torch.serving.page_pool import SCRATCH_PAGE, PagePool
 
 # Per-request token-timestamp cap (bounded latency bookkeeping).
@@ -125,11 +131,12 @@ class StepStats:
     preempted: int = 0
     failed: int = 0
     timed_out: int = 0
+    degraded: int = 0      # non-finite verify bursts switched to decode
 
     def progressed(self) -> bool:
         return bool(self.admitted or self.retired or self.prefill_tokens
                     or self.decode_tokens or self.preempted or self.failed
-                    or self.timed_out)
+                    or self.timed_out or self.degraded)
 
 
 def latency_summary(requests: List[Request], t0: float) -> Dict[str, Any]:
@@ -167,15 +174,19 @@ class Scheduler:
     index maps never branch. ``lookahead`` bounds how far past a blocked
     queue head admission may scan; after ``aging_cap`` skips of the head
     the scan reverts to strict FIFO so big requests cannot starve.
+    ``spec_k`` is the speculative verify width: a decode step may scatter
+    that many positions before any of them is accepted, so capacity
+    checks and the oversized-request bound charge the burst.
     """
 
     def __init__(self, pool: PagePool, max_batch: int, max_pages: int,
                  prefill_chunk: int = 8, lookahead: int = 4,
-                 aging_cap: int = 64):
+                 aging_cap: int = 64, spec_k: int = 1):
         self.pool = pool
         self.max_batch = int(max_batch)
         self.max_pages = int(max_pages)
         self.prefill_chunk = int(prefill_chunk)
+        self.spec_k = max(1, int(spec_k))
         self.lookahead = max(1, int(lookahead))
         self.aging_cap = int(aging_cap)
         self.waiting: Deque[Request] = deque()
@@ -194,11 +205,15 @@ class Scheduler:
     # -- request intake ----------------------------------------------------
     def max_tokens(self, req: Request) -> int:
         """Worst-case resident tokens over the request's lifetime, including
-        the longest chunk-padded resume view."""
+        the longest chunk-padded resume view. Under speculation the burst
+        is charged too: the deepest verify step starts one committed token
+        short of the budget (pos = total - 2) and scatters spec_k
+        positions, though at most one of those drafts is kept."""
         c = self.prefill_chunk
         total = req.prompt_len + req.max_new_tokens
         pad = lambda n: -(-n // c) * c          # noqa: E731
-        return max(pad(req.prompt_len), pad(total - 1), total)
+        burst = total - 2 + self.spec_k if self.spec_k > 1 else 0
+        return max(pad(req.prompt_len), pad(total - 1), total, burst)
 
     def _prefill_view(self, req: Request) -> np.ndarray:
         """The prompt, or on resume the prompt plus every generated token
@@ -397,11 +412,12 @@ class Scheduler:
         items.sort(key=lambda r: (r.arrival, r.rid))
         self.waiting = deque(items)
 
-    def _ensure_capacity(self, b: int) -> bool:
-        """Grow slot ``b``'s pages to cover its next decode write, preempting
-        victims on pool exhaustion. False iff ``b`` was preempted."""
+    def _ensure_capacity(self, b: int, n: int = 1) -> bool:
+        """Grow slot ``b``'s pages to cover its next ``n`` decode writes
+        (n = spec_k for a verify burst), preempting victims on pool
+        exhaustion. False iff ``b`` was preempted."""
         seq = self.slots[b]
-        while self.pool.pages_for(seq.pos + 1) > len(seq.pages):
+        while self.pool.pages_for(seq.pos + n) > len(seq.pages):
             pg = self.pool.alloc(1)
             if pg is None:
                 if not self._reclaim_one():
@@ -440,22 +456,42 @@ class Scheduler:
         if seq.pos >= len(seq.view):
             seq.prompt_done = True
 
-    def decode_mask(self) -> np.ndarray:
+    def decode_mask(self, lookahead: int = 1) -> np.ndarray:
         """Decode-ready slots, after growing each slot's pages to cover
-        this step's write (which may preempt victims, so readiness is
-        derived afterwards)."""
+        this step's write — ``lookahead`` positions of it for a verify
+        burst (which may preempt victims, so readiness is derived
+        afterwards)."""
+        n = max(1, int(lookahead))
         for b in range(self.max_batch):
             seq = self.slots[b]
             if seq is not None and seq.prompt_done and not seq.req.done():
-                self._ensure_capacity(b)
+                self._ensure_capacity(b, n)
         return np.array(
             [s is not None and s.prompt_done and not s.req.done()
-             and self.pool.pages_for(s.pos + 1) <= len(s.pages)
+             and self.pool.pages_for(s.pos + n) <= len(s.pages)
              for s in self.slots], bool)
 
     def advance_decoded(self, mask: np.ndarray) -> None:
         for b in np.nonzero(mask)[0]:
             self.slots[int(b)].pos += 1
+
+    def commit_verify(self, b: int, accepted: int) -> None:
+        """Commit a verify step for slot ``b``: ``accepted`` tokens
+        (1..spec_k) were appended to the request, so ``pos`` advances by
+        that many. The rejected tail's pages are kept, not freed: the next
+        burst needs them again, and the engine's device block-table cache
+        (keyed on rid, readiness and page count) is sound only while a
+        slot's page list grows and never shrinks — a free-then-regrow
+        could hand a page to another slot while a stale device table still
+        maps it here. ``max_tokens`` already charges the reservation, and
+        retirement or preemption releases it. Stale draft KV past ``pos``
+        is harmless: the next scatter overwrites it and attention never
+        reads past ``kv_len``."""
+        seq = self.slots[b]
+        if seq is None or not 1 <= accepted <= self.spec_k:
+            raise ValueError(f"commit_verify: slot {b}, {accepted} tokens "
+                             f"of a burst of {self.spec_k}")
+        seq.pos += accepted
 
     # -- device-facing state ----------------------------------------------
     def block_tables(self) -> np.ndarray:
@@ -508,24 +544,36 @@ class ServingEngine:
     list only grows while it is occupied, so the same key always means the
     same page ids, and the steady decode loop uploads no tables.
 
+    ``speculative=K`` (K >= 2) turns decode steps into draft-and-verify
+    steps: each ready slot scores its last committed token plus K-1
+    self-speculative n-gram drafts (``serving.drafter``, one drafter per
+    request fed ``prompt + tokens``) in one ``lm.verify_step_paged`` and
+    commits the longest matched prefix plus the model's own next token.
+    Greedy accept makes the output token-for-token that of plain decode;
+    only the number of steps changes. A non-finite verify burst commits
+    nothing and switches the engine to plain decode for the rest of the
+    run, so the same positions are scored again by decode.
+
     ``record_logits`` keeps, per request, the logits row each generated
     token was taken from (host copies; for parity tests at small sizes).
     """
 
     def __init__(self, cfg, model, *, num_pages: int, page_size: int,
                  max_batch: int, max_seq_len: int, prefill_chunk: int = 8,
-                 opts=None, device=None, record_logits: bool = False):
+                 opts=None, device=None, speculative: int = 0,
+                 record_logits: bool = False):
         from repro_torch.models import lm
 
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device if device is not None else
                                    next(model.parameters()).device)
+        self.spec_k = int(speculative) if int(speculative) >= 2 else 1
         self.pool = PagePool(num_pages, page_size)
         self.scheduler = Scheduler(
             self.pool, max_batch=max_batch,
             max_pages=self.pool.pages_for(max_seq_len),
-            prefill_chunk=prefill_chunk)
+            prefill_chunk=prefill_chunk, spec_k=self.spec_k)
         self.max_seq_len = int(max_seq_len)
         self.opts = opts if opts is not None else lm.ForwardOpts()
         self.cache = lm.init_paged_cache(cfg, num_pages, page_size,
@@ -534,6 +582,12 @@ class ServingEngine:
         self._dev_tables_key = None
         self._dev_tables = None
         self.decode_steps = 0          # decode_step_paged calls made
+        self.verify_passes = 0         # verify_step_paged calls made
+        self.spec_steps = 0            # per-slot verifies committed
+        self.spec_committed = 0        # tokens those committed
+        self.spec_fallbacks = 0        # non-finite verify bursts
+        self._spec_disabled = False    # degraded to plain decode
+        self._drafters: Dict[int, NgramDrafter] = {}
         self.logits_log: Optional[Dict[int, List[np.ndarray]]] = (
             {} if record_logits else None)
 
@@ -543,6 +597,16 @@ class ServingEngine:
         ok = torch.isfinite(logits).all(-1)
         toks = torch.argmax(logits, -1).to(torch.int32)
         return toks.cpu().numpy(), ok.cpu().numpy()
+
+    def _drafter(self, req: Request) -> NgramDrafter:
+        """The request's drafter, fed its committed stream (prompt and
+        accepted tokens only, so the stream grows append-only across
+        rollbacks)."""
+        d = self._drafters.get(req.rid)
+        if d is None:
+            d = self._drafters[req.rid] = NgramDrafter()
+        d.observe(list(map(int, req.prompt)) + req.tokens)
+        return d
 
     def _log_logits(self, req: Request, row: torch.Tensor) -> None:
         if self.logits_log is not None:
@@ -580,7 +644,10 @@ class ServingEngine:
         lm = self._lm
         stats = StepStats()
         pre = (sched.preemptions, sched.failures, sched.timeouts)
-        stats.retired = len(sched.retire_finished())
+        retired = sched.retire_finished()
+        stats.retired = len(retired)
+        for req in retired:
+            self._drafters.pop(req.rid, None)
         stats.admitted = len(sched.admit(now))
 
         chunk = sched.next_prefill()
@@ -606,8 +673,11 @@ class ServingEngine:
                 else:
                     sched.fail_slot(b, "non-finite prefill logits")
 
-        mask = sched.decode_mask()
-        if mask.any():
+        speculate = self.spec_k > 1 and not self._spec_disabled
+        mask = sched.decode_mask(lookahead=self.spec_k if speculate else 1)
+        if mask.any() and speculate:
+            self._step_verify(mask, stats)
+        elif mask.any():
             toks = np.zeros((sched.max_batch, 1), np.int32)
             for b in np.nonzero(mask)[0]:
                 toks[b, 0] = sched.slots[int(b)].req.tokens[-1]
@@ -632,6 +702,54 @@ class ServingEngine:
         stats.failed = sched.failures - pre[1]
         stats.timed_out = sched.timeouts - pre[2]
         return stats
+
+    def _step_verify(self, mask: np.ndarray, stats: StepStats) -> None:
+        """One speculative step for every ready slot: scatter the last
+        committed token plus K-1 drafts, score all K positions in one
+        ``verify_step_paged``, and commit per slot the longest prefix of
+        drafts the model agrees with plus the model's next token (1..K
+        tokens, capped at the request's budget). Position t's argmax is
+        what sequential decode gives after the tokens before it, so the
+        output equals plain greedy decode."""
+        sched = self.scheduler
+        K = self.spec_k
+        toks = np.zeros((sched.max_batch, K), np.int32)
+        for b in np.nonzero(mask)[0]:
+            req = sched.slots[int(b)].req
+            toks[b, 0] = req.tokens[-1]
+            toks[b, 1:] = self._drafter(req).propose(K - 1)
+        lens = sched.lens() * mask            # inactive slots -> 0
+        logits, self.cache = self._lm.verify_step_paged(
+            self.model, self.cfg, self._to_dev(toks), self.cache,
+            self._dev_tables_for(mask), self._to_dev(lens), self.opts)
+        self.verify_passes += 1
+        outs, ok = self._sample(logits)       # (B, K) argmax, finite flags
+        okh = ok.all(-1)
+        t = time.perf_counter()
+        committed = 0
+        for b in np.nonzero(mask & okh)[0]:
+            b = int(b)
+            req = sched.slots[b].req
+            a = 0
+            while a < K - 1 and toks[b, a + 1] == outs[b, a]:
+                a += 1
+            take = min(a + 1, req.max_new_tokens - len(req.tokens))
+            for i in range(take):
+                req.tokens.append(int(outs[b, i]))
+                req.note_token_time(t)
+                self._log_logits(req, logits[b, i])
+            sched.commit_verify(b, take)
+            committed += take
+            self.spec_steps += 1
+        if not okh[mask].all():
+            # Non-finite verify logits: nothing is committed for those
+            # slots, and plain decode scores the same positions from the
+            # next step on.
+            self._spec_disabled = True
+            self.spec_fallbacks += 1
+            stats.degraded += 1
+        self.spec_committed += committed
+        stats.decode_tokens = committed
 
     def run(self, requests: List[Request]) -> Dict[str, Any]:
         """Serve ``requests`` until every one reaches a terminal state;
@@ -661,11 +779,12 @@ class ServingEngine:
         wall = time.perf_counter() - t0
         gen = sum(len(r.tokens) for r in requests)
         sched = self.scheduler
-        return {
+        out = {
             "requests": sum(r.done() for r in requests),
             "generated_tokens": gen,
             "steps": steps,
             "decode_steps": self.decode_steps,
+            "verify_passes": self.verify_passes,
             "wall_s": wall,
             "tokens_per_s": gen / max(wall, 1e-9),
             "t0": t0,
@@ -678,3 +797,14 @@ class ServingEngine:
             "terminal_requests": sum(r.terminal() for r in requests),
             "latency": latency_summary(requests, t0),
         }
+        if self.spec_k > 1:
+            out["speculative"] = {
+                "draft_k": self.spec_k,
+                "verify_steps": self.spec_steps,
+                "committed_tokens": self.spec_committed,
+                "accepted_per_step": (self.spec_committed
+                                      / max(1, self.spec_steps)),
+                "fallbacks": self.spec_fallbacks,
+                "degraded": self._spec_disabled,
+            }
+        return out

@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import Autotuner, set_default_tuner
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode as pd_kernel
+from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import rms_norm as rms_kernel
 from repro_torch.models import lm
 from repro_torch.models.param import init_params
@@ -92,6 +93,56 @@ def test_paged_decode_rejects_what_it_does_not_take(cuda):
         pd_kernel.paged_decode(args[0].bfloat16(), *args[1:])
 
 
+@pytest.mark.parametrize("draft_k", [2, 4, 8])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[3]}-{s[6]}")
+def test_paged_verify_every_valid_config_matches_plain(cuda, shape, draft_k):
+    B, Hq, Hkv, D, ps, max_pages, dtype = shape
+    cap = ps * max_pages
+    # inactive slot, past capacity, a tail shorter than K, exactly K, full,
+    # ragged
+    kv_len = ([0, cap + 1, draft_k - 1, draft_k, cap]
+              + [int(x) for x in np.linspace(draft_k + 1, cap - 1, B)])[:B]
+    _, kp, vp, tables, lens = paged_operands(D, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(draft_k)
+    q = torch.randn(B, draft_k, Hq, D, generator=g, device=cuda).to(dtype)
+    args = (q, kp, vp, tables, lens)
+    want = ref.paged_verify(*args).float()
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.paged_verify_context(chip, B, Hq, Hkv, D, cap,
+                                   ops.dtype_name(dtype), ps, draft_k)
+    configs = ops.PAGED_VERIFY.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = pv_kernel.paged_verify.launches
+        out = ops.paged_verify(*args, config=cfg)
+        torch.cuda.synchronize()
+        assert pv_kernel.paged_verify.launches == before + 1
+        torch.testing.assert_close(out.float(), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=lambda m: f"{cfg}: {m}")
+        assert not out[0].any(), "kv_len == 0 must give exact zeros"
+        assert not out[2, 0].any(), "an empty causal window gives zeros"
+
+
+def test_paged_verify_rejects_what_it_does_not_take(cuda):
+    _, kp, vp, tables, lens = paged_operands(0, 2, 4, 2, 16, 8, 2, [5, 6],
+                                             torch.float32, cuda)
+    q = torch.zeros(2, 4, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="block_kv"):
+        pv_kernel.paged_verify(q, kp, vp, tables, lens, block_kv=12)
+    with pytest.raises(ValueError, match="dtype"):
+        pv_kernel.paged_verify(q.bfloat16(), kp, vp, tables, lens)
+    with pytest.raises(ValueError, match="draft_k"):
+        pv_kernel.paged_verify(q[:, :1].contiguous(), kp, vp, tables, lens)
+    with pytest.raises(ValueError, match="pool shapes"):
+        pv_kernel.paged_verify(q[..., :8].contiguous(), kp, vp, tables, lens)
+    with pytest.raises(ValueError, match="kv_len"):
+        pv_kernel.paged_verify(q, kp, vp, tables, lens[:1])
+    with pytest.raises(NotImplementedError, match="int8"):
+        pv_kernel.paged_verify(q, kp.to(torch.int8), vp.to(torch.int8),
+                               tables, lens)
+
+
 @pytest.mark.parametrize("rows", [8, 37, 512])
 def test_rms_norm_every_valid_config_matches_plain(cuda, rows):
     g = torch.Generator(device=cuda).manual_seed(rows)
@@ -110,9 +161,11 @@ def test_rms_norm_every_valid_config_matches_plain(cuda, rows):
                                        rtol=TOL[dtype])
 
 
-def test_engine_on_card_matches_cpu(cuda):
-    """Smoke phi4-mini in f32: the engine on the card through both kernels
-    gives the CPU engine's tokens, and its logits at the f32 tolerance."""
+@pytest.mark.parametrize("speculative", [0, 4])
+def test_engine_on_card_matches_cpu(cuda, speculative):
+    """Smoke phi4-mini in f32: the engine on the card through its kernels
+    (paged_decode, or paged_verify under speculation, and rms_norm) gives
+    the CPU engine's tokens, and its logits at the f32 tolerance."""
     set_default_tuner(Autotuner(on_miss="heuristic"))
     try:
         cfg = get_config("phi4-mini-3.8b", smoke=True)
@@ -127,17 +180,19 @@ def test_engine_on_card_matches_cpu(cuda):
                     for i, (p, n) in enumerate(spec)]
             eng = ServingEngine(cfg, m, num_pages=24, page_size=8,
                                 max_batch=3, max_seq_len=24, prefill_chunk=4,
-                                opts=opts, device=device, record_logits=True)
+                                opts=opts, device=device,
+                                speculative=speculative, record_logits=True)
             eng.run(reqs)
             return [r.tokens for r in reqs], eng.logits_log
 
         cpu_toks, cpu_logits = run(model, "cpu", lm.ForwardOpts())
-        before = (pd_kernel.paged_decode.launches,
-                  rms_kernel.rms_norm.launches)
+        attn = pv_kernel.paged_verify if speculative else \
+            pd_kernel.paged_decode
+        before = (attn.launches, rms_kernel.rms_norm.launches)
         gpu_toks, gpu_logits = run(
             model.to(cuda), cuda,
             lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel"))
-        assert pd_kernel.paged_decode.launches > before[0]
+        assert attn.launches > before[0]
         assert rms_kernel.rms_norm.launches > before[1]
         assert gpu_toks == cpu_toks
         for rid, rows in cpu_logits.items():

@@ -15,10 +15,12 @@ import jax.numpy as jnp
 
 from repro.kernels import ref as jref
 from repro.kernels.paged_decode import paged_decode as jax_paged_decode
+from repro.kernels.paged_verify import paged_verify as jax_paged_verify
 from repro.kernels.rms_norm import rms_norm as jax_rms_norm
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode as pd_kernel
+from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import rms_norm as rms_kernel
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -92,6 +94,74 @@ def test_paged_decode_int8_pool_not_ported():
     kp = torch.zeros(1, 3, 8, 16, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="int8"):
         pd_kernel.paged_decode(q, kp, kp, torch.zeros(1, 2, dtype=torch.int32),
+                               torch.ones(1, dtype=torch.int32),
+                               k_scales=torch.ones(1, 3, 8),
+                               v_scales=torch.ones(1, 3, 8))
+
+
+# group, draft_k, page_size, pages per block_kv, pack_gqa (a group of one
+# packs to the unpacked kernel, so it runs once)
+VERIFY_CASES = [(g, k, ps, ppb, pack) for g in (1, 2, 4) for k in (2, 4)
+                for ps in (8, 16) for ppb in (1, 2)
+                for pack in ((False,) if g == 1 else (True, False))]
+
+
+@pytest.mark.parametrize("group,draft_k,page_size,ppb,pack", VERIFY_CASES)
+def test_paged_verify_matches_pallas_and_oracle(group, draft_k, page_size,
+                                                ppb, pack):
+    Hkv, D, max_pages = 2, 16, 4
+    cap = max_pages * page_size
+    # inactive slot, a tail shorter than K, ragged, mid-page, exactly full,
+    # past capacity
+    kv_len = [0, draft_k - 1, draft_k + 3, cap - page_size + 3, cap,
+              cap + 7]
+    q, kp, vp, tables, lens = _paged_operands(
+        group * 1000 + draft_k * 100 + page_size + ppb, len(kv_len),
+        Hkv * group, Hkv, D, page_size, max_pages, kv_len)
+    B = len(kv_len)
+    q = np.random.default_rng(draft_k).standard_normal(
+        (B, draft_k, Hkv * group, D)).astype(np.float32)
+    ours = pv_kernel.paged_verify(
+        *(torch.from_numpy(a) for a in (q, kp, vp, tables, lens)),
+        block_kv=ppb * page_size, pack_gqa=pack).numpy()
+    pallas = np.asarray(jax_paged_verify(
+        *(jnp.asarray(a) for a in (q, kp, vp, tables, lens)),
+        block_kv=ppb * page_size, pack_gqa=pack, interpret=True))
+    oracle = np.asarray(jref.paged_verify(
+        *(jnp.asarray(a) for a in (q, kp, vp, tables, lens))))
+    assert ours.shape == (B, draft_k, Hkv * group, D)
+    np.testing.assert_allclose(ours, pallas, **F32_TOL)
+    np.testing.assert_allclose(ours, oracle, **F32_TOL)
+    assert not ours[0].any(), "kv_len == 0 must give exact zeros"
+    # kv_len K-1: query 0 has an empty window, query t sees t keys
+    assert not ours[1, 0].any() and ours[1, 1:].any()
+
+
+def test_paged_verify_cpu_runs_plain_version_and_counts_nothing():
+    q, kp, vp, tables, lens = _paged_operands(2, 2, 4, 2, 16, 8, 3, [4, 9])
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tables, lens)]
+    args[0] = torch.randn(2, 3, 4, 16, generator=torch.Generator()
+                          .manual_seed(0))
+    before = pv_kernel.paged_verify.launches
+    out = ops.paged_verify(*args)
+    assert pv_kernel.paged_verify.launches == before
+    torch.testing.assert_close(out, ref.paged_verify(*args), rtol=0, atol=0)
+
+
+def test_paged_verify_position_zero_of_k1_is_decode():
+    """One draft position is exactly paged_decode's computation."""
+    kv_len = [0, 5, 17, 40]
+    q, kp, vp, tables, lens = _paged_operands(9, 4, 8, 2, 16, 8, 5, kv_len)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tables, lens)]
+    verify = ref.paged_verify(args[0][:, None], *args[1:])[:, 0]
+    torch.testing.assert_close(verify, ref.paged_decode(*args), **F32_TOL)
+
+
+def test_paged_verify_int8_pool_not_ported():
+    q = torch.zeros(1, 2, 2, 16)
+    kp = torch.zeros(1, 3, 8, 16, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="int8"):
+        pv_kernel.paged_verify(q, kp, kp, torch.zeros(1, 2, dtype=torch.int32),
                                torch.ones(1, dtype=torch.int32),
                                k_scales=torch.ones(1, 3, 8),
                                v_scales=torch.ones(1, 3, 8))

@@ -31,7 +31,7 @@ def both():
     jparams = jax_init_params(jax.random.PRNGKey(0), jlm.lm_specs(jcfg))
     tree = jax.tree.map(np.asarray, jparams)
     cfg = get_config(ARCH, smoke=True)
-    return jcfg, jparams, tree, cfg, from_numpy_tree(tree, cfg)
+    return jcfg, jparams, tree, cfg, from_numpy_tree(tree, cfg, device="cpu")
 
 
 def test_from_numpy_tree_unstacks_scan_units(both):
@@ -102,7 +102,7 @@ def test_prefill_and_decode_match_jax_lm(both, norm_impl, decode_impl):
     tables = np.array([[1, 2, 3, 4, 0], [5, 6, 7, 0, 0], [0, 0, 0, 0, 0]],
                       np.int32)
     rng = np.random.default_rng(0)
-    cache = lm.init_paged_cache(cfg, num_pages, ps)
+    cache = lm.init_paged_cache(cfg, num_pages, ps, device="cpu")
     jcache = jlm.init_paged_cache(jcfg, num_pages, ps)
 
     def t(a):
@@ -141,4 +141,69 @@ def test_check_paged_refuses_windowed_archs():
     import dataclasses
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), window=16)
     with pytest.raises(NotImplementedError, match="paged serving"):
-        lm.LM(cfg)
+        lm.LM(cfg, device="cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _prefilled(both, rng):
+    """Both sides' pools after one prefill chunk of 6 and one of 4 tokens
+    on two sequences (tables as in the test above)."""
+    jcfg, jparams, _, cfg, model = both
+    tables = np.array([[1, 2, 3, 4, 0], [5, 6, 7, 0, 0], [0, 0, 0, 0, 0]],
+                      np.int32)
+    cache = lm.init_paged_cache(cfg, 12, 4, device="cpu")
+    jcache = jlm.init_paged_cache(jcfg, 12, 4)
+    toks = rng.integers(1, cfg.vocab_size, (2, 6)).astype(np.int32)
+    st = np.zeros(2, np.int32)
+    _, cache = lm.prefill_paged(model, cfg, _t(toks), cache, _t(tables[:2]),
+                                _t(st), lm.ForwardOpts(decode_impl="plain"))
+    _, jcache = jlm.prefill_paged(jparams, jcfg, jnp.asarray(toks), jcache,
+                                  jnp.asarray(tables[:2]), jnp.asarray(st))
+    return tables, cache, jcache
+
+
+@pytest.mark.parametrize("draft_k", [2, 4])
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_verify_step_matches_jax_lm(both, draft_k, impl):
+    """Logits (B, K, vocab) and the pages the K positions write, against
+    the JAX verify step on the same weights, pools and tables; the third
+    slot is inactive (lens 0, the scratch table)."""
+    jcfg, jparams, _, cfg, model = both
+    rng = np.random.default_rng(draft_k)
+    tables, cache, jcache = _prefilled(both, rng)
+    toks = rng.integers(1, cfg.vocab_size, (3, draft_k)).astype(np.int32)
+    lens = np.array([6, 5, 0], np.int32)
+    opts = lm.ForwardOpts(decode_impl=impl, norm_impl=impl)
+    logits, cache = lm.verify_step_paged(model, cfg, _t(toks), cache,
+                                         _t(tables), _t(lens), opts)
+    jlogits, jcache = jlm.verify_step_paged(
+        jparams, jcfg, jnp.asarray(toks), jcache, jnp.asarray(tables),
+        jnp.asarray(lens))
+    assert logits.dtype == torch.float32
+    assert logits.shape == (3, draft_k, cfg.vocab_size)
+    np.testing.assert_allclose(logits[:2].numpy(), np.asarray(jlogits)[:2],
+                               **F32_TOL)
+    _assert_pages_equal(cache, jcache, cfg.n_layers)
+
+
+def test_verify_position_t_is_t_plus_one_decode_steps(both):
+    """Position t's logits equal what t+1 sequential one-token decode
+    steps give on the same tokens."""
+    _, _, _, cfg, model = both
+    rng = np.random.default_rng(11)
+    tables, cache, _ = _prefilled(both, rng)
+    dec_cache = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    K = 4
+    toks = rng.integers(1, cfg.vocab_size, (3, K)).astype(np.int32)
+    lens = np.array([6, 5, 0], np.int32)
+    verify, _ = lm.verify_step_paged(model, cfg, _t(toks), cache,
+                                     _t(tables), _t(lens))
+    for t in range(K):
+        step, dec_cache = lm.decode_step_paged(
+            model, cfg, _t(toks[:, t:t + 1]), dec_cache, _t(tables),
+            _t(np.where(lens > 0, lens + t, 0).astype(np.int32)))
+        np.testing.assert_allclose(verify[:2, t].numpy(), step[:2].numpy(),
+                                   err_msg=f"position {t}", **F32_TOL)

@@ -1,5 +1,5 @@
 """The port's tuning core: config spaces, search, cache, tuner, the card's
-spec and the Hopper spaces of the two ported kernels. All on the CPU with
+spec and the Hopper spaces of the ported kernels. All on the CPU with
 synthetic objectives; timing on the card is ``chip_smoke.py``'s job."""
 
 import math
@@ -16,6 +16,7 @@ from repro_torch.core.costmodel import KernelWorkload, roofline_seconds
 from repro_torch.core.hardware import chip_from_properties
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as pd_kernel
+from repro_torch.kernels import paged_verify as pv_kernel
 
 H100_SXM = chip_from_properties("NVIDIA H100 80GB HBM3", 132, 232448,
                                 50 * 2**20, 80 * 2**30)
@@ -70,6 +71,75 @@ def test_valid_configs_of_the_hopper_spaces():
     # 256 bf16 rows of 128 stage 256 KB: over the 227 KB a block may use
     big = {"page_size": 16, "block_kv": 256, "pack_gqa": True, "num_warps": 4}
     assert ops.PAGED_DECODE.space.why_invalid(big, deploy) == "smem"
+
+
+def test_valid_configs_of_the_verify_space():
+    deploy = ops.paged_verify_context(H100_SXM, 16, 24, 8, 128, 32768,
+                                      "bfloat16")
+    pinned = ops.paged_verify_context(H100_SXM, 8, 24, 8, 128, 896,
+                                      "bfloat16", page_size=128, draft_k=4)
+    mha = ops.paged_verify_context(H100_SXM, 4, 32, 32, 96, 64, "float32",
+                                   page_size=8, draft_k=2)
+    space = ops.PAGED_VERIFY.space
+    for ctx in (deploy, pinned, mha):
+        valid = space.valid_configs(ctx)
+        assert valid == _valid_by_brute_force(space, ctx)
+        assert valid and ops.PAGED_VERIFY.default_config(ctx) in valid
+        for c in valid:
+            assert c["block_kv"] % c["page_size"] == 0
+            assert ops._verify_smem(c, ctx) <= H100_SXM.smem_per_block
+    # deployment tuning sweeps the depth and the page; a pinned context
+    # keeps the pool's page and the engine's depth
+    dep = space.valid_configs(deploy)
+    assert {c["draft_k"] for c in dep} == set(pv_kernel.DRAFT_KS)
+    assert {c["page_size"] for c in dep} == set(ops.PAGE_SIZES)
+    assert {(c["draft_k"], c["page_size"])
+            for c in space.valid_configs(pinned)} == {(4, 128)}
+    assert not any(c["pack_gqa"] for c in space.valid_configs(mha))
+    # 256 bf16 rows of 128 stage 256 KB: over the 227 KB a block may use
+    big = {"draft_k": 2, "page_size": 16, "block_kv": 256, "pack_gqa": True,
+           "num_warps": 4}
+    assert space.why_invalid(big, deploy) == "smem"
+    ok = {"draft_k": 4, "page_size": 128, "block_kv": 128, "pack_gqa": True,
+          "num_warps": 4}
+    assert space.is_valid(ok, pinned)
+    assert space.why_invalid(dict(ok, page_size=16), pinned) == \
+        "page_size==pool"
+    assert space.why_invalid(dict(ok, draft_k=3), pinned) == \
+        "draft_k==request"
+
+
+def test_verify_smem_bytes_and_workload():
+    # staging of 64 bf16 rows of 128, then 12 query rows (K 4, group 3)
+    # in bf16 and their f32 accumulators and (m, l): one warp a row
+    assert pv_kernel.smem_bytes(128, 2, 64, 4, 3, True, 8) == (
+        4 * 64 * 128 * 2 + 12 * 128 * 2 + 12 * (128 + 2) * 4)
+    # 4 rows (unpacked) and 8 warps: two warps split each row's keys, so
+    # each row keeps two running states
+    assert pv_kernel.key_splits(4, 8) == 2 and pv_kernel.key_splits(4, 4) == 1
+    assert pv_kernel.smem_bytes(128, 2, 64, 4, 3, False, 8) == (
+        4 * 64 * 128 * 2 + 4 * 128 * 2 + 8 * (128 + 2) * 4)
+    B, K, Hq, Hkv, D, max_pages = 8, 4, 24, 8, 128, 36
+    # the verify call moves decode's K/V bytes with K query rows
+    assert ops.paged_verify_bytes(B, 1, Hq, Hkv, D, 3000, max_pages, 2) \
+        == ops.paged_decode_bytes(B, Hq, Hkv, D, 3000, max_pages, 2)
+    assert ops.paged_verify_bytes(B, K, Hq, Hkv, D, 3000, max_pages, 2) \
+        - ops.paged_verify_bytes(B, 1, Hq, Hkv, D, 3000, max_pages, 2) \
+        == 2 * B * (K - 1) * Hq * D * 2
+    # row t of a sequence of L tokens attends L - K + t + 1 keys
+    lens = torch.tensor([0, 2, 10, 99], dtype=torch.int32)
+    assert ops.verify_attended(lens, 4, 64) == (0 + (0 + 0 + 1 + 2)
+                                                + (7 + 8 + 9 + 10)
+                                                + (61 + 62 + 63 + 64))
+    ctx = ops.paged_verify_context(H100_SXM, 4, 8, 2, 64, 256, "bfloat16",
+                                   draft_k=4)
+    cfg = {"draft_k": 4, "page_size": 16, "block_kv": 64, "pack_gqa": True,
+           "num_warps": 4}
+    packed = ops._paged_verify_workload(cfg, ctx)
+    unpacked = ops._paged_verify_workload(dict(cfg, pack_gqa=False), ctx)
+    assert unpacked.hbm_bytes > packed.hbm_bytes   # the group re-reads KV
+    assert packed.flops == unpacked.flops > 0
+    assert (ops._verify_lens(ctx, 4) >= 4).all()
 
 
 def test_rms_norm_space_limits_registers():
@@ -244,3 +314,8 @@ def test_entry_points_skip_tuning_for_cpu_tensors():
     x = torch.randn(3, 16)
     out = ops.rmsnorm(x, torch.ones(16), tuner=tuner)
     assert out.shape == x.shape and tuner.stats()["misses"] == 0
+    pool = torch.randn(2, 5, 8, 16)
+    out = ops.paged_verify(torch.randn(2, 4, 4, 16), pool, pool,
+                           torch.tensor([[1, 2], [3, 4]]),
+                           torch.tensor([6, 12]), tuner=tuner)
+    assert out.shape == (2, 4, 4, 16) and tuner.stats()["misses"] == 0
