@@ -9,11 +9,14 @@ Phases, each failing loudly:
 
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
-     ``paged_decode`` and ``paged_verify`` and the Triton compile of
-     ``rms_norm``;
+     ``paged_decode``, ``paged_verify`` and ``gqa_decode`` (which also
+     serves ``decode_attention``) and the Triton compile of ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
+     the fixed configs of off-space layouts (pages of 4 and 256, a verify
+     at depth 5); then the registry's oracle sweep: every valid config of
+     every registered kernel's host bench cases against its reference;
   4. tuning: the serve entry point's deployment lookups (``paged_decode``;
      ``paged_verify`` with the speculation depth free) and the contexts
      the plain and the speculative engine will dispatch, tuned on the
@@ -25,14 +28,21 @@ Phases, each failing loudly:
      prefill chunks of 256, once by plain decode and once by speculative
      decode (``--speculative``: draft and verify, depth from the tuned
      deployment entry), with the kernels' launch counts read around each
-     run; the two runs' tokens must agree;
+     run; the two runs' tokens must agree; then the launcher at the smoke
+     widths with ``--speculative 5`` (off the tuned depths); then the
+     static batch over dense caches (``--decode-impl pallas`` through
+     ``gqa_decode_ragged``, then ``--decode-impl full``): 8 prompts of 512
+     tokens, 32 new tokens each, the token streams equal 8 of 8;
   6. one full-width decode step and one full-width verify step through the
      kernels against the same step through the plain versions on the same
-     cache, with the residual stream compared layer by layer, and a
-     profiled window of each (wall time, device time, device busy share);
-     then a small f32 model whose drafts are often rejected, served
-     speculatively on the CPU (plain versions) and on the card (kernels),
-     and by plain decode on the card: the same tokens and counts;
+     cache, and one full-width dense decode step through ``gqa_decode``
+     against its plain einsum, with the residual stream compared layer by
+     layer, and a profiled window of each (wall time, device time, device
+     busy share); then a small f32 model whose drafts are often rejected,
+     served speculatively on the CPU (plain versions) and on the card
+     (kernels), and by plain decode on the card: the same tokens and
+     counts, at depth 4 on pages of 8 and at depth 5 on pages of 4 (both
+     off the tuned layouts);
   7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 """
 
@@ -87,11 +97,13 @@ def build_kernels() -> dict:
     """nvcc for each CUDA kernel (one process each) and Triton's compile of
     rms_norm (on its first launch), started together; returns seconds per
     build."""
+    from repro_torch.kernels import gqa_decode as gqa_kernel
     from repro_torch.kernels import paged_decode as pd_kernel
     from repro_torch.kernels import paged_verify as pv_kernel
     from repro_torch.kernels import rms_norm as rms_kernel
     secs, errors = {}, []
-    libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB}
+    libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
+            "gqa_decode": gqa_kernel.LIB}
 
     def nvcc(name):
         t = time.perf_counter()
@@ -359,6 +371,228 @@ def check_rms_norm(chip) -> dict:
     return out
 
 
+def off_space_layouts(chip) -> float:
+    """Pools with page sizes outside the space (4 and 256) and a verify at
+    depth 5 (outside the tuned depths) through ``ops``: the fixed config,
+    no tuning (a tuner that errors on a miss), against the plain
+    versions; returns the worst max abs error."""
+    from repro_torch.core import Autotuner
+    from repro_torch.kernels import ops, ref
+    tuner = Autotuner(on_miss="error")
+    worst = 0.0
+    for ps, max_pages, K in ((4, 136, 5), (256, 3, 5), (16, 36, 5)):
+        cap = ps * max_pages
+        lens = ragged_lens(cap, 3)
+        args = paged_case(ps + K, 8, 24, 8, 128, ps, max_pages, lens,
+                          torch.bfloat16)
+        vargs = paged_case(ps + K, 8, 24, 8, 128, ps, max_pages,
+                           verify_lens(cap, K), torch.bfloat16, K)
+        runs = [("paged_verify", ops.paged_verify, ref.paged_verify, vargs,
+                 ops.paged_verify_config(vargs[0], vargs[1], vargs[3]))]
+        if ps not in ops.PAGE_SIZES:
+            runs.append(("paged_decode", ops.paged_decode, ref.paged_decode,
+                         args, ops.paged_decode_config(args[0], args[1],
+                                                       args[3])))
+        for name, entry, plain, a, cfg in runs:
+            got = entry(*a, tuner=tuner).float()
+            err = float((got - plain(*a).float()).abs().max())
+            depth = f", K {K}" if name == "paged_verify" else ""
+            print(f"{name} off-space (pages of {ps}{depth}) under the fixed "
+                  f"config {cfg}: max_abs_err {err:.3g} (tol {BF16_TOL})")
+            if err > BF16_TOL:
+                raise AssertionError(f"{name} pages of {ps}: {err}")
+            worst = max(worst, err)
+    assert tuner.stats()["misses"] == 0
+    return worst
+
+
+def registry_sweep(chip) -> None:
+    """The oracle sweep over the registry: every registered kernel, every
+    host bench case, every valid config, operands made on the card by the
+    kernel's own ``operands`` function, entry point against reference."""
+    from repro_torch.kernels.registry import list_kernels
+    for spec in list_kernels():
+        for case in spec.cases("host"):
+            ctx = case.context(chip)
+            tol = BF16_TOL if case.dtype == "bfloat16" else F32_TOL
+            configs = spec.space.valid_configs(ctx)
+            worst = 0.0
+            for cfg in configs:
+                args, kw = spec.operands(ctx, cfg, "cuda")
+                got = spec.entry_point(*args, **kw, config=cfg).float()
+                want = spec.reference(*args, **kw).float()
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=tol, rtol=tol):
+                    raise AssertionError(f"registry sweep {spec.name}/"
+                                         f"{case.label} {cfg}: {err}")
+                worst = max(worst, err)
+            print(f"registry sweep {spec.name}/{case.label}: {len(configs)} "
+                  f"configs ok, max_abs_err {worst:.3g} (tol {tol})")
+
+
+def dense_case(seed, B, T, kv_len, dtype):
+    """phi4-mini's heads: q and a (B, T, Hkv, D) cache handed over as
+    (B, Hkv, T, D) views, as ``attn_decode`` hands it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    return (rand(B, 24, 128), rand(B, T, 8, 128).transpose(1, 2),
+            rand(B, T, 8, 128).transpose(1, 2),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+DENSE_T = 544           # the serving cache: prompts of 512 + 32 new tokens
+
+
+def check_dense_decode(chip) -> dict:
+    """Every valid config of gqa_decode_ragged and of decode_attention
+    against the plain version at phi4-mini's heads: ragged lengths (with
+    kv_len 0 and past T) in bf16 and f32, and the serving shape (B 8, T
+    544, every request at 528 tokens) in bf16. Returns the worst error per
+    kernel."""
+    from repro_torch.kernels import ops, ref
+    out = {"gqa_decode_ragged": 0.0, "decode_attention": 0.0}
+    cases = [("ragged bf16", ragged_lens(DENSE_T, 3), torch.bfloat16),
+             ("ragged f32", ragged_lens(DENSE_T, 3), torch.float32),
+             ("serving bf16", [528] * 8, torch.bfloat16)]
+    for label, lens, dtype in cases:
+        q, k, v, kv_len = dense_case(len(label), 8, DENSE_T, lens, dtype)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        want = ref.gqa_decode(q, k, v, kv_len=kv_len).float()
+        dt = ops.dtype_name(dtype)
+        for name, tunable, entry, ctx in (
+                ("gqa_decode_ragged", ops.GQA_DECODE_RAGGED,
+                 ops.ragged_decode,
+                 ops.gqa_decode_context(chip, 8, 24, 8, 128, DENSE_T, dt)),
+                ("decode_attention", ops.DECODE_ATTENTION, ops.decode,
+                 ops.decode_attention_context(chip, 8, 24, 8, 128, DENSE_T,
+                                              dt))):
+            configs = tunable.space.valid_configs(ctx)
+            worst = 0.0
+            for cfg in configs:
+                got = entry(q, k, v, kv_len=kv_len, config=cfg).float()
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=tol, rtol=tol):
+                    raise AssertionError(f"{name} {label} {cfg}: max abs "
+                                         f"err {err} over tolerance {tol}")
+                worst = max(worst, err)
+            out[name] = max(out[name], worst)
+            print(f"{name} {label} (B 8, 24/8 heads of 128, T {DENSE_T}, "
+                  f"lengths {lens}): {len(configs)} configs ok, max_abs_err "
+                  f"{worst:.3g} (tol {tol})")
+    return out
+
+
+def time_dense(chip, name: str, cfg) -> dict:
+    """Kernel (under ``cfg``), plain version, SDPA over the same cache and
+    the roofline bound at the serving shape: B 8, 24/8 heads of 128, T
+    544, bf16, every request at 528 tokens (decode_attention, which takes
+    no lengths in the reference's runner, attends all 544)."""
+    from repro_torch.core import KernelWorkload
+    from repro_torch.kernels import ops, ref
+    ragged = name == "gqa_decode_ragged"
+    q, k, v, kv_len = dense_case(11, 8, DENSE_T, [528] * 8, torch.bfloat16)
+    if not ragged:
+        kv_len = torch.full_like(kv_len, DENSE_T)
+    entry = ops.ragged_decode if ragged else ops.decode
+    kv_tokens = int(kv_len.sum())
+    bound_ms, by = bound(KernelWorkload(
+        ops.paged_decode_flops(24, 128, kv_tokens),
+        ops.dense_decode_bytes(8, 24, 8, 128, kv_tokens, 2), "bfloat16"),
+        chip)
+    mask = (torch.arange(DENSE_T, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "kernel_ms": timer().time_runner(
+            lambda: entry(q, k, v, kv_len=kv_len, config=cfg)) * 1e3,
+        "plain_ms": timer().time_runner(
+            lambda: ref.gqa_decode(q, k, v, kv_len=kv_len)) * 1e3,
+        "library_ms": timer().time_runner(
+            lambda: fn(q[:, :, None], k, v, attn_mask=mask,
+                       enable_gqa=True)) * 1e3,
+        "bound_ms": bound_ms, "bound_by": by, "kv_tokens": kv_tokens,
+        "config": cfg}
+
+
+def dense_serving(tuner, n_layers: int) -> dict:
+    """The launcher's static batch over dense caches at full width, by the
+    gqa_decode kernel and by the plain einsum: equal token streams, the
+    kernel launched once a layer and decode step; returns the kernel run's
+    report and launch count."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da_kernel
+    from repro_torch.kernels import gqa_decode as gqa_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    argv = ["--full-config", "--requests", "8", "--prompt-len", "512",
+            "--gen", "32"]
+    # tuned before the counts start, as the paged engines' contexts are
+    tuner.best_config(ops.GQA_DECODE_RAGGED, serve.dense_context(
+        get_config("phi4-mini-3.8b"), 8, DENSE_T, torch.device("cuda")))
+    runs = {}
+    for impl in ("pallas", "full"):
+        gqa_kernel.gqa_decode.launches = 0
+        da_kernel.decode_attention.launches = 0
+        args = serve.build_parser().parse_args(
+            argv + ["--decode-impl", impl])
+        report = serve.serve_dense(args, tuner)
+        launches = {"gqa_decode_ragged": gqa_kernel.gqa_decode.launches,
+                    "decode_attention": da_kernel.decode_attention.launches}
+        runs[impl] = (report, launches)
+        torch.cuda.empty_cache()
+        print(f"dense run report (--decode-impl {impl}): " + json.dumps(
+            {k: v for k, v in report.items() if k != "tokens"},
+            sort_keys=True))
+        print(f"launches in the run (--decode-impl {impl}): "
+              f"{json.dumps(launches)}")
+    (kernel, kl), (plain, pl) = runs["pallas"], runs["full"]
+    assert kl["gqa_decode_ragged"] == 31 * n_layers, kl
+    assert kl["decode_attention"] == 0 and sum(pl.values()) == 0, (kl, pl)
+    for rep in (kernel, plain):
+        assert np.asarray(rep["tokens"]).shape == (8, 32)
+    equal = sum(a == b for a, b in zip(kernel["tokens"], plain["tokens"]))
+    print(f"--decode-impl pallas vs full at full width: {equal}/8 token "
+          f"streams equal; prefill {kernel['prefill_ms']:.1f} / "
+          f"{plain['prefill_ms']:.1f} ms, decode {kernel['decode_ms']:.1f} / "
+          f"{plain['decode_ms']:.1f} ms, tokens/s "
+          f"{kernel['tokens_per_s']:.1f} / {plain['tokens_per_s']:.1f}")
+    if equal != 8:
+        raise AssertionError("dense serving: the kernel and the plain path "
+                             "give different tokens")
+    return {"report": kernel, "launches": kl}
+
+
+def dense_step_check(model, cfg, steps: int = 8) -> None:
+    """One full-width dense decode step (8 requests at position 512 after a
+    plain prefill of 512 tokens) through gqa_decode against the same step
+    through the plain einsum on clones of one cache: the same GEMMs on
+    both paths; logits held by ``hold_logits``, the residual stream
+    compared layer by layer; then a profiled window of kernel steps."""
+    from repro_torch.models import lm
+    rng = np.random.default_rng(9)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 512))).cuda()
+    _, cache = lm.prefill(model, cfg, prompts, max_len=512 + 2 * steps + 2,
+                          opts=lm.ForwardOpts(attn_chunk=64))
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 1))).cuda()
+    caches = {"kernel": [{k: v.clone() for k, v in layer.items()}
+                         for layer in cache], "plain": cache}
+    logits, streams = {}, {"kernel": {}, "plain": {}}
+    for path in ("kernel", "plain"):
+        with residual_streams(model, streams[path]):
+            logits[path], _ = lm.decode_step(
+                model, cfg, tok, caches[path], 512,
+                lm.ForwardOpts(decode_impl=path))
+    hold_logits("dense decode step, gqa_decode vs plain einsum, 8 requests "
+                "at position 512", logits["kernel"], logits["plain"])
+    print(f"  residual stream, relative L2 after layer "
+          f"{stream_errors(streams['kernel'], streams['plain'])}")
+    opts = lm.ForwardOpts(decode_impl="kernel")
+    profile_steps(
+        "dense decode step (8 rows, full width, gqa_decode)",
+        lambda i: lm.decode_step(model, cfg, tok, caches["kernel"], 513 + i,
+                                 opts), steps)
+
+
 def decode_state(engine, steps: int):
     """A fresh cache holding 8 prefilled sequences of 96-255 tokens (plain
     prefill), laid out like the engine's pool, ready for ``steps`` decode
@@ -620,14 +854,15 @@ def first_divergences(engine, plain_reqs, spec_reqs, K: int) -> None:
           f"{json.dumps(found)}")
 
 
-def rejection_run() -> None:
+def rejection_run(K: int = 4, page_size: int = 8) -> None:
     """A small f32 model whose drafts are often rejected: phi4-mini's smoke
     widths with 4 layers, a vocabulary of 64 and untied embeddings (tied
     ones make a random model repeat its input, so drafts always match),
-    weights from seed 1. Six requests served speculatively at depth 4 on
-    the CPU (plain versions), then on the card (kernels), then by plain
-    decode on the card: the same tokens, the same verify steps and
-    committed tokens, and an acceptance strictly between 1 and 4."""
+    weights from seed 1. Six requests served speculatively at depth K on
+    pages of ``page_size`` on the CPU (plain versions), then on the card
+    (kernels), then by plain decode on the card: the same tokens, the same
+    verify steps and committed tokens, and an acceptance strictly between
+    1 and K."""
     from repro_torch.configs import get_config
     from repro_torch.core import default_tuner
     from repro_torch.kernels import paged_decode as pd_kernel
@@ -636,7 +871,6 @@ def rejection_run() -> None:
     from repro_torch.models import lm
     from repro_torch.models.param import init_params
     from repro_torch.serving import Request, ServingEngine
-    K = 4
     cfg = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
                               name="spec-reject", n_layers=4, vocab_size=64,
                               tie_embeddings=False)
@@ -647,7 +881,8 @@ def rejection_run() -> None:
         reqs = [Request(rid=i, prompt=rng.integers(
                     1, cfg.vocab_size, int(rng.integers(8, 24))).astype(
                         np.int32), max_new_tokens=24) for i in range(6)]
-        eng = ServingEngine(cfg, model, num_pages=1 + 6 * 8, page_size=8,
+        eng = ServingEngine(cfg, model, num_pages=1 + 6 * 64 // page_size,
+                            page_size=page_size,
                             max_batch=4, max_seq_len=64, prefill_chunk=8,
                             opts=lm.ForwardOpts(**PATH_OPTS["kernel"]),
                             device=device, speculative=speculative)
@@ -669,7 +904,8 @@ def rejection_run() -> None:
     card_toks, card = run("cuda", K)
     plain_toks, plain = run("cuda", 0)
     sp, csp = card["speculative"], cpu["speculative"]
-    print(f"rejection run (f32, 4 layers, K {K}): CPU {json.dumps(csp)}; "
+    print(f"rejection run (f32, 4 layers, K {K}, pages of {page_size}): "
+          f"CPU {json.dumps(csp)}; "
           f"card {json.dumps(sp)}, {card['verify_passes']} verify passes, "
           f"launches (paged_decode, paged_verify) {card['launches']}; card "
           f"plain decode: {plain['decode_steps']} decode steps, launches "
@@ -723,6 +959,11 @@ def main(argv=None) -> int:
     pdk = check_paged_decode(chip)
     pvk = check_paged_verify(chip)
     rms = check_rms_norm(chip)
+    dense_err = check_dense_decode(chip)
+    off_space_err = off_space_layouts(chip)
+    pdk["max_abs_err"] = max(pdk["max_abs_err"], off_space_err)
+    pvk["max_abs_err"] = max(pvk["max_abs_err"], off_space_err)
+    registry_sweep(chip)
 
     phase(f"4. tuning (deployment lookups and the engines' contexts) "
           f"{elapsed()}")
@@ -791,6 +1032,11 @@ def main(argv=None) -> int:
         lambda: ops.rmsnorm(x, w, config=rms_cfg)) * 1e3
     print(f"rms_norm (8, 3072) bf16 under {rms_cfg}: kernel_ms "
           f"{rms['kernel_ms']:.4f}")
+    dak = time_dense(chip, "decode_attention", tuner.best_config(
+        ops.DECODE_ATTENTION, ops.decode_attention_context(
+            chip, 8, 24, 8, 128, DENSE_T, "bfloat16")))
+    dak["max_abs_err"] = dense_err["decode_attention"]
+    print("decode_attention at the serving shape, tuned: " + json.dumps(dak))
 
     phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
     counters = {"paged_decode": pd_kernel.paged_decode,
@@ -828,13 +1074,32 @@ def main(argv=None) -> int:
     assert spec_launches["paged_verify"] == \
         spec_report["verify_passes"] * n_layers > 0, spec_launches
     first_divergences(engine, reqs, spec_reqs, K)
+    for fn in counters.values():
+        fn.launches = 0
+    off = serve.main(["--requests", "4", "--prompt-len", "48", "--gen",
+                      "16", "--max-batch", "4", "--speculative", "5"])
+    print(f"launcher --speculative 5 (smoke widths): paged_verify launches "
+          f"{pv_kernel.paged_verify.launches}")
+    assert off["speculative"]["draft_k"] == 5, off["speculative"]
+    assert off["lifecycle"]["terminal"] == 4 and \
+        off["lifecycle"]["failed"] == 0, off
+    assert pv_kernel.paged_verify.launches == off["verify_passes"] * 2 > 0
+    dense = dense_serving(tuner, n_layers)
+    gqk = time_dense(chip, "gqa_decode_ragged", tuner.best_config(
+        ops.GQA_DECODE_RAGGED, serve.dense_context(
+            engine.cfg, 8, DENSE_T, torch.device("cuda"))))
+    gqk["max_abs_err"] = dense_err["gqa_decode_ragged"]
+    print("gqa_decode_ragged at the serving shape under the serving config: "
+          + json.dumps(gqk))
 
     phase(f"6. full-width steps: kernels against plain versions, and where "
           f"their time goes {elapsed()}")
     full_width_check(engine)
     verify_check(spec_engine)
+    dense_step_check(engine.model, engine.cfg)
     profile_decode_and_verify(engine, spec_engine)
     rejection_run()
+    rejection_run(K=5, page_size=4)
 
     phase(f"7. summary {elapsed()}")
 
@@ -855,6 +1120,12 @@ def main(argv=None) -> int:
               spec_launches["paged_verify"], pvk),
         entry("rms_norm", "triton", "src/repro_torch/kernels/rms_norm.py",
               "src/repro/kernels/rms_norm.py:24", launches["rms_norm"], rms),
+        entry("gqa_decode_ragged", "cuda", "src/repro_torch/csrc/gqa_decode.cu",
+              "src/repro/kernels/gqa_decode.py:43",
+              dense["launches"]["gqa_decode_ragged"], gqk),
+        entry("decode_attention", "cuda", "src/repro_torch/csrc/gqa_decode.cu",
+              "src/repro/kernels/decode_attention.py:38",
+              dense["launches"]["decode_attention"], dak),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

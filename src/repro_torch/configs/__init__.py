@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the archs that paged serving runs.
+"""Architecture registry of the port: the archs that paged and dense
+serving run.
 
-Paged serving needs a dense RoPE attention arch with no sliding window
-(``models.lm._check_paged``), so of the reference's ten configs the port
-carries the three that qualify, each with its full and smoke variant.
+Both need a dense RoPE attention arch with no sliding window
+(``models.lm._check_supported``), so of the reference's ten configs the
+port carries the three that qualify, each with its full and smoke variant.
 """
 
 from typing import List

@@ -10,7 +10,8 @@ default. ``Autotuner.best_config`` is what a kernel entry point calls:
   miss, on_miss "error"                             → raise
 
 ``tune`` measures with the backend (CUDA events on the card by default),
-searches the space, and stores the winner. Background tuning, config
+searches the space (timing each of a kernel's canonical configs once),
+and stores the winner. Background tuning, config
 portfolios, quarantine and drift retuning are not in the port.
 """
 
@@ -41,6 +42,10 @@ class TunableKernel:
         Callable[[Config, TuningContext], KernelWorkload]] = None
     make_runner: Optional[measure_lib.RunnerFactory] = None
     heuristic: Optional[Callable[[TuningContext], Config]] = None
+    # Maps a config to the one the kernel actually launches (e.g. a block
+    # clamped to the sequence); configs with equal canonical forms are
+    # timed once per search.
+    canonicalize: Optional[Callable[[Config, TuningContext], Config]] = None
 
     def default_config(self, ctx: TuningContext) -> Config:
         if self.heuristic is not None:
@@ -79,7 +84,8 @@ class Autotuner:
         strat = search_lib.ExhaustiveSearch()
         t0 = time.perf_counter()
         result = strat.run(kernel.space, ctx,
-                           self.backend.evaluator(kernel, ctx))
+                           _dedupe(self.backend.evaluator(kernel, ctx),
+                                   kernel, ctx))
         seconds = time.perf_counter() - t0
         self._bump("tunes")
         if result.best is None:
@@ -130,6 +136,23 @@ class Autotuner:
             with self._lock:
                 self._dispatch[memo_key] = cfg
         return dict(cfg)
+
+
+def _dedupe(evaluate: Callable[[Config], float], kernel: TunableKernel,
+            ctx: TuningContext) -> Callable[[Config], float]:
+    """``evaluate`` timing each canonical form once: a config whose
+    ``kernel.canonicalize`` form was timed already gets that time."""
+    if kernel.canonicalize is None:
+        return evaluate
+    seen: Dict[Tuple, float] = {}
+
+    def run(cfg: Config) -> float:
+        key = tuple(sorted(kernel.canonicalize(cfg, ctx).items()))
+        if key not in seen:
+            seen[key] = evaluate(cfg)
+        return seen[key]
+
+    return run
 
 
 _DEFAULT: Optional[Autotuner] = None

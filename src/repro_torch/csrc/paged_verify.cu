@@ -73,7 +73,6 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kMaxHeadDim = 256;
 constexpr int kUnit = 4;                          // elements per lane load
-constexpr int kMaxDraft = 8;
 constexpr int kMaxSmem = 232448;                  // 227 KB opt-in per block
 
 __device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
@@ -374,7 +373,7 @@ int paged_verify_launch(const void* q, const void* k_pages,
                         int pack_gqa, int num_warps, int dtype,
                         void* stream) {
   const int dtype_bytes = dtype == 0 ? 4 : 2;
-  if ((dtype != 0 && dtype != 1) || K <= 0 || K > kMaxDraft || Hkv <= 0 ||
+  if ((dtype != 0 && dtype != 1) || K <= 0 || Hkv <= 0 ||
       Hq % Hkv != 0 || D <= 0 || D > kMaxHeadDim ||
       (D * dtype_bytes) % 16 != 0 || block_kv <= 0 || num_warps <= 0 ||
       num_warps > 32 || page_size <= 0 || max_pages <= 0)

@@ -1,0 +1,176 @@
+"""Ragged GQA decode over a dense KV cache: the wrapper around
+``csrc/gqa_decode.cu``.
+
+The CUDA C++ kernel replaces the TPU kernel ``gqa_decode`` of
+``src/repro/kernels/gqa_decode.py`` (whose body is ``_decode_kernel`` of
+``src/repro/kernels/decode_attention.py``); ``kernels.decode_attention``
+launches the same kernel with the query group packed, as the reference's
+two modules share ``_decode_kernel``. The source's header note says what
+bounds it on Hopper (HBM bytes) and how its design answers that. It is
+built and loaded like ``paged_decode`` (``kernels.build``).
+
+Cache layout: the kernel reads K and V through the strides of the
+``(B, Hkv, T, D)`` tensors it is handed, with D contiguous. The serving
+cache stays ``(B, T, Hkv, D)``, as the reference stores it, and
+``models.attention.attn_decode`` passes ``cache.transpose(1, 2)``: no copy
+of the cache per step.
+
+Tunables (``kernels.ops.GQA_DECODE_RAGGED``): ``block_kv`` rows staged in
+shared memory per step, ``k_splits`` independent spans of each request's
+positions (partials combined by a second launch), ``pack_gqa`` (one block
+per KV head scoring its whole query group, or one block per query head)
+and ``num_warps``. ``block_kv`` is clamped to the cache length rounded up
+to a warp's 32 keys, as the reference clamps it to its 128-lane tile.
+Tensors on the CPU take the plain version in ``kernels.ref``; a CUDA tensor
+launches the kernel or raises. An int8 cache (the kv8 policy, the TPU
+kernel ``gqa_decode_kv8``) is not ported yet and raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import KernelLibrary
+
+MAX_HEAD_DIM = 256
+MAX_PACKED_GROUP = 8
+MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
+KEY_TILE = 32                    # keys a warp scores at a time
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gqa_decode_launch.argtypes = (
+        [vp] * 7 + [i32] * 5 + [i64] * 3 + [ctypes.c_float] + [i32] * 5
+        + [vp])
+    lib.gqa_decode_launch.restype = i32
+    lib.gqa_decode_smem_bytes.argtypes = [i32] * 5
+    lib.gqa_decode_smem_bytes.restype = i32
+
+
+LIB = KernelLibrary("gqa_decode", _declare)
+
+
+def rows_per_block(group: int, pack_gqa: bool) -> int:
+    return group if pack_gqa and group > 1 else 1
+
+
+def clamp_block_kv(block_kv: int, T: int) -> int:
+    """The block the kernel stages: ``block_kv`` clamped to the cache
+    length rounded up to whole warps of keys."""
+    return min(block_kv, -(-T // KEY_TILE) * KEY_TILE)
+
+
+def smem_bytes(D: int, itemsize: int, block_kv: int, group: int,
+               pack_gqa: bool, num_warps: int) -> int:
+    """Dynamic shared memory of one launch — the same formula as
+    ``gqa_decode_smem_bytes`` in the CUDA source: the block's query rows in
+    f32, then the larger of the double-buffered K/V staging (rows padded
+    by 16 bytes) and the warps' f32 (acc, m, l) merged at the end."""
+    rows = rows_per_block(group, pack_gqa)
+    return rows * D * 4 + max(4 * block_kv * (D * itemsize + 16),
+                              num_warps * rows * (D + 2) * 4)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_len: Optional[torch.Tensor], *, scale: Optional[float],
+           block_kv: int, k_splits: int, pack_gqa: bool, num_warps: int,
+           name: str) -> torch.Tensor:
+    """Check the operands and launch the kernel (and its combine) on q's
+    stream; returns (B, Hq, D) in q's dtype. Counts nothing: the public
+    wrappers count their own launches."""
+    if k.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 caches (gqa_decode_kv8, the kv8 policy) are not ported yet")
+    if not q.is_cuda:
+        return ref.gqa_decode(q, k, v, kv_len=kv_len, scale=scale)
+    q = q.contiguous()
+    B, Hq, D = q.shape
+    if kv_len is None:
+        kv_len = torch.full((B,), k.shape[2], dtype=torch.int32,
+                            device=q.device)
+    _, Hkv, T, Dk = k.shape
+    group = Hq // Hkv if Hkv else 0
+    item = q.element_size()
+    errors = [
+        (q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)"),
+        (k.dtype == q.dtype and v.dtype == q.dtype,
+         "q and the cache must share a dtype"),
+        (k.shape == v.shape and k.shape[0] == B and Dk == D,
+         "k, v (B, Hkv, T, D) with q's B and D"),
+        (k.stride() == v.stride() and k.stride(-1) == 1,
+         "k and v must share strides, D contiguous"),
+        (all(s * item % 16 == 0 for s in k.stride()[:3]),
+         "cache strides must be 16-byte multiples"),
+        (T > 0, "an empty cache"),
+        (Hkv > 0 and Hq % Hkv == 0, f"Hq {Hq} not a multiple of Hkv {Hkv}"),
+        (D <= MAX_HEAD_DIM, f"head_dim {D} > {MAX_HEAD_DIM}"),
+        (D * item % 16 == 0, f"head_dim {D} rows are not 16-byte multiples"),
+        (block_kv > 0, f"block_kv {block_kv}"),
+        (1 <= k_splits <= 32, f"k_splits {k_splits}"),
+        (not (pack_gqa and group > MAX_PACKED_GROUP),
+         f"pack_gqa with group {group} > {MAX_PACKED_GROUP}"),
+        (1 <= num_warps <= 32, f"num_warps {num_warps}"),
+        (kv_len.shape == (B,), "kv_len (B,)"),
+        (all(t.is_cuda and t.device == q.device for t in (k, v, kv_len)),
+         "every operand on q's device"),
+        (all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+         "q and the cache must be 16-byte aligned"),
+    ]
+    bad = [msg for ok, msg in errors if not ok]
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
+    block_kv = clamp_block_kv(block_kv, T)
+    smem = smem_bytes(D, item, block_kv, group, pack_gqa, num_warps)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {smem} bytes of shared memory > "
+                         f"{MAX_SMEM_BYTES} (block_kv {block_kv})")
+    if scale is None:
+        scale = D ** -0.5
+    lens = kv_len.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    part_o = part_lse = None
+    if k_splits > 1:
+        g = rows_per_block(group, pack_gqa)
+        rows = B * Hq // g
+        part_o = torch.empty(rows, k_splits, g, D, dtype=torch.float32,
+                             device=q.device)
+        part_lse = torch.empty(rows, k_splits, g, dtype=torch.float32,
+                               device=q.device)
+    sb, sh, st, _ = k.stride()
+    err = LIB.load().gqa_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), None if part_o is None else part_o.data_ptr(),
+        None if part_lse is None else part_lse.data_ptr(),
+        B, Hq, Hkv, T, D, sb, sh, st, float(scale), block_kv, k_splits,
+        int(bool(pack_gqa)), num_warps, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               kv_len: Optional[torch.Tensor] = None,
+               scale: Optional[float] = None, block_kv: int = 64,
+               k_splits: int = 1, pack_gqa: bool = True,
+               num_warps: int = 4) -> torch.Tensor:
+    """Ragged batched GQA decode. q (B, Hq, D); k, v (B, Hkv, T, D) float32
+    or bfloat16 (q's dtype), any strides with D contiguous; kv_len (B,)
+    int, clamped to T (None: every request attends all T). Requests with
+    kv_len == 0 get zeros. Returns (B, Hq, D) in q's dtype."""
+    out = launch(q, k, v, kv_len, scale=scale, block_kv=block_kv,
+                 k_splits=k_splits, pack_gqa=pack_gqa, num_warps=num_warps,
+                 name="gqa_decode")
+    if q.is_cuda:
+        gqa_decode.launches += 1
+    return out
+
+
+gqa_decode.launches = 0

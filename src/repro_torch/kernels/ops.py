@@ -9,11 +9,17 @@ For each of the port's kernels this module declares
   * a runner factory that builds operands on the card for timing a config;
   * a heuristic default;
 
-and the entry points ``paged_decode(...)``, ``paged_verify(...)`` and
-``rmsnorm(...)`` that resolve their config through the tuner and
-dispatch. Every entry point accepts ``config=`` to bypass tuning. Tensors
-on the CPU need no config: the kernel wrappers run their plain versions
-there.
+and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
+``decode(...)``, ``ragged_decode(...)`` and ``rmsnorm(...)`` that resolve
+their config through the tuner and dispatch. Every entry point accepts
+``config=`` to bypass tuning. Tensors on the CPU need no config: the
+kernel wrappers run their plain versions there. A pool laid out with a
+page size outside the space, or a verify deeper or shallower than the
+tuned depths, dispatches a fixed config with no tuning, as the reference
+does.
+
+Importing this module registers the five kernels in ``kernels.registry``
+under the reference's names, scenarios and bench cases.
 """
 
 from __future__ import annotations
@@ -29,8 +35,11 @@ from repro_torch.core import (
     TunableKernel, TuningContext, current_chip, default_tuner,
 )
 from repro_torch.core.config_space import dtype_bytes, smem_fits
+from repro_torch.kernels import decode_attention as da_kernel
+from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
+from repro_torch.kernels import ref
 from repro_torch.kernels import rms_norm as rms_kernel
 
 
@@ -75,8 +84,17 @@ def release_tuning_operands() -> None:
 
 
 def _randn(shape, dtype, gen):
-    return torch.randn(shape, generator=gen, device="cuda",
+    return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).to(dtype)
+
+
+def _fixed_block_kv(page_size: int, smem_of, limit: int) -> int:
+    """The reference's fixed block of one page, halved until its shared
+    memory (``smem_of(block_kv)``) fits the kernel's limit."""
+    block_kv = page_size
+    while block_kv > 1 and smem_of(block_kv) > limit:
+        block_kv = _cdiv(block_kv, 2)
+    return block_kv
 
 
 # ===========================================================================
@@ -142,8 +160,10 @@ def paged_decode_flops(Hq: int, D: int, kv_tokens: float) -> float:
     return 4.0 * kv_tokens * Hq * D
 
 
-def _paged_lens(ctx: TuningContext) -> torch.Tensor:
-    """The ragged lengths the runner times with (seeded, on the CPU)."""
+def _ragged_lens(ctx: TuningContext) -> torch.Tensor:
+    """The ragged lengths the runners of paged_decode and
+    gqa_decode_ragged time with: the reference's seed-7 draw in
+    [1, T * fill] (seeded, on the CPU)."""
     B = ctx.shape("q")[0]
     T = ctx.shape("k")[2]
     hi = max(2, int(T * float(ctx.extra.get("fill", 1.0)))) + 1
@@ -157,7 +177,7 @@ def _paged_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     ps = cfg["page_size"]
-    kv_tokens = float(torch.clamp(_paged_lens(ctx), max=_rup(T, ps)).sum())
+    kv_tokens = float(torch.clamp(_ragged_lens(ctx), max=_rup(T, ps)).sum())
     reads = 1 if cfg["pack_gqa"] else _group(ctx)
     return KernelWorkload(
         flops=paged_decode_flops(Hq, D, kv_tokens),
@@ -177,26 +197,39 @@ def _paged_heuristic(ctx: TuningContext) -> Config:
             "num_warps": 4}
 
 
-def _paged_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
-    """A filled pool with the config's page size; page 0 is the scratch
-    page and each sequence owns a contiguous run of pages."""
+def _pool_operands(ctx: TuningContext, ps: int, lens: torch.Tensor,
+                   device, K: Optional[int] = None):
+    """A filled pool of pages of ``ps`` from the logical (q, k) shapes;
+    page 0 is the scratch page and each sequence owns a contiguous run of
+    pages. q is (B, Hq, D), or (B, K, Hq, D) for a verify of depth K."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
-    ps = cfg["page_size"]
     dtype = getattr(torch, ctx.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    pps = _cdiv(T, ps)
+    n_pages = 1 + B * pps
+    q = _randn((B, Hq, D) if K is None else (B, K, Hq, D), dtype, gen)
+    kp = _randn((Hkv, n_pages, ps, D), dtype, gen)
+    vp = _randn((Hkv, n_pages, ps, D), dtype, gen)
+    tbl = torch.arange(1, n_pages, dtype=torch.int32,
+                       device=device).reshape(B, pps)
+    return q, kp, vp, tbl, lens.to(device)
 
-    def build():
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        pps = _cdiv(T, ps)
-        n_pages = 1 + B * pps
-        q = _randn((B, Hq, D), dtype, gen)
-        kp = _randn((Hkv, n_pages, ps, D), dtype, gen)
-        vp = _randn((Hkv, n_pages, ps, D), dtype, gen)
-        tbl = torch.arange(1, n_pages, dtype=torch.int32,
-                           device="cuda").reshape(B, pps)
-        return q, kp, vp, tbl, _paged_lens(ctx).cuda()
 
-    args = _memo_operands(("paged_decode", ctx.signature(), ps), build)
+def _paged_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                    device="cuda"):
+    """Registry operands: the pool at the config's (or the context's, or
+    16-token) page size, ragged lengths from ``extra["fill"]``."""
+    ps = int((cfg or {}).get("page_size", ctx.extra.get("page_size", 16)))
+    return _pool_operands(ctx, ps, _ragged_lens(ctx), device), {}
+
+
+def _paged_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    """A filled pool with the config's page size (``_pool_operands``)."""
+    ps = cfg["page_size"]
+    args = _memo_operands(
+        ("paged_decode", ctx.signature(), ps),
+        lambda: _pool_operands(ctx, ps, _ragged_lens(ctx), "cuda"))
     return KernelRunner(pd_kernel.paged_decode, *args,
                         block_kv=cfg["block_kv"], pack_gqa=cfg["pack_gqa"],
                         num_warps=cfg["num_warps"])
@@ -224,6 +257,39 @@ def paged_decode_context(chip, B: int, Hq: int, Hkv: int, D: int,
                          dtype=dtype, extra=extra)
 
 
+def paged_decode_fixed_config(group: int, D: int, page_size: int,
+                              itemsize: int) -> Config:
+    """What a pool with an off-space page size dispatches, untuned: the
+    reference's one page per step with packed heads
+    (``src/repro/kernels/ops.py:836-840``), the block halved until it fits
+    in shared memory (pages of 256 at bf16 and D 128 would stage 256 KB)."""
+    pack = 1 < group <= pd_kernel.MAX_PACKED_GROUP
+    block_kv = _fixed_block_kv(
+        page_size, lambda bkv: pd_kernel.smem_bytes(D, itemsize, bkv, group,
+                                                    pack, 4),
+        pd_kernel.MAX_SMEM_BYTES)
+    return {"block_kv": block_kv, "pack_gqa": pack, "num_warps": 4}
+
+
+def paged_decode_config(q, k_pages, block_tables,
+                        tuner: Optional[Autotuner] = None) -> Config:
+    """The config a decode on these operands dispatches: the fixed config
+    for a pool whose page size is outside the space, else the tuner's
+    for the pool's layout (memoized per shape)."""
+    B, Hq, D = q.shape
+    Hkv, _, ps, _ = k_pages.shape
+    if ps not in PAGE_SIZES:
+        return paged_decode_fixed_config(Hq // Hkv, D, ps, q.element_size())
+    tuner = tuner or default_tuner()
+    max_pages = block_tables.shape[1]
+    dt = dtype_name(k_pages.dtype)
+    key = (B, Hq, Hkv, D, ps, max_pages, dt, q.device.index)
+    return tuner.dispatch_config(
+        PAGED_DECODE, key,
+        lambda: paged_decode_context(device_chip(q.device.index), B, Hq, Hkv,
+                                     D, max_pages * ps, dt, ps))
+
+
 def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
                  scale: Optional[float] = None,
                  config: Optional[Config] = None,
@@ -233,16 +299,7 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
     ``page_size``, so the lookup context carries it and the remaining
     tunables dispatch to the kernel."""
     if config is None and q.is_cuda:
-        tuner = tuner or default_tuner()
-        B, Hq, D = q.shape
-        Hkv, _, ps, _ = k_pages.shape
-        max_pages = block_tables.shape[1]
-        dt = dtype_name(k_pages.dtype)
-        key = (B, Hq, Hkv, D, ps, max_pages, dt, q.device.index)
-        config = tuner.dispatch_config(
-            PAGED_DECODE, key,
-            lambda: paged_decode_context(device_chip(q.device.index), B, Hq,
-                                         Hkv, D, max_pages * ps, dt, ps))
+        config = paged_decode_config(q, k_pages, block_tables, tuner)
     cfg = {k: v for k, v in (config or {}).items() if k != "page_size"}
     return pd_kernel.paged_decode(q, k_pages, v_pages, block_tables, kv_len,
                                   scale=scale, **cfg)
@@ -356,26 +413,23 @@ def _paged_verify_heuristic(ctx: TuningContext) -> Config:
             "block_kv": ps, "pack_gqa": _group(ctx) > 1, "num_warps": 4}
 
 
+def _paged_verify_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                           device="cuda"):
+    """Registry operands: the pool as ``_paged_operands``, a K-position
+    query block (K from the config, the context or 4) and lengths >= K."""
+    cfg = cfg or {}
+    ps = int(cfg.get("page_size", ctx.extra.get("page_size", 16)))
+    K = int(cfg.get("draft_k", ctx.extra.get("draft_k", 4)))
+    return _pool_operands(ctx, ps, _verify_lens(ctx, K), device, K), {}
+
+
 def _paged_verify_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
     """The decode runner's pool with the config's page size, a K-position
     query block and lengths >= K."""
-    B, Hq, D = ctx.shape("q")
-    Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     ps, K = cfg["page_size"], cfg["draft_k"]
-    dtype = getattr(torch, ctx.dtype)
-
-    def build():
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        pps = _cdiv(T, ps)
-        n_pages = 1 + B * pps
-        q = _randn((B, K, Hq, D), dtype, gen)
-        kp = _randn((Hkv, n_pages, ps, D), dtype, gen)
-        vp = _randn((Hkv, n_pages, ps, D), dtype, gen)
-        tbl = torch.arange(1, n_pages, dtype=torch.int32,
-                           device="cuda").reshape(B, pps)
-        return q, kp, vp, tbl, _verify_lens(ctx, K).cuda()
-
-    args = _memo_operands(("paged_verify", ctx.signature(), ps, K), build)
+    args = _memo_operands(
+        ("paged_verify", ctx.signature(), ps, K),
+        lambda: _pool_operands(ctx, ps, _verify_lens(ctx, K), "cuda", K))
     return KernelRunner(pv_kernel.paged_verify, *args,
                         block_kv=cfg["block_kv"], pack_gqa=cfg["pack_gqa"],
                         num_warps=cfg["num_warps"])
@@ -410,6 +464,40 @@ def paged_verify_context(chip, B: int, Hq: int, Hkv: int, D: int,
                          dtype=dtype, extra=extra)
 
 
+def paged_verify_fixed_config(K: int, group: int, D: int, page_size: int,
+                              itemsize: int) -> Config:
+    """What a verify at an off-space depth or page size dispatches,
+    untuned: the reference's one page per step with packed heads
+    (``src/repro/kernels/ops.py:1056-1060``), the block halved until it
+    fits in shared memory."""
+    pack = group > 1
+    block_kv = _fixed_block_kv(
+        page_size, lambda bkv: pv_kernel.smem_bytes(D, itemsize, bkv, K,
+                                                    group, pack, 4),
+        pv_kernel.MAX_SMEM_BYTES)
+    return {"block_kv": block_kv, "pack_gqa": pack, "num_warps": 4}
+
+
+def paged_verify_config(q, k_pages, block_tables,
+                        tuner: Optional[Autotuner] = None) -> Config:
+    """The config a verify on these operands dispatches: the fixed config
+    for a page size or depth outside the space, else the tuner's for the
+    pool's layout and the depth (memoized per shape)."""
+    B, K, Hq, D = q.shape
+    Hkv, _, ps, _ = k_pages.shape
+    if ps not in PAGE_SIZES or K not in pv_kernel.DRAFT_KS:
+        return paged_verify_fixed_config(K, Hq // Hkv, D, ps,
+                                         q.element_size())
+    tuner = tuner or default_tuner()
+    max_pages = block_tables.shape[1]
+    dt = dtype_name(k_pages.dtype)
+    key = (B, K, Hq, Hkv, D, ps, max_pages, dt, q.device.index)
+    return tuner.dispatch_config(
+        PAGED_VERIFY, key,
+        lambda: paged_verify_context(device_chip(q.device.index), B, Hq, Hkv,
+                                     D, max_pages * ps, dt, ps, K))
+
+
 def paged_verify(q, k_pages, v_pages, block_tables, kv_len, *,
                  scale: Optional[float] = None,
                  config: Optional[Config] = None,
@@ -421,20 +509,209 @@ def paged_verify(q, k_pages, v_pages, block_tables, kv_len, *,
     pins ``draft_k``, so the lookup context carries both and the
     remaining tunables dispatch to the kernel."""
     if config is None and q.is_cuda:
-        tuner = tuner or default_tuner()
-        B, K, Hq, D = q.shape
-        Hkv, _, ps, _ = k_pages.shape
-        max_pages = block_tables.shape[1]
-        dt = dtype_name(k_pages.dtype)
-        key = (B, K, Hq, Hkv, D, ps, max_pages, dt, q.device.index)
-        config = tuner.dispatch_config(
-            PAGED_VERIFY, key,
-            lambda: paged_verify_context(device_chip(q.device.index), B, Hq,
-                                         Hkv, D, max_pages * ps, dt, ps, K))
+        config = paged_verify_config(q, k_pages, block_tables, tuner)
     cfg = {k: v for k, v in (config or {}).items()
            if k not in ("page_size", "draft_k")}
     return pv_kernel.paged_verify(q, k_pages, v_pages, block_tables, kv_len,
                                   scale=scale, **cfg)
+
+
+# ===========================================================================
+# Dense-cache decode: one token per head against a (B, Hkv, T, D) cache.
+# decode_attention (heads packed) and gqa_decode_ragged (per-request
+# kv_len, pack_gqa tunable) share one CUDA kernel
+# ===========================================================================
+
+DENSE_BLOCK_KV = (32, 64, 128, 256)
+K_SPLITS = (1, 2, 4, 8, 16, 32)
+
+
+def _dense_pack(cfg: Config) -> bool:
+    return cfg.get("pack_gqa", True)
+
+
+def _dense_smem(cfg: Config, ctx: TuningContext) -> int:
+    D = ctx.shape("q")[2]
+    return gqa_kernel.smem_bytes(
+        D, dtype_bytes(ctx.dtype),
+        gqa_kernel.clamp_block_kv(cfg["block_kv"], ctx.shape("k")[2]),
+        _group(ctx), _dense_pack(cfg), cfg["num_warps"])
+
+
+def _dense_space(name: str, version: int, with_pack: bool) -> ConfigSpace:
+    params = [Param("block_kv", DENSE_BLOCK_KV), Param("k_splits", K_SPLITS)]
+    if with_pack:
+        params.append(Param("pack_gqa", (True, False)))
+    params.append(Param("num_warps", (2, 4, 8)))
+    sp = ConfigSpace(name, params, version=version)
+    sp.constrain("smem", smem_fits(_dense_smem))
+    sp.constrain(
+        "splits<=blocks",
+        lambda c, x: c["k_splits"] <= max(1, _cdiv(x.shape("k")[2],
+                                                   c["block_kv"])))
+    # A packed block holds the whole group in registers (up to eight heads);
+    # packing a group of one is the unpacked kernel, so the ragged space,
+    # where pack_gqa is tunable, keeps one of the two.
+    if with_pack:
+        sp.constrain("pack_gqa:group",
+                     lambda c, x: not c["pack_gqa"]
+                     or 1 < _group(x) <= gqa_kernel.MAX_PACKED_GROUP)
+    else:
+        sp.constrain("group",
+                     lambda c, x: _group(x) <= gqa_kernel.MAX_PACKED_GROUP)
+    return sp
+
+
+def dense_decode_bytes(B: int, Hq: int, Hkv: int, D: int, kv_tokens: float,
+                       itemsize: int) -> float:
+    """HBM bytes of one call reading each K/V row once: the K and V rows
+    of ``kv_tokens`` valid positions over Hkv heads, q in, o out, the
+    lengths."""
+    return (2.0 * kv_tokens * Hkv * D * itemsize
+            + 2.0 * B * Hq * D * itemsize + 4.0 * B)
+
+
+def _dense_canonical(cfg: Config, ctx: TuningContext) -> Config:
+    """The kernel clamps its KV block to the cache length rounded up to 32
+    keys; block_kv values past that launch the same program."""
+    c = dict(cfg)
+    c["block_kv"] = gqa_kernel.clamp_block_kv(c["block_kv"],
+                                              ctx.shape("k")[2])
+    return c
+
+
+def _dense_workload(cfg: Config, ctx: TuningContext,
+                    lens: Optional[torch.Tensor]) -> KernelWorkload:
+    """What the timed call moves under ``cfg``: the valid K/V rows (each
+    group head re-reads them unpacked), q and o, and with k_splits > 1 the
+    f32 partials written and read back by the combine."""
+    B, Hq, D = ctx.shape("q")
+    Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
+    kv_tokens = float(B * T if lens is None
+                      else torch.clamp(lens, 0, T).sum())
+    pack = _dense_pack(cfg)
+    g = gqa_kernel.rows_per_block(_group(ctx), pack)
+    reads = 1 if pack else _group(ctx)
+    ks = cfg["k_splits"]
+    partials = 0.0 if ks == 1 else 2.0 * (B * Hq // g) * ks * g * (D + 1) * 4
+    return KernelWorkload(
+        flops=paged_decode_flops(Hq, D, kv_tokens),
+        hbm_bytes=dense_decode_bytes(B, Hq, Hkv, D, kv_tokens * reads,
+                                     dtype_bytes(ctx.dtype)) + partials,
+        dtype=ctx.dtype)
+
+
+def _dense_operands(ctx: TuningContext, device, with_lens: bool):
+    """q, and k, v as (B, Hkv, T, D) views of caches stored (B, T, Hkv,
+    D), the layout the serving path hands the kernel; the ragged kernel
+    also gets the seeded lengths."""
+    B, Hq, D = ctx.shape("q")
+    Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
+    dtype = getattr(torch, ctx.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    q = _randn((B, Hq, D), dtype, gen)
+    k = _randn((B, T, Hkv, D), dtype, gen).transpose(1, 2)
+    v = _randn((B, T, Hkv, D), dtype, gen).transpose(1, 2)
+    kw = {"kv_len": _ragged_lens(ctx).to(device)} if with_lens else {}
+    return (q, k, v), kw
+
+
+def _dense_runner(fn, with_lens: bool):
+    def make(cfg: Config, ctx: TuningContext) -> KernelRunner:
+        args, kw = _memo_operands(
+            ("dense_decode", ctx.signature(), with_lens),
+            lambda: _dense_operands(ctx, "cuda", with_lens))
+        return KernelRunner(fn, *args, **kw, **cfg)
+    return make
+
+
+def _refuse_int8(k: torch.Tensor) -> None:
+    if k.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 caches (gqa_decode_kv8, the kv8 policy) are not ported yet")
+
+
+DECODE_ATTENTION = TunableKernel(
+    name="decode_attention",
+    space=_dense_space("decode_attention", 2, with_pack=False),
+    version=2,
+    workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, None),
+    make_runner=_dense_runner(da_kernel.decode_attention, with_lens=False),
+    heuristic=lambda ctx: {"block_kv": 64, "k_splits": 1, "num_warps": 4},
+    canonicalize=_dense_canonical,
+)
+
+
+def decode_attention_context(chip, B: int, Hq: int, Hkv: int, D: int,
+                             T: int, dtype: str) -> TuningContext:
+    return TuningContext(chip=chip, shapes={"q": (B, Hq, D),
+                                            "k": (B, Hkv, T, D)},
+                         dtype=dtype)
+
+
+def decode(q, k, v, *, kv_len=None, config: Optional[Config] = None,
+           tuner: Optional[Autotuner] = None):
+    """Autotuned decode attention. q (B, Hq, D); k, v (B, Hkv, T, D)."""
+    _refuse_int8(k)
+    if config is None and q.is_cuda:
+        tuner = tuner or default_tuner()
+        B, Hq, D = q.shape
+        Hkv, T = k.shape[1], k.shape[2]
+        dt = dtype_name(k.dtype)
+        config = tuner.dispatch_config(
+            DECODE_ATTENTION, (B, Hq, Hkv, T, D, dt, q.device.index),
+            lambda: decode_attention_context(device_chip(q.device.index), B,
+                                             Hq, Hkv, D, T, dt))
+    return da_kernel.decode_attention(q, k, v, kv_len=kv_len,
+                                      **(config or {}))
+
+
+def _gqa_decode_heuristic(ctx: TuningContext) -> Config:
+    """The reference's one split with packed heads, at a block the card
+    stages comfortably."""
+    return {"block_kv": 64, "k_splits": 1,
+            "pack_gqa": 1 < _group(ctx) <= gqa_kernel.MAX_PACKED_GROUP,
+            "num_warps": 4}
+
+
+GQA_DECODE_RAGGED = TunableKernel(
+    name="gqa_decode_ragged",
+    space=_dense_space("gqa_decode_ragged", 1, with_pack=True),
+    version=1,
+    workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, _ragged_lens(ctx)),
+    make_runner=_dense_runner(gqa_kernel.gqa_decode, with_lens=True),
+    heuristic=_gqa_decode_heuristic,
+    canonicalize=_dense_canonical,
+)
+
+
+def gqa_decode_context(chip, B: int, Hq: int, Hkv: int, D: int, T: int,
+                       dtype: str,
+                       fill: Optional[float] = None) -> TuningContext:
+    """Tuning scenario of a ragged decode over B requests of T cache slots;
+    ``fill`` (the mean valid share the runner's lengths draw from) as the
+    reference's bench cases give it, omitted at serving."""
+    extra = {} if fill is None else {"fill": float(fill)}
+    return TuningContext(chip=chip, shapes={"q": (B, Hq, D),
+                                            "k": (B, Hkv, T, D)},
+                         dtype=dtype, extra=extra)
+
+
+def ragged_decode(q, k, v, *, kv_len=None, config: Optional[Config] = None,
+                  tuner: Optional[Autotuner] = None):
+    """Autotuned ragged GQA decode. q (B, Hq, D); k, v (B, Hkv, T, D), any
+    strides with D contiguous; kv_len (B,) per-request valid lengths."""
+    _refuse_int8(k)
+    if config is None and q.is_cuda:
+        tuner = tuner or default_tuner()
+        B, Hq, D = q.shape
+        Hkv, T = k.shape[1], k.shape[2]
+        dt = dtype_name(k.dtype)
+        config = tuner.dispatch_config(
+            GQA_DECODE_RAGGED, (B, Hq, Hkv, T, D, dt, q.device.index),
+            lambda: gqa_decode_context(device_chip(q.device.index), B, Hq,
+                                       Hkv, D, T, dt))
+    return gqa_kernel.gqa_decode(q, k, v, kv_len=kv_len, **(config or {}))
 
 
 # ===========================================================================
@@ -473,15 +750,17 @@ def _rms_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
                           dtype=ctx.dtype)
 
 
-def _rms_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+def _rms_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                  device="cuda"):
     x_s = ctx.shape("x")
     dtype = getattr(torch, ctx.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return (_randn(x_s, dtype, gen), _randn((x_s[-1],), dtype, gen)), {}
 
-    def build():
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        return _randn(x_s, dtype, gen), _randn((x_s[-1],), dtype, gen)
 
-    x, w = _memo_operands(("rms_norm", ctx.signature()), build)
+def _rms_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    x, w = _memo_operands(("rms_norm", ctx.signature()),
+                          lambda: _rms_operands(ctx)[0])
     return KernelRunner(rms_kernel.rms_norm, x, w, **cfg)
 
 
@@ -511,3 +790,95 @@ def rmsnorm(x, weight, *, eps: float = 1e-6,
             RMS_NORM, key,
             lambda: rmsnorm_context(device_chip(x.device.index), x.shape, dt))
     return rms_kernel.rms_norm(x, weight, eps=eps, **(config or {}))
+
+
+# ===========================================================================
+# Registry: the reference's names, scenarios, descriptions and bench cases
+# (its int8 cases join with kv8)
+# ===========================================================================
+
+def _register_builtin_kernels() -> None:
+    from repro_torch.kernels.registry import BenchCase, KernelSpec, register
+
+    register(KernelSpec(
+        tunable=DECODE_ATTENTION,
+        scenarios=("decode", "gqa"),
+        reference=ref.decode_attention,
+        entry_point=decode,
+        operands=lambda ctx, cfg=None, device="cuda": _dense_operands(
+            ctx, device, with_lens=False),
+        description="Flash-decode attention (one token vs KV cache)",
+        bench_cases=(
+            BenchCase("d1024", {"q": (2, 4, 128), "k": (2, 1, 1024, 128)}),
+            BenchCase("decode32k",
+                      {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
+                      dtype="bfloat16", scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=GQA_DECODE_RAGGED,
+        scenarios=("decode", "gqa", "ragged", "serving"),
+        reference=ref.gqa_decode,
+        entry_point=ragged_decode,
+        operands=lambda ctx, cfg=None, device="cuda": _dense_operands(
+            ctx, device, with_lens=True),
+        description="Ragged batched GQA decode (per-request KV lengths)",
+        bench_cases=(
+            BenchCase("r1024", {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
+                      extra={"fill": 0.5}),
+            BenchCase("serve32k",
+                      {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
+                      dtype="bfloat16", extra={"fill": 0.5}, scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=PAGED_DECODE,
+        scenarios=("decode", "gqa", "ragged", "serving", "paged", "quant"),
+        reference=ref.paged_decode,
+        entry_point=paged_decode,
+        operands=_paged_operands,
+        description="Paged-KV decode over block tables (continuous "
+                    "batching page pool; int8 pages under the kv8 policy)",
+        bench_cases=(
+            BenchCase("p1024", {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
+                      extra={"fill": 0.5}),
+            BenchCase("pool32k",
+                      {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
+                      dtype="bfloat16", extra={"fill": 0.5}, scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=PAGED_VERIFY,
+        scenarios=("decode", "gqa", "ragged", "serving", "paged", "quant",
+                   "speculative"),
+        reference=ref.paged_verify,
+        entry_point=paged_verify,
+        operands=_paged_verify_operands,
+        description="Speculative batched verify: K draft positions per "
+                    "sequence in one launch over the paged-KV pool "
+                    "(ragged kv_len+K causal tails; int8 pages under kv8)",
+        bench_cases=(
+            BenchCase("v1024", {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
+                      extra={"fill": 0.5, "draft_k": 4}),
+            BenchCase("vpool32k",
+                      {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
+                      dtype="bfloat16", extra={"fill": 0.5, "draft_k": 4},
+                      scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=RMS_NORM,
+        scenarios=("prefill", "decode", "training"),
+        reference=ref.rms_norm,
+        entry_point=rmsnorm,
+        operands=_rms_operands,
+        description="RMS layer norm",
+        bench_cases=(
+            BenchCase("r1024x2048", {"x": (1024, 2048)}),
+            BenchCase("r8192x4096", {"x": (8192, 4096)}, dtype="bfloat16",
+                      scale="paper"),
+        ),
+    ))
+
+
+_register_builtin_kernels()

@@ -11,9 +11,14 @@ loaded with ``ctypes``. Tensor pointers and the current stream go in as
 wrapper raises on anything but 0.
 
 Tunables (``kernels.ops.PAGED_DECODE``): ``block_kv`` rows staged in
-shared memory per step (a multiple of the pool's page size), ``pack_gqa``
-(one block per KV head scoring its whole query group, or one block per
-query head) and ``num_warps``. Tensors on the CPU take the plain version
+shared memory per step, ``pack_gqa`` (one block per KV head scoring its
+whole query group, or one block per query head) and ``num_warps``. The
+tuned space takes multiples of the pool's page size; the kernel takes any
+positive ``block_kv``, because its copies chase the block table row by
+row, and a block smaller than a page is what the fixed config of a pool
+with an off-space page size uses where a whole page would not fit in
+shared memory (checked against the plain version on the card,
+``tests/test_torch_gpu.py``). Tensors on the CPU take the plain version
 in ``kernels.ref``; a CUDA tensor launches the kernel or raises.
 """
 
@@ -99,8 +104,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         (D <= MAX_HEAD_DIM, f"head_dim {D} > {MAX_HEAD_DIM}"),
         (D * q.element_size() % 16 == 0,
          f"head_dim {D} rows are not 16-byte multiples"),
-        (block_kv > 0 and block_kv % page_size == 0,
-         f"block_kv {block_kv} not a multiple of page_size {page_size}"),
+        (block_kv > 0, f"block_kv {block_kv}"),
         (not (pack_gqa and group > MAX_PACKED_GROUP),
          f"pack_gqa with group {group} > {MAX_PACKED_GROUP}"),
         (1 <= num_warps <= 32, f"num_warps {num_warps}"),

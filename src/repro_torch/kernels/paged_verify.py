@@ -9,9 +9,14 @@ answers that. It is built and loaded like ``paged_decode``
 
 Tunables (``kernels.ops.PAGED_VERIFY``): ``draft_k`` (pinned by the
 engine's speculation depth), ``block_kv`` rows staged in shared memory
-per step (a multiple of the pool's page size), ``pack_gqa`` (one block per
-KV head scoring K rows of each of its query heads, or one block per query
-head) and ``num_warps``. Tensors on the CPU take the plain version in
+per step, ``pack_gqa`` (one block per KV head scoring K rows of each of
+its query heads, or one block per query head) and ``num_warps``. The tuned
+space takes the depths ``DRAFT_KS`` and multiples of the page size; the
+kernel takes any depth K >= 2 (K is a run-time argument, bounded only by
+shared memory) and any positive ``block_kv`` (its copies chase the block
+table row by row), which the fixed config of an off-space depth or page
+size uses (checked against the plain version on the card at K 5 and with
+blocks smaller than a page, ``tests/test_torch_gpu.py``). Tensors on the CPU take the plain version in
 ``kernels.ref``; a CUDA tensor launches the kernel or raises. Int8 pools
 (the kv8 policy) are not ported yet and raise ``NotImplementedError``.
 """
@@ -27,7 +32,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import KernelLibrary
 
 MAX_HEAD_DIM = 256
-DRAFT_KS = (2, 3, 4, 6, 8)
+DRAFT_KS = (2, 3, 4, 6, 8)       # the depths the space tunes
 MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -96,13 +101,12 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
         (k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
          "q and the pools must share a dtype"),
         (v_pages.shape == k_pages.shape and Dk == D, "pool shapes"),
-        (K in DRAFT_KS, f"draft_k {K} not in {DRAFT_KS}"),
+        (K >= 2, f"draft_k {K} < 2 (one position is paged_decode)"),
         (Hkv > 0 and Hq % Hkv == 0, f"Hq {Hq} not a multiple of Hkv {Hkv}"),
         (D <= MAX_HEAD_DIM, f"head_dim {D} > {MAX_HEAD_DIM}"),
         (D * q.element_size() % 16 == 0,
          f"head_dim {D} rows are not 16-byte multiples"),
-        (block_kv > 0 and block_kv % page_size == 0,
-         f"block_kv {block_kv} not a multiple of page_size {page_size}"),
+        (block_kv > 0, f"block_kv {block_kv}"),
         (1 <= num_warps <= 32, f"num_warps {num_warps}"),
         (block_tables.dim() == 2 and block_tables.shape[0] == B
          and kv_len.shape == (B,), "block_tables (B, max_pages), kv_len (B,)"),

@@ -38,6 +38,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.to(q.dtype)
 
 
+def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               kv_len: Optional[torch.Tensor] = None,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Ragged batched GQA decode over a dense cache (B, Hkv, T, D): the
+    same function as ``decode_attention`` (the kernel's k_splits and
+    pack_gqa are pure layout), with what the kernel does at the edges:
+    ``kv_len`` is clamped to T and requests with kv_len == 0 return zeros
+    (where the all-masked softmax of ``decode_attention`` averages V)."""
+    B, T = q.shape[0], k.shape[2]
+    if kv_len is None:
+        kv_len = torch.full((B,), T, dtype=torch.long, device=q.device)
+    lens = torch.clamp(kv_len.long(), 0, T)
+    o = decode_attention(q, k, v, kv_len=torch.clamp(lens, min=1),
+                         scale=scale)
+    return torch.where((lens > 0)[:, None, None], o.float(),
+                       0.0).to(q.dtype)
+
+
 def gather_pages(pages: torch.Tensor,
                  block_tables: torch.Tensor) -> torch.Tensor:
     """Densify a paged pool: pages (Hkv, P, page_size, D) + block tables
@@ -55,14 +73,9 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     """Paged decode: gather each sequence's pages into a dense cache and run
     the dense ragged decode. ``kv_len`` is clamped to the table capacity;
     rows with kv_len == 0 (inactive batch slots) return zeros."""
-    k = gather_pages(k_pages, block_tables)
-    v = gather_pages(v_pages, block_tables)
-    capacity = k.shape[2]
-    lens = torch.clamp(kv_len.long(), 0, capacity)
-    o = decode_attention(q, k, v, kv_len=torch.clamp(lens, min=1),
-                         scale=scale)
-    return torch.where((lens > 0)[:, None, None], o.float(),
-                       0.0).to(q.dtype)
+    return gqa_decode(q, gather_pages(k_pages, block_tables),
+                      gather_pages(v_pages, block_tables), kv_len=kv_len,
+                      scale=scale)
 
 
 def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,

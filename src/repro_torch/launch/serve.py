@@ -1,9 +1,31 @@
-"""Paged continuous-batching serving launcher on the card.
+"""Serving launcher on the card: paged continuous batching, or a static
+batch over dense caches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --max-batch 8 [--speculative [K]]
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
+      --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full
 
-The port of ``repro.launch.serve``'s ``--decode-impl paged`` path. The pool's
+The port of ``repro.launch.serve``. ``--decode-impl`` takes the reference's
+choices, so one command line runs on both launchers:
+
+  paged   — (the port's default; the reference's default arch, a windowed
+            one, cannot run in the port yet) continuous batching over a
+            page pool, below;
+  pallas  — a static batch over dense per-request caches, decoding through
+            the registry's hand-written decode kernel (``gqa_decode_ragged``,
+            CUDA here), tuned at the serving context on a miss;
+  full    — the same static batch through the plain einsum decode.
+
+The dense path (``serve_dense``) follows the reference's: B uniform prompts
+of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill with
+chunked attention over KV chunks of 64, then ``--gen`` - 1 greedy decode
+steps with the argmax on the device; ``--max-batch`` and
+``--prefill-chunk`` are paged-only and ignored there, ``--speculative``
+is refused. ``--device cpu`` runs it on the CPU, where the kernel
+wrappers take their plain versions.
+
+The paged path: the pool's
 page size comes from the tuner's deployment-level ``paged_decode`` config:
 the canonical scenario (``q (16, Hq, D)``, ``k (16, Hkv, 32768, D)``,
 bfloat16, page size free) of the full config's head geometry, tuned on the
@@ -19,8 +41,10 @@ tuned ``paged_verify`` deployment entry (the same canonical scenario with
 ``draft_k`` and ``page_size`` free); the pool keeps ``paged_decode``'s
 page size either way.
 
-It runs on the card only: with no CUDA device it raises instead of
-carrying on on the CPU.
+The paged path runs on the card only: with no CUDA device it raises
+instead of carrying on on the CPU. Tensor parallelism (``--tp``) and
+quantization (``--quant``) are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +60,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.tuner import Autotuner, default_tuner
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import init_params
@@ -81,23 +106,28 @@ def make_requests(cfg: ModelConfig, n: int, min_prompt: int, max_prompt: int,
 
 
 def engine_contexts(engine: ServingEngine):
-    """Every (kernel, context) the engine's steps dispatch: paged_decode at
-    the pool layout, rms_norm on prefill chunks and on decode rows, and
-    under speculation paged_verify at the pool layout and the engine's
-    depth, with rms_norm on its K rows a slot."""
+    """Every (kernel, context) the engine's steps tune: paged_decode at the
+    pool layout, rms_norm on prefill chunks and on decode rows, and under
+    speculation paged_verify at the pool layout and the engine's depth,
+    with rms_norm on its K rows a slot. A page size or depth outside the
+    spaces dispatches a fixed config and has no context to tune."""
     cfg, sched, pool = engine.cfg, engine.scheduler, engine.pool
     chip = ops.device_chip(engine.device.index or 0)
     dt = cfg.dtype
     cap = sched.max_pages * pool.page_size
-    out = [(ops.PAGED_DECODE, ops.paged_decode_context(
-        chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-        cap, dt, pool.page_size))]
+    in_space = pool.page_size in ops.PAGE_SIZES
+    out = []
+    if in_space:
+        out.append((ops.PAGED_DECODE, ops.paged_decode_context(
+            chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cap, dt, pool.page_size)))
     norm_shapes = [(1, sched.prefill_chunk, cfg.d_model),
                    (sched.max_batch, 1, cfg.d_model)]
     if engine.spec_k > 1:
-        out.append((ops.PAGED_VERIFY, ops.paged_verify_context(
-            chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads,
-            cfg.head_dim, cap, dt, pool.page_size, engine.spec_k)))
+        if in_space and engine.spec_k in pv_kernel.DRAFT_KS:
+            out.append((ops.PAGED_VERIFY, ops.paged_verify_context(
+                chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads,
+                cfg.head_dim, cap, dt, pool.page_size, engine.spec_k)))
         norm_shapes.append((sched.max_batch, engine.spec_k, cfg.d_model))
     if engine.opts.norm_impl == "kernel":
         out += [(ops.RMS_NORM, ops.rmsnorm_context(chip, shape, dt))
@@ -109,9 +139,9 @@ def prepare(args, tuner: Autotuner) -> Tuple[ServingEngine, List[Request],
                                              dict]:
     """Build the engine and its requests, tuning every kernel context the
     run will dispatch. Returns (engine, requests, deployment info)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("repro_torch.launch.serve runs on a CUDA card; "
-                           "no CUDA device is available")
+    if args.device != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("paged serving in repro_torch.launch.serve runs "
+                           "on a CUDA card; no CUDA device is available")
     cfg = get_config(args.arch, smoke=not args.full_config)
     full_cfg = get_config(args.arch)
     device = torch.device("cuda")
@@ -184,6 +214,70 @@ def serve(engine: ServingEngine, reqs: List[Request]) -> dict:
     return report
 
 
+def dense_context(cfg: ModelConfig, batch: int, max_len: int, device):
+    """The ``gqa_decode_ragged`` context the dense decode steps dispatch:
+    the batch, the model's heads and caches of ``max_len`` slots."""
+    return ops.gqa_decode_context(
+        ops.device_chip(device.index or 0), batch, cfg.n_heads,
+        cfg.n_kv_heads, cfg.head_dim, max_len, cfg.dtype)
+
+
+def serve_dense(args, tuner: Autotuner) -> dict:
+    """Static batch with dense per-request caches: prefill, then G - 1
+    greedy decode steps through the ``gqa_decode_ragged`` kernel
+    (``--decode-impl pallas``) or the plain einsum (``full``). Returns the
+    run report, the generated tokens (B, G) under ``"tokens"``."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to serve on the CPU")
+    cfg = get_config(args.arch, smoke=not args.full_config)
+    B, P, G = args.requests, args.prompt_len, args.gen
+    kernel = args.decode_impl == "pallas"
+    opts = lm.ForwardOpts(attn_chunk=64,
+                          decode_impl="kernel" if kernel else "plain")
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), device)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P),
+                                            dtype=np.int64)).to(device)
+    if kernel and device.type == "cuda":
+        tuned = tuner.best_config(ops.GQA_DECODE_RAGGED,
+                                  dense_context(cfg, B, P + G, device))
+        ops.release_tuning_operands()
+        print(f"gqa_decode_ragged at the serving context: {tuned}")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(model, cfg, prompts, max_len=P + G, opts=opts)
+    tok = torch.argmax(logits, -1, keepdim=True)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    outs = [tok]
+    t0 = time.perf_counter()
+    for i in range(G - 1):
+        logits, cache = lm.decode_step(model, cfg, tok, cache, P + i, opts)
+        tok = torch.argmax(logits, -1, keepdim=True)
+        outs.append(tok)
+    sync()
+    decode_s = time.perf_counter() - t0
+    tokens = torch.cat(outs, 1).cpu().tolist()
+    return {
+        "arch": cfg.name, "decode_impl": args.decode_impl,
+        "device": str(device), "requests": B, "prompt_len": P, "gen": G,
+        "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3,
+        "tokens_per_s": B * (G - 1) / decode_s if G > 1 else 0.0,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+        "sample": tokens[0][:12], "tokens": tokens,
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default="phi4-mini-3.8b")
@@ -195,8 +289,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--min-prompt-len", type=int, default=0,
                     help="shortest prompt (default: half the longest)")
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--decode-impl", choices=("full", "pallas", "paged"),
+                    default="paged",
+                    help="paged = continuous batching over the page pool; "
+                         "pallas = a static batch over dense caches through "
+                         "the registry's decode kernel (CUDA here); full = "
+                         "the same batch through the plain einsum decode")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="concurrent sequences (paged only)")
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="chunked-prefill width (paged only)")
     ap.add_argument("--speculative", type=int, nargs="?", const=0,
                     default=None, metavar="K",
                     help="draft-and-verify decoding with K positions a "
@@ -206,13 +308,43 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--on-miss", choices=("tune", "heuristic", "error"),
                     default="tune")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cpu serves the dense path on the CPU (the kernel "
+                         "wrappers run their plain versions); paged serving "
+                         "needs the card")
+    ap.add_argument("--quant", choices=("none", "w8a8", "w8a16", "kv8"),
+                    default="none", help="not ported: anything but none "
+                                         "raises")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="not ported: anything but 1 raises")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.quant != "none":
+        raise NotImplementedError(f"--quant {args.quant}: quantization "
+                                  "(kv8, w8a8, w8a16) is not ported yet")
+    if args.tp != 1:
+        raise NotImplementedError(f"--tp {args.tp}: tensor-parallel serving "
+                                  "is not ported")
+    if args.speculative is not None and args.decode_impl != "paged":
+        raise SystemExit("--speculative requires --decode-impl paged "
+                         "(draft-and-verify runs on the paged engine)")
+    if args.decode_impl != "full":
+        from repro_torch.kernels.registry import list_kernels
+        names = ", ".join(s.name for s in list_kernels(scenario="decode"))
+        print(f"decode via registry kernels (available: {names})")
     tuner = default_tuner()
     tuner.on_miss = args.on_miss
+    if args.decode_impl != "paged":
+        report = serve_dense(args, tuner)
+        report["tuner"] = tuner.stats()
+        print("run report:", json.dumps(
+            {k: v for k, v in report.items() if k != "tokens"},
+            sort_keys=True))
+        print("sample:", report["sample"])
+        return report
     t0 = time.perf_counter()
     engine, reqs, info = prepare(args, tuner)
     print("paged serving:", json.dumps(info, sort_keys=True))

@@ -1,12 +1,19 @@
-"""GQA attention over a paged KV pool (the continuous-batching subset).
+"""GQA attention for serving: dense per-request caches (the static batch)
+and a paged KV pool (continuous batching).
 
 Layouts follow the reference: activations q (B, S, Hq, D), k/v
-(B, S, Hkv, D); the per-layer pool is (Hkv, P, page_size, D) and each
-sequence's block table (B, max_pages) maps its logical blocks to pages.
+(B, S, Hkv, D). A dense cache is (B, max_len, Hkv, D) per layer; a pool is
+(Hkv, P, page_size, D) and each sequence's block table (B, max_pages) maps
+its logical blocks to pages.
 
 Unlike the reference's functional updates, the port writes new KV into the
-pool in place (``_scatter_pages``): the pool is the largest buffer in
-serving, and the previous version is dead after every step.
+cache or pool in place (``attn_prefill``, ``attn_decode``,
+``_scatter_pages``): the cache is the largest buffer in serving, and the
+previous version is dead after every step.
+
+The dense path covers window-free GQA: SWA ring caches, MLA, int8 caches
+(kv8) and tensor parallelism are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,6 +63,142 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 def _proj_out(p: Attention, o: torch.Tensor, cfg: ModelConfig):
     B, S = o.shape[:2]
     return o.reshape(B, S, -1) @ p.wo
+
+
+# --- core attention math (q (B, S, Hq, D); k, v (B, T, Hkv, D)) -------------
+
+def _causal_mask(sq: int, skv: int, *, kv_off: int, kv_valid: int,
+                 device) -> torch.Tensor:
+    """Query i (at position i) sees keys kv_off + j <= i below kv_valid."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = kv_off + torch.arange(skv, device=device)[None, :]
+    return (q_pos >= k_pos) & (k_pos < kv_valid)
+
+
+def full_attention(q, k, v) -> torch.Tensor:
+    """Causal attention as one einsum over every (query, key) pair with a
+    mask; f32 scores and sums, probabilities cast to v's dtype for the
+    product, as the reference."""
+    B, S, Hq, Dq = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst", _group(q, Hkv).float(),
+                     k.float()) * Dq ** -0.5
+    m = _causal_mask(S, T, kv_off=0, kv_valid=T, device=q.device)
+    p = torch.softmax(torch.where(m, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgst,btkv->bskgv", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, chunk_kv: int = 512) -> torch.Tensor:
+    """Causal attention with an online softmax over KV chunks of
+    ``chunk_kv`` (the reference's ``lax.scan`` as a loop): O(S) score
+    memory, the reference's arithmetic order."""
+    B, S, Hq, Dq = q.shape
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    ck = min(chunk_kv, T)
+    qh = q.transpose(1, 2).float()                              # (B,Hq,S,D)
+    m_run = torch.full((B, Hq, S, 1), NEG_INF, device=q.device)
+    l_run = torch.zeros((B, Hq, S, 1), device=q.device)
+    acc = torch.zeros((B, Hq, S, Dv), device=q.device)
+    for j0 in range(0, T, ck):
+        kj = k[:, j0:j0 + ck]
+        vj = v[:, j0:j0 + ck]
+        n = kj.shape[1]
+        if n < ck:      # the reference pads the last chunk with zeros
+            pad = (0, 0, 0, 0, 0, ck - n)
+            kj = torch.nn.functional.pad(kj, pad)
+            vj = torch.nn.functional.pad(vj, pad)
+        if G > 1:
+            kj = torch.repeat_interleave(kj, G, dim=2)
+            vj = torch.repeat_interleave(vj, G, dim=2)
+        s = torch.einsum("bhsd,bthd->bhst", qh, kj.float()) * Dq ** -0.5
+        msk = _causal_mask(S, ck, kv_off=j0, kv_valid=T, device=q.device)
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m_run, torch.amax(s, dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhst,bthv->bhsv",
+                                        p.to(vj.dtype).float(), vj.float())
+        m_run = m_new
+    o = acc / torch.clamp(l_run, min=1e-30)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def run_attention(q, k, v, *, impl: str = "chunked",
+                  chunk: int = 512) -> torch.Tensor:
+    """Causal self-attention over the prompt by ``impl``."""
+    if impl == "full":
+        return full_attention(q, k, v)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, chunk_kv=chunk)
+    raise NotImplementedError(
+        f"attention impl {impl!r}: the port has full and chunked (the "
+        "reference's triangular and pallas prefill are not ported)")
+
+
+# --- dense KV cache (static-batch serving) ---------------------------------
+
+def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """(shape, dtype) of this layer's dense cache, layout (B, max_len,
+    Hkv, D) as the reference's; float and window-free only."""
+    if cfg.window is not None:
+        raise NotImplementedError(
+            f"{cfg.name!r}: SWA ring caches are not ported")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {"k": (shape, dt), "v": (shape, dt)}
+
+
+def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 cache: Dict[str, torch.Tensor], *, impl: str = "chunked",
+                 chunk: int = 512):
+    """Forward over the prompt x (B, S, d) at positions 0..S-1, writing its
+    K/V into slots 0..S-1 of ``cache`` (``lm.init_cache`` sizes it at
+    max_len slots), in place. Returns (out, cache)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = run_attention(q, k, v, impl=impl, chunk=chunk)
+    cache["k"][:, :S] = k
+    cache["v"][:, :S] = v
+    return _proj_out(p, o, cfg), cache
+
+
+def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                cache: Dict[str, torch.Tensor], pos: int, *,
+                impl: str = "plain"):
+    """One-token decode at position ``pos`` (the same for every request of
+    the static batch). x (B, 1, d). The new token's K/V land in slot
+    ``pos`` in place; then ``impl="kernel"`` attends through the autotuned
+    ``gqa_decode_ragged`` kernel (``kernels.ops.ragged_decode``, kv_len =
+    pos + 1, the cache handed over as a (B, Hkv, T, D) view) and
+    ``impl="plain"`` through the reference's einsum path. Returns
+    (out, cache)."""
+    B = x.shape[0]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, pos] = k[:, 0]
+    cv[:, pos] = v[:, 0]
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        kv_len = torch.full((B,), pos + 1, dtype=torch.int32,
+                            device=x.device)
+        o = kops.ragged_decode(q[:, 0], ck.transpose(1, 2),
+                               cv.transpose(1, 2), kv_len=kv_len)
+        return _proj_out(p, o[:, None], cfg), cache
+    if impl != "plain":
+        raise ValueError(f"decode impl {impl!r}")
+    s = torch.einsum("bskgd,btkd->bkgst", _group(q, hkv).float(),
+                     ck.float()) * dh ** -0.5
+    valid = torch.arange(ck.shape[1], device=x.device) <= pos
+    prob = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgst,btkv->bskgv", prob, cv.float())
+    o = o.reshape(B, 1, hq, dh).to(x.dtype)
+    return _proj_out(p, o, cfg), cache
 
 
 # --- paged KV cache ------------------------------------------------------------

@@ -1,16 +1,23 @@
-"""Language model for paged serving: embeddings → decoder layers → logits.
+"""Language model for serving: embeddings → decoder layers → logits.
 
 The reference stacks repeating layer units and drives them with
 ``lax.scan``; eager PyTorch needs no stacking, so ``LM`` holds one
 ``Block`` per layer in order (``param.from_numpy_tree`` unstacks the
 reference's scan units into it).
 
-Entry points (paged subset of ``repro.models.lm``):
+Entry points (serving subset of ``repro.models.lm``), dense caches (the
+static batch):
+    init_cache           — zero-filled (B, max_len, Hkv, D) caches per layer
+    prefill              — the prompt, returns last-position logits + caches
+    decode_step          — one token at position ``pos`` for the batch
+and paged pools (continuous batching):
     init_paged_cache     — zero-filled page pools, one pair per layer
     prefill_paged        — one chunked-prefill step through block tables
     decode_step_paged    — one-token decode across the continuous batch
     verify_step_paged    — K positions per sequence (speculative verify)
-The steps write the pools in place and return them with f32 logits.
+The steps write the caches in place and return them with f32 logits. Both
+paths serve ``attn_mlp`` dense archs with RoPE and no window, MLA, learned
+positions or prefix embeddings (``_check_supported``).
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ Cache = List[Dict[str, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class ForwardOpts:
-    # kernel (paged_decode, paged_verify) | plain
+    attn_impl: str = "chunked"       # dense prefill: full | chunked
+    # kernel (gqa_decode_ragged, paged_decode, paged_verify) | plain
     decode_impl: str = "kernel"
+    attn_chunk: int = 512            # KV chunk of chunked prefill
     norm_impl: str = "plain"         # plain | kernel (rms_norm)
 
 
@@ -51,7 +60,7 @@ class Block(nn.Module):
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        _check_paged(cfg)
+        _check_supported(cfg)
         kinds = set(cfg.layer_kinds())
         if kinds != {"attn_mlp"}:
             raise NotImplementedError(
@@ -64,12 +73,16 @@ class LM(nn.Module):
         self.final_ln = Norm(cfg, device)
 
 
-def _check_paged(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
+    """What the port's paged serving and dense serving both support: a
+    dense RoPE attention arch with no window, MLA, learned positions or
+    prefix embeddings."""
     if cfg.family != "dense" or cfg.mla is not None or cfg.window is not None \
             or cfg.learned_pos or cfg.n_prefix:
         raise NotImplementedError(
-            f"paged serving supports dense RoPE attention archs; "
-            f"{cfg.name!r} needs MLA/SWA/enc-dec/prefix paging")
+            f"the port's paged serving and dense serving support dense RoPE "
+            f"attention archs; {cfg.name!r} needs MLA, SWA ring caches, "
+            f"enc-dec or prefix embeddings, which are not ported")
 
 
 def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
@@ -86,10 +99,56 @@ def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
             mix, _ = ATT.attn_verify_paged(block.mix, hn, cfg, layer_cache,
                                            tables, start,
                                            impl=opts.decode_impl)
-        h = h + mix
-        h = h + apply_mlp(block.ffn, apply_norm(block.ln2, h, cfg,
-                                                impl=opts.norm_impl), cfg)
+        h = _mlp_residual(block, h + mix, cfg, opts)
     return h
+
+
+def _mlp_residual(block: Block, h, cfg, opts):
+    return h + apply_mlp(block.ffn, apply_norm(block.ln2, h, cfg,
+                                               impl=opts.norm_impl), cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Cache:
+    """Zero-filled dense caches (B, max_len, Hkv, D) for every layer."""
+    _check_supported(cfg)
+    specs = ATT.attn_cache_spec(cfg, batch, max_len)
+    return [{name: torch.zeros(shape, dtype=dt, device=device)
+             for name, (shape, dt) in specs.items()}
+            for _ in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
+            max_len: int, opts: ForwardOpts = ForwardOpts()):
+    """Run the prompts tokens (B, S) at positions 0..S-1 into caches of
+    ``max_len`` slots (``init_cache``); attention over the prompt is
+    ``opts.attn_impl`` in plain torch ops, as the reference's is jnp.
+    Returns (last-position logits (B, vocab) f32, caches)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    h = embed_tokens(model.embed, tokens, cfg)
+    for block, layer_cache in zip(model.layers, cache):
+        hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
+        mix, _ = ATT.attn_prefill(block.mix, hn, cfg, layer_cache,
+                                  impl=opts.attn_impl, chunk=opts.attn_chunk)
+        h = _mlp_residual(block, h + mix, cfg, opts)
+    h = apply_norm(model.final_ln, h[:, -1:], cfg, impl=opts.norm_impl)
+    return logits_out(model.embed, h, cfg)[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
+                cache: Cache, pos: int, opts: ForwardOpts = ForwardOpts()):
+    """token (B, 1) at position ``pos`` for every request; the caches are
+    written in place. Returns (logits (B, vocab) f32, caches)."""
+    h = embed_tokens(model.embed, token, cfg)
+    for block, layer_cache in zip(model.layers, cache):
+        hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
+        mix, _ = ATT.attn_decode(block.mix, hn, cfg, layer_cache, pos,
+                                 impl=opts.decode_impl)
+        h = _mlp_residual(block, h + mix, cfg, opts)
+    h = apply_norm(model.final_ln, h, cfg, impl=opts.norm_impl)
+    return logits_out(model.embed, h, cfg)[:, 0], cache
 
 
 @torch.no_grad()
@@ -101,7 +160,7 @@ def prefill_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     (all-position logits (B, S, vocab) f32, cache) — chunks are padded to
     a fixed width by the scheduler, so the caller picks the logit at its
     last valid position."""
-    _check_paged(cfg)
+    _check_supported(cfg)
     h = embed_tokens(model.embed, tokens, cfg)
     h = _run_layers(model, h, cfg, opts, cache, block_tables, start,
                     mode="prefill")
@@ -116,7 +175,7 @@ def decode_step_paged(model: LM, cfg: ModelConfig, token: torch.Tensor,
     """One-token paged decode across the continuous batch. token (B, 1);
     lens (B,) resident lengths (0 = inactive slot). Returns
     (logits (B, vocab) f32, cache)."""
-    _check_paged(cfg)
+    _check_supported(cfg)
     h = embed_tokens(model.embed, token, cfg)
     h = _run_layers(model, h, cfg, opts, cache, block_tables, lens,
                     mode="decode")
@@ -135,7 +194,7 @@ def verify_step_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     vocab) f32, cache): logits[:, t] predicts the token after position t,
     what t+1 sequential ``decode_step_paged`` calls would give when the
     drafts before it match."""
-    _check_paged(cfg)
+    _check_supported(cfg)
     h = embed_tokens(model.embed, tokens, cfg)
     h = _run_layers(model, h, cfg, opts, cache, block_tables, lens,
                     mode="verify")
@@ -146,7 +205,7 @@ def verify_step_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device="cuda") -> Cache:
     """Zero-filled page pools for every layer."""
-    _check_paged(cfg)
+    _check_supported(cfg)
     specs = ATT.paged_cache_spec(cfg, num_pages, page_size)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in specs.items()}

@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import Autotuner, set_default_tuner
+from repro_torch.kernels import decode_attention as da_kernel
+from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
@@ -88,7 +90,7 @@ def test_paged_decode_every_valid_config_matches_plain(cuda, shape):
 def test_paged_decode_rejects_what_it_does_not_take(cuda):
     args = paged_operands(0, 2, 4, 2, 16, 8, 2, [3, 4], torch.float32, cuda)
     with pytest.raises(ValueError, match="block_kv"):
-        pd_kernel.paged_decode(*args, block_kv=12)
+        pd_kernel.paged_decode(*args, block_kv=0)
     with pytest.raises(ValueError, match="dtype"):
         pd_kernel.paged_decode(args[0].bfloat16(), *args[1:])
 
@@ -129,7 +131,7 @@ def test_paged_verify_rejects_what_it_does_not_take(cuda):
                                              torch.float32, cuda)
     q = torch.zeros(2, 4, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="block_kv"):
-        pv_kernel.paged_verify(q, kp, vp, tables, lens, block_kv=12)
+        pv_kernel.paged_verify(q, kp, vp, tables, lens, block_kv=0)
     with pytest.raises(ValueError, match="dtype"):
         pv_kernel.paged_verify(q.bfloat16(), kp, vp, tables, lens)
     with pytest.raises(ValueError, match="draft_k"):
@@ -141,6 +143,166 @@ def test_paged_verify_rejects_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="int8"):
         pv_kernel.paged_verify(q, kp.to(torch.int8), vp.to(torch.int8),
                                tables, lens)
+
+
+# (page_size, block_kv): blocks smaller than a page, not dividing it, and
+# spanning pages without being a multiple of one
+BLOCKS_OFF_PAGE = [(16, 8), (8, 12), (32, 48), (4, 4)]
+
+
+@pytest.mark.parametrize("ps,block_kv", BLOCKS_OFF_PAGE)
+def test_paged_kernels_take_blocks_off_the_page_grid(cuda, ps, block_kv):
+    """The copies chase the block table row by row, so any block size is
+    right, at depths in and out of the tuned set."""
+    B, Hq, Hkv, D, max_pages = 8, 24, 8, 128, 96 // ps
+    cap = ps * max_pages
+    kv_len = [0, cap + 1, 1, 5, cap, 17, cap // 2 + 3, cap - 1]
+    args = paged_operands(ps, B, Hq, Hkv, D, ps, max_pages, kv_len,
+                          torch.bfloat16, cuda)
+    for pack in (True, False):
+        out = pd_kernel.paged_decode(*args, block_kv=block_kv, pack_gqa=pack)
+        torch.testing.assert_close(out.float(), ref.paged_decode(*args).float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert not out[0].any()
+    g = torch.Generator(device=cuda).manual_seed(ps)
+    for K in (2, 5, 9):
+        q = torch.randn(B, K, Hq, D, generator=g, device=cuda).bfloat16()
+        vargs = (q,) + args[1:]
+        want = ref.paged_verify(*vargs).float()
+        for pack in (True, False):
+            out = pv_kernel.paged_verify(*vargs, block_kv=block_kv,
+                                         pack_gqa=pack)
+            torch.testing.assert_close(out.float(), want, atol=2e-2,
+                                       rtol=2e-2, msg=lambda m: f"K {K}: {m}")
+
+
+@pytest.mark.parametrize("ps,K", [(4, 2), (4, 5), (256, 4), (256, 5),
+                                  (16, 5)])
+def test_off_space_layouts_dispatch_a_fixed_config(cuda, ps, K):
+    """A pool with an off-space page size, or a verify at an off-space
+    depth, launches the fixed config through ``ops`` with no tuning (an
+    erroring tuner would raise) and matches the plain version."""
+    tuner = Autotuner(on_miss="error")
+    B, Hq, Hkv, D = 4, 24, 8, 128
+    max_pages = max(1, 320 // ps)
+    cap = ps * max_pages
+    kv_len = [0, cap, 3, cap // 2 + 1]
+    args = paged_operands(K, B, Hq, Hkv, D, ps, max_pages, kv_len,
+                          torch.bfloat16, cuda)
+    if ps not in ops.PAGE_SIZES:
+        before = pd_kernel.paged_decode.launches
+        out = ops.paged_decode(*args, tuner=tuner)
+        assert pd_kernel.paged_decode.launches == before + 1
+        torch.testing.assert_close(out.float(), ref.paged_decode(*args).float(),
+                                   atol=2e-2, rtol=2e-2)
+    g = torch.Generator(device=cuda).manual_seed(K)
+    q = torch.randn(B, K, Hq, D, generator=g, device=cuda).bfloat16()
+    vargs = (q,) + args[1:]
+    before = pv_kernel.paged_verify.launches
+    out = ops.paged_verify(*vargs, tuner=tuner)
+    assert pv_kernel.paged_verify.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.paged_verify(*vargs).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert tuner.stats()["misses"] == 0
+
+
+def dense_operands(seed, B, Hq, Hkv, D, T, dtype, device):
+    """q and a (B, T, Hkv, D) cache handed over as (B, Hkv, T, D) views,
+    as the serving path hands it."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)  # noqa: E731
+    return (rand(B, Hq, D), rand(B, T, Hkv, D).transpose(1, 2),
+            rand(B, T, Hkv, D).transpose(1, 2))
+
+
+# (B, Hq, Hkv, D, T, dtype): phi4-mini's heads, phi3-mini (group 1, D 96),
+# stablelm-12b (group 4, D 160), an f32 cache
+DENSE_SHAPES = [(8, 24, 8, 128, 200, torch.bfloat16),
+                (4, 32, 32, 96, 120, torch.bfloat16),
+                (3, 32, 8, 160, 90, torch.bfloat16),
+                (5, 8, 2, 64, 150, torch.float32)]
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: f"D{s[3]}-{s[5]}")
+def test_dense_decode_every_valid_config_matches_plain(cuda, shape):
+    """Both entry points of the gqa_decode kernel, every valid config of
+    their spaces, ragged lengths with kv_len == 0 and kv_len > T."""
+    B, Hq, Hkv, D, T, dtype = shape
+    q, k, v = dense_operands(D, B, Hq, Hkv, D, T, dtype, cuda)
+    lens = torch.tensor(([0, T + 5, 1, T, 33] + list(range(7, T, 29)))[:B],
+                        dtype=torch.int32, device=cuda)
+    want = ref.gqa_decode(q, k, v, kv_len=lens).float()
+    full = ref.gqa_decode(q, k, v).float()
+    chip = ops.device_chip(cuda.index or 0)
+    dt = ops.dtype_name(dtype)
+    for tunable, entry, fn, ctx, expect in (
+            (ops.GQA_DECODE_RAGGED, ops.ragged_decode, gqa_kernel.gqa_decode,
+             ops.gqa_decode_context(chip, B, Hq, Hkv, D, T, dt), want),
+            (ops.DECODE_ATTENTION, ops.decode, da_kernel.decode_attention,
+             ops.decode_attention_context(chip, B, Hq, Hkv, D, T, dt), full)):
+        configs = tunable.space.valid_configs(ctx)
+        assert configs
+        for cfg in configs:
+            before = fn.launches
+            kw = {"kv_len": lens} if expect is want else {}
+            out = entry(q, k, v, config=cfg, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            torch.testing.assert_close(out.float(), expect, atol=TOL[dtype],
+                                       rtol=TOL[dtype],
+                                       msg=lambda m: f"{cfg}: {m}")
+            if expect is want:
+                assert not out[0].any(), "kv_len == 0 must give exact zeros"
+
+
+def test_gqa_decode_rejects_what_it_does_not_take(cuda):
+    q, k, v = dense_operands(0, 2, 4, 2, 16, 40, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        gqa_kernel.gqa_decode(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="k_splits"):
+        gqa_kernel.gqa_decode(q, k, v, k_splits=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gqa_kernel.gqa_decode(q, k.transpose(2, 3), v.transpose(2, 3))
+    with pytest.raises(NotImplementedError, match="int8"):
+        gqa_kernel.gqa_decode(q, k.to(torch.int8), v.to(torch.int8))
+
+
+def test_dense_serving_on_card_matches_cpu(cuda):
+    """Smoke phi4-mini in f32: dense prefill and decode steps on the card
+    through the gqa_decode kernel give the CPU's plain path tokens, and its
+    logits at the f32 tolerance."""
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        cfg = get_config("phi4-mini-3.8b", smoke=True)
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        prompts = torch.from_numpy(np.random.default_rng(3).integers(
+            1, cfg.vocab_size, (3, 11)))
+        G = 6
+
+        def run(m, device, impl):
+            opts = lm.ForwardOpts(attn_chunk=4, decode_impl=impl)
+            logits, cache = lm.prefill(m, cfg, prompts.to(device),
+                                       max_len=11 + G, opts=opts)
+            rows, tok = [logits.cpu()], torch.argmax(logits, -1,
+                                                     keepdim=True)
+            toks = [tok.cpu()]
+            for i in range(G - 1):
+                logits, cache = lm.decode_step(m, cfg, tok, cache, 11 + i,
+                                               opts)
+                tok = torch.argmax(logits, -1, keepdim=True)
+                rows.append(logits.cpu())
+                toks.append(tok.cpu())
+            return torch.cat(toks, 1), rows
+
+        cpu_toks, cpu_rows = run(model, "cpu", "plain")
+        before = gqa_kernel.gqa_decode.launches
+        gpu_toks, gpu_rows = run(model.to(cuda), cuda, "kernel")
+        assert gqa_kernel.gqa_decode.launches == before + (G - 1) * cfg.n_layers
+        assert torch.equal(gpu_toks, cpu_toks)
+        for a, b in zip(gpu_rows, cpu_rows):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        set_default_tuner(None)
 
 
 @pytest.mark.parametrize("rows", [8, 37, 512])

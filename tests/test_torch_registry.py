@@ -1,0 +1,82 @@
+"""The port's kernel registry held against the reference's: the five ported
+kernels under the same names, scenarios, precision and bench cases (the
+reference's int8 cases join with kv8), and the registry's own rules."""
+
+import pytest
+import torch
+
+from repro.kernels import registry as jreg
+
+from repro_torch.core import TunableKernel, cpu_host
+from repro_torch.kernels import registry
+
+PORTED = ("decode_attention", "gqa_decode_ragged", "paged_decode",
+          "paged_verify", "rms_norm")
+
+
+def _cases(spec, float_only):
+    return [(c.label, {k: tuple(v) for k, v in c.shapes.items()}, c.dtype,
+             dict(c.extra), c.scale) for c in spec.bench_cases
+            if not (float_only and c.dtype == "int8")]
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_kernels_match_the_reference_registry(name):
+    ours, theirs = registry.get_kernel(name), jreg.get_kernel(name)
+    assert ours.name == theirs.name == name
+    assert ours.scenarios == theirs.scenarios
+    assert ours.precision == theirs.precision == "float"
+    assert ours.description == theirs.description
+    assert _cases(ours, False) == _cases(theirs, True)
+    assert ours.reference is not None and ours.entry_point is not None
+    assert ours.operands is not None
+
+
+def test_list_kernels_is_a_subset_of_the_reference():
+    assert registry.kernel_names() == sorted(PORTED)
+    ours = registry.kernel_names(scenario="decode")
+    assert set(ours) <= set(jreg.kernel_names(scenario="decode"))
+    assert set(ours) == {"decode_attention", "gqa_decode_ragged",
+                         "paged_decode", "paged_verify", "rms_norm"}
+    assert registry.kernel_names(scenario="speculative") == ["paged_verify"]
+    assert registry.kernel_names(precision="int8") == []
+    assert set(registry.scenarios()) <= set(jreg.scenarios())
+
+
+def test_register_refuses_duplicates_and_unregisters():
+    spec = registry.get_kernel("rms_norm")
+    with pytest.raises(ValueError, match="already registered"):
+        registry.register(spec)
+    throwaway = registry.KernelSpec(
+        tunable=TunableKernel(name="throwaway", space=spec.space),
+        scenarios=("test",))
+    registry.register(throwaway)
+    try:
+        assert registry.get_kernel("throwaway") is throwaway
+        assert "test" in registry.scenarios()
+    finally:
+        registry.unregister("throwaway")
+    with pytest.raises(KeyError, match="throwaway"):
+        registry.get_kernel("throwaway")
+    with pytest.raises(ValueError, match="no scenarios"):
+        registry.register(registry.KernelSpec(tunable=throwaway.tunable,
+                                              scenarios=()))
+    with pytest.raises(TypeError):
+        registry.register(throwaway.tunable)
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_operands_feed_entry_point_and_reference(name):
+    """Each host bench case's operands (built on the CPU here, where the
+    entry point runs the plain version) go through the entry point under
+    the heuristic config and through the reference with the same result;
+    on the card ``chip_smoke.py`` runs this sweep over every valid config."""
+    spec = registry.get_kernel(name)
+    for case in spec.cases("host"):
+        ctx = case.context(cpu_host())
+        cfg = spec.tunable.default_config(ctx)
+        args, kw = spec.operands(ctx, cfg, "cpu")
+        want = spec.reference(*args, **kw)
+        got = spec.entry_point(*args, **kw, config=cfg)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -195,7 +195,8 @@ def test_entry_points_default_to_the_card(weights):
     engine follows its model's device, and the launcher raises without a
     card (``test_serve_raises_without_a_gpu``)."""
     from repro_torch.models.param import init_params
-    for fn in (lm.LM, lm.init_paged_cache, from_numpy_tree, init_params):
+    for fn in (lm.LM, lm.init_paged_cache, lm.init_cache, from_numpy_tree,
+               init_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
     _, _, cfg, model = weights
@@ -210,6 +211,29 @@ def test_serve_raises_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1", "--prompt-len", "4", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1", "--prompt-len", "4", "--gen", "2",
+                    "--decode-impl", "pallas"])
+
+
+def test_engine_contexts_skip_off_space_layouts(monkeypatch, weights):
+    """An engine with pages of 4, or speculating at depth 5, has no
+    paged_decode or paged_verify context to tune (those dispatch a fixed
+    config), so ``prepare`` does not ask the tuner for a space with no
+    valid config; its rms_norm contexts stay."""
+    from repro_torch.core import cpu_host
+    from repro_torch.launch import serve
+    monkeypatch.setattr(serve.ops, "device_chip", lambda index: cpu_host())
+    _, _, cfg, model = weights
+    names = {}
+    for ps, K in ((8, 0), (8, 4), (8, 5), (4, 0), (4, 5)):
+        eng = ServingEngine(cfg, model, **dict(ENGINE, page_size=ps),
+                            speculative=K)
+        names[ps, K] = sorted(k.name for k, _ in serve.engine_contexts(eng))
+    assert names[8, 0] == ["paged_decode"]
+    assert names[8, 4] == ["paged_decode", "paged_verify"]
+    assert names[8, 5] == ["paged_decode"]
+    assert names[4, 0] == names[4, 5] == []
 
 
 def test_serve_sizes_pool_like_the_reference():

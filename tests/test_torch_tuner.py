@@ -319,3 +319,144 @@ def test_entry_points_skip_tuning_for_cpu_tensors():
                            torch.tensor([[1, 2], [3, 4]]),
                            torch.tensor([6, 12]), tuner=tuner)
     assert out.shape == (2, 4, 4, 16) and tuner.stats()["misses"] == 0
+
+
+def test_off_space_layouts_dispatch_a_fixed_config(monkeypatch):
+    """A pool whose page size is outside the space, or a verify at a depth
+    outside ``DRAFT_KS``, dispatches a fixed config with no tuning (the
+    reference's one page per step, packed), halved to fit in shared
+    memory; in-space layouts still tune. Timed by a stub backend."""
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    backend = _FakeBackend(lambda c: c["block_kv"] * 1e-6 + c["num_warps"])
+    tuner = Autotuner(backend=backend, on_miss="tune")
+    # the smallest input that raised before: no config of depth 5 to tune
+    with pytest.raises(ValueError, match="no valid config"):
+        Autotuner(backend=backend).best_config(
+            ops.PAGED_VERIFY, ops.paged_verify_context(
+                H100_SXM, 8, 24, 8, 128, 896, "bfloat16", 16, 5))
+    backend.calls = 0
+    bf16 = torch.bfloat16
+    tables = torch.zeros(8, 7, dtype=torch.int32)
+
+    def pool(ps, dtype=bf16):
+        return torch.zeros(8, 3, ps, 128, dtype=dtype)
+
+    q = torch.zeros(8, 24, 128, dtype=bf16)
+    for ps, dtype, block in ((4, bf16, 4), (256, bf16, 128),
+                             (256, torch.float32, 64)):
+        cfg = ops.paged_decode_config(q.to(dtype), pool(ps, dtype), tables,
+                                      tuner)
+        assert cfg == {"block_kv": block, "pack_gqa": True, "num_warps": 4}
+        assert pd_kernel.smem_bytes(128, dtype.itemsize, block, 3, True,
+                                    4) <= pd_kernel.MAX_SMEM_BYTES
+    for K, ps in ((5, 16), (5, 4), (2, 256), (12, 128)):
+        qk = torch.zeros(8, K, 24, 128, dtype=bf16)
+        cfg = ops.paged_verify_config(qk, pool(ps), tables, tuner)
+        assert cfg["pack_gqa"] and cfg["block_kv"] <= ps
+        assert pv_kernel.smem_bytes(128, 2, cfg["block_kv"], K, 3, True,
+                                    4) <= pv_kernel.MAX_SMEM_BYTES
+    assert backend.calls == 0 and tuner.stats()["misses"] == 0
+    tuned = ops.paged_verify_config(torch.zeros(8, 4, 24, 128, dtype=bf16),
+                                    pool(16), tables, tuner)
+    assert backend.calls > 0 and tuned["draft_k"] == 4
+    assert tuned["page_size"] == 16
+
+
+H100_DENSE = (8, 24, 8, 128, 544)   # B, Hq, Hkv, D, T at the serving shape
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention", "gqa_decode_ragged"])
+def test_dense_decode_spaces(kernel):
+    tunable = {"decode_attention": ops.DECODE_ATTENTION,
+               "gqa_decode_ragged": ops.GQA_DECODE_RAGGED}[kernel]
+    make = {"decode_attention": ops.decode_attention_context,
+            "gqa_decode_ragged": ops.gqa_decode_context}[kernel]
+    ctx = make(H100_SXM, *H100_DENSE, "bfloat16")
+    valid = tunable.space.valid_configs(ctx)
+    assert valid == _valid_by_brute_force(tunable.space, ctx)
+    for c in valid:
+        assert c["k_splits"] <= -(-544 // c["block_kv"])      # splits<=blocks
+        assert ops._dense_smem(c, ctx) <= H100_SXM.smem_per_block
+    # 256 bf16 rows of 128, double-buffered K and V: 256 KB, over 227 KB
+    assert {c["block_kv"] for c in valid} == {32, 64, 128}
+    big = dict(valid[0], block_kv=256)
+    assert tunable.space.why_invalid(big, ctx) == "smem"
+    assert tunable.space.why_invalid(dict(valid[0], block_kv=128,
+                                          k_splits=8), ctx) == \
+        "splits<=blocks"
+    assert tunable.default_config(ctx) in valid
+    # a short cache clamps the block: 256 rows stage as 64 at T 40
+    short = make(H100_SXM, 2, 4, 2, 16, 40, "float32")
+    c = dict(tunable.default_config(short), block_kv=256)
+    assert tunable.canonicalize(c, short)["block_kv"] == 64
+    assert tunable.space.is_valid(c, short)
+    if kernel == "gqa_decode_ragged":
+        assert ops.GQA_DECODE_RAGGED.default_config(ctx)["pack_gqa"]
+        mha = make(H100_SXM, 4, 32, 32, 96, 200, "bfloat16")
+        assert not any(c["pack_gqa"] for c in
+                       tunable.space.valid_configs(mha))
+        wide = make(H100_SXM, 4, 48, 4, 128, 200, "bfloat16")   # group 12
+        assert not any(c["pack_gqa"] for c in
+                       tunable.space.valid_configs(wide))
+    else:
+        assert not tunable.space.valid_configs(
+            make(H100_SXM, 4, 48, 4, 128, 200, "bfloat16"))
+
+
+def test_dense_workloads_and_canonical_dedupe():
+    ctx = ops.gqa_decode_context(H100_SXM, *H100_DENSE, "bfloat16")
+    cfg = {"block_kv": 64, "k_splits": 1, "pack_gqa": True, "num_warps": 4}
+    packed = ops._dense_workload(cfg, ctx, None)
+    assert packed.hbm_bytes == ops.dense_decode_bytes(8, 24, 8, 128, 8 * 544,
+                                                      2)
+    assert ops.dense_decode_bytes(8, 24, 8, 128, 8 * 544, 2) == \
+        2 * 8 * 544 * 8 * 128 * 2 + 2 * 8 * 24 * 128 * 2 + 4 * 8
+    unpacked = ops._dense_workload(dict(cfg, pack_gqa=False), ctx, None)
+    split = ops._dense_workload(dict(cfg, k_splits=4), ctx, None)
+    assert unpacked.hbm_bytes > packed.hbm_bytes     # the group re-reads
+    assert split.hbm_bytes > packed.hbm_bytes        # the f32 partials
+    ragged = ops.GQA_DECODE_RAGGED.workload_fn(cfg, ctx)
+    assert ragged.hbm_bytes < packed.hbm_bytes       # lengths below T
+    # configs that clamp to the same block are timed once
+    backend = _FakeBackend(lambda c: 1.0 + c["k_splits"])
+    short = ops.decode_attention_context(H100_SXM, 2, 4, 2, 16, 40,
+                                         "float32")
+    entry = Autotuner(backend=backend).tune(ops.DECODE_ATTENTION, short)
+    canon = {tuple(sorted(ops._dense_canonical(c, short).items()))
+             for c in ops.DECODE_ATTENTION.space.valid_configs(short)}
+    assert backend.calls == len(canon) < entry.n_evaluated
+
+
+def test_dispatch_keys_separate_dtypes(monkeypatch):
+    """The dtype is part of the dense entry points' dispatch key and of the
+    tuning context, so a float32 and a bfloat16 cache (and int8 under kv8)
+    tune apart."""
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    seen = []
+
+    class Recording(Autotuner):
+        def dispatch_config(self, kernel, key, make_ctx):
+            seen.append((key, make_ctx().signature()))
+            return super().dispatch_config(kernel, key, make_ctx)
+
+    tuner = Recording(backend=_FakeBackend(lambda c: 1.0), on_miss="heuristic")
+
+    class FakeCuda:
+        """Only what the config resolution reads off a tensor."""
+
+        def __init__(self, t):
+            self.t = t
+            self.shape, self.dtype = t.shape, t.dtype
+            self.is_cuda = True
+            self.device = torch.device("cuda", 0)
+
+    monkeypatch.setattr(ops.gqa_kernel, "gqa_decode", lambda *a, **k: k)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = FakeCuda(torch.zeros(2, 4, 16, dtype=dtype))
+        k = FakeCuda(torch.zeros(2, 2, 40, 16, dtype=dtype))
+        cfg = ops.ragged_decode(q, k, k, kv_len=None, tuner=tuner)
+        assert set(cfg) >= {"block_kv", "k_splits", "pack_gqa", "num_warps"}
+    (k32, s32), (k16, s16) = seen
+    assert k32 != k16 and s32 != s16
+    assert "float32" in k32 and "bfloat16" in k16
+    assert tuner.stats()["misses"] == 2
