@@ -9,20 +9,24 @@ Phases, each failing loudly:
 
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
-     ``paged_decode``, ``paged_verify`` and ``gqa_decode`` (which also
-     serves ``decode_attention``) and the Triton compile of ``rms_norm``;
+     ``paged_decode``, ``paged_verify``, ``gqa_decode`` (which also serves
+     ``decode_attention``) and ``gqa_decode_kv8`` (the same kernel
+     template built for int8 caches) and the Triton compile of
+     ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
-     the fixed configs of off-space layouts (pages of 4 and 256, a verify
-     at depth 5); then the registry's oracle sweep: every valid config of
-     every registered kernel's host bench cases against its reference;
+     ``gqa_decode_kv8`` for q in bf16 and in f32; the fixed configs of
+     off-space layouts (pages of 4 and 256, a verify at depth 5); then the
+     registry's oracle sweep: every valid config of every registered
+     kernel's host bench cases against its reference;
   4. tuning: the serve entry point's deployment lookups (``paged_decode``;
      ``paged_verify`` with the speculation depth free) and the contexts
      the plain and the speculative engine will dispatch, tuned on the
      card; then every valid ``paged_decode`` and ``paged_verify`` config at
      the pool layout the tuning chose (the tuned ones among them) against
-     the plain versions, and the tuned ones timed;
+     the plain versions, and the tuned ones timed; the kv8 dense serving
+     context tuned and timed;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -32,13 +36,16 @@ Phases, each failing loudly:
      widths with ``--speculative 5`` (off the tuned depths); then the
      static batch over dense caches (``--decode-impl pallas`` through
      ``gqa_decode_ragged``, then ``--decode-impl full``): 8 prompts of 512
-     tokens, 32 new tokens each, the token streams equal 8 of 8;
+     tokens, 32 new tokens each, the token streams equal 8 of 8; the same
+     with ``--quant kv8`` (int8 caches, ``gqa_decode_kv8``), and how many
+     of its streams equal the bf16 run's;
   6. one full-width decode step and one full-width verify step through the
      kernels against the same step through the plain versions on the same
      cache, and one full-width dense decode step through ``gqa_decode``
-     against its plain einsum, with the residual stream compared layer by
-     layer, and a profiled window of each (wall time, device time, device
-     busy share); then a small f32 model whose drafts are often rejected,
+     and one through ``gqa_decode_kv8`` (int8 caches) against the plain
+     einsum, with the residual stream compared layer by layer, and a
+     profiled window of each (wall time, device time, device busy share);
+     then a small f32 model whose drafts are often rejected,
      served speculatively on the CPU (plain versions) and on the card
      (kernels), and by plain decode on the card: the same tokens and
      counts, at depth 4 on pages of 8 and at depth 5 on pages of 4 (both
@@ -66,6 +73,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
+# int8 caches with an f32 q: the kernel scales the finished dot product and
+# the probability where the plain version dequantizes first (the
+# reference's int8 tolerance, tests/test_kernel_oracles.py); a bf16 q
+# keeps BF16_TOL
+INT8_TOL = 2e-3
+TOL = {"bfloat16": BF16_TOL, "float32": F32_TOL, "int8": INT8_TOL}
 
 
 def phase(title: str) -> None:
@@ -103,7 +116,7 @@ def build_kernels() -> dict:
     from repro_torch.kernels import rms_norm as rms_kernel
     secs, errors = {}, []
     libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
-            "gqa_decode": gqa_kernel.LIB}
+            "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8}
 
     def nvcc(name):
         t = time.perf_counter()
@@ -414,7 +427,7 @@ def registry_sweep(chip) -> None:
     for spec in list_kernels():
         for case in spec.cases("host"):
             ctx = case.context(chip)
-            tol = BF16_TOL if case.dtype == "bfloat16" else F32_TOL
+            tol = TOL[case.dtype]
             configs = spec.space.valid_configs(ctx)
             worst = 0.0
             for cfg in configs:
@@ -482,6 +495,93 @@ def check_dense_decode(chip) -> dict:
     return out
 
 
+def kv8_case(seed, B, T, kv_len, q_dtype):
+    """phi4-mini's heads: q, and a (B, T, Hkv, D) cache quantized by the
+    kv8 wire format, handed over as the (B, Hkv, T, D) and (B, Hkv, T)
+    views ``attn_decode`` hands the kernel: (q, k, v, k_scale, v_scale,
+    kv_len)."""
+    from repro_torch.quant import quantize_kv
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    kq, ks, vq, vs = quantize_kv(rand(B, T, 8, 128).to(q_dtype),
+                                 rand(B, T, 8, 128).to(q_dtype))
+    return (rand(B, 24, 128).to(q_dtype), kq.transpose(1, 2),
+            vq.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+def check_kv8_decode(chip) -> float:
+    """Every valid gqa_decode_kv8 config against the plain version
+    (dequantize, then the dense ragged decode) at phi4-mini's heads, q in
+    bf16 and in f32: ragged lengths (with kv_len 0, 1 and past T) and the
+    serving shape (B 8, T 544, every request at 528 tokens). Returns the
+    worst error."""
+    from repro_torch.kernels import ops, ref
+    worst_all = 0.0
+    for label, lens in (("ragged", ragged_lens(DENSE_T, 3)),
+                        ("serving", [528] * 8)):
+        for q_dtype in (torch.bfloat16, torch.float32):
+            dt = ops.dtype_name(q_dtype)
+            *args, kv_len = kv8_case(len(label) + q_dtype.itemsize, 8,
+                                     DENSE_T, lens, q_dtype)
+            tol = BF16_TOL if q_dtype == torch.bfloat16 else INT8_TOL
+            want = ref.gqa_decode_kv8(*args, kv_len=kv_len).float()
+            ctx = ops.gqa_decode_kv8_context(chip, 8, 24, 8, 128, DENSE_T, dt)
+            configs = ops.GQA_DECODE_KV8.space.valid_configs(ctx)
+            worst = 0.0
+            for cfg in configs:
+                got = ops.ragged_decode_kv8(*args, kv_len=kv_len,
+                                            config=cfg).float()
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=tol, rtol=tol) \
+                        or (kv_len == 0).any() and got[0].any():
+                    raise AssertionError(f"gqa_decode_kv8 {label} q {dt} "
+                                         f"{cfg}: max abs err {err} over "
+                                         f"tolerance {tol}")
+                worst = max(worst, err)
+            worst_all = max(worst_all, worst)
+            print(f"gqa_decode_kv8 {label} q {dt} (B 8, 24/8 heads of 128, "
+                  f"int8 T {DENSE_T}, lengths {lens}): {len(configs)} "
+                  f"configs ok, max_abs_err {worst:.3g} (tol {tol})")
+    return worst_all
+
+
+def time_kv8(chip, cfg) -> dict:
+    """Kernel (under ``cfg``), plain version, the library yardstick and the
+    roofline bound at the kv8 serving shape: B 8, 24/8 heads of 128, bf16
+    q, an int8 cache of T 544 with its f32 scales, every request at 528
+    tokens. No single PyTorch call attends an int8 cache: the yardstick is
+    SDPA over the cache dequantized to bf16 beforehand, the dequant not
+    timed."""
+    from repro_torch.core import KernelWorkload
+    from repro_torch.kernels import ops, ref
+    *args, kv_len = kv8_case(12, 8, DENSE_T, [528] * 8, torch.bfloat16)
+    q, k, v, ks, vs = args
+    kv_tokens = int(kv_len.sum())
+    bound_ms, by = bound(KernelWorkload(
+        ops.paged_decode_flops(24, 128, kv_tokens),
+        ops.dense_decode_bytes(8, 24, 8, 128, kv_tokens, 1, q_itemsize=2,
+                               scale_bytes=4), "bfloat16"), chip)
+    kd = (k.float() * ks[..., None]).bfloat16()
+    vd = (v.float() * vs[..., None]).bfloat16()
+    mask = (torch.arange(DENSE_T, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "kernel_ms": timer().time_runner(
+            lambda: ops.ragged_decode_kv8(*args, kv_len=kv_len,
+                                          config=cfg)) * 1e3,
+        "plain_ms": timer().time_runner(
+            lambda: ref.gqa_decode_kv8(*args, kv_len=kv_len)) * 1e3,
+        "library_ms": timer().time_runner(
+            lambda: fn(q[:, :, None], kd, vd, attn_mask=mask,
+                       enable_gqa=True)) * 1e3,
+        "library": "SDPA over the cache dequantized to bf16 beforehand "
+                   "(dequant not timed)",
+        "bound_ms": bound_ms, "bound_by": by, "kv_tokens": kv_tokens,
+        "config": cfg}
+
+
 def time_dense(chip, name: str, cfg) -> dict:
     """Kernel (under ``cfg``), plain version, SDPA over the same cache and
     the roofline bound at the serving shape: B 8, 24/8 heads of 128, T
@@ -514,65 +614,73 @@ def time_dense(chip, name: str, cfg) -> dict:
         "config": cfg}
 
 
-def dense_serving(tuner, n_layers: int) -> dict:
-    """The launcher's static batch over dense caches at full width, by the
-    gqa_decode kernel and by the plain einsum: equal token streams, the
-    kernel launched once a layer and decode step; returns the kernel run's
-    report and launch count."""
+def dense_serving(tuner, n_layers: int, quant: str = "none") -> dict:
+    """The launcher's static batch over dense caches at full width (int8
+    caches under ``--quant kv8``), by the decode kernel (gqa_decode_ragged,
+    or gqa_decode_kv8) and by the plain einsum: equal token streams, the
+    path's kernel launched once a layer and decode step and no other;
+    returns the kernel run's report and launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da_kernel
     from repro_torch.kernels import gqa_decode as gqa_kernel
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
     from repro_torch.launch import serve
     argv = ["--full-config", "--requests", "8", "--prompt-len", "512",
-            "--gen", "32"]
+            "--gen", "32", "--quant", quant]
+    counters = {"gqa_decode_ragged": gqa_kernel.gqa_decode,
+                "decode_attention": da_kernel.decode_attention,
+                "gqa_decode_kv8": kv8_kernel.gqa_decode_kv8}
+    path = "gqa_decode_kv8" if quant == "kv8" else "gqa_decode_ragged"
     # tuned before the counts start, as the paged engines' contexts are
-    tuner.best_config(ops.GQA_DECODE_RAGGED, serve.dense_context(
-        get_config("phi4-mini-3.8b"), 8, DENSE_T, torch.device("cuda")))
+    tuner.best_config(*serve.dense_context(
+        get_config("phi4-mini-3.8b"), 8, DENSE_T, torch.device("cuda"),
+        quant))
     runs = {}
     for impl in ("pallas", "full"):
-        gqa_kernel.gqa_decode.launches = 0
-        da_kernel.decode_attention.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         args = serve.build_parser().parse_args(
             argv + ["--decode-impl", impl])
         report = serve.serve_dense(args, tuner)
-        launches = {"gqa_decode_ragged": gqa_kernel.gqa_decode.launches,
-                    "decode_attention": da_kernel.decode_attention.launches}
+        launches = {k: fn.launches for k, fn in counters.items()}
         runs[impl] = (report, launches)
         torch.cuda.empty_cache()
-        print(f"dense run report (--decode-impl {impl}): " + json.dumps(
-            {k: v for k, v in report.items() if k != "tokens"},
-            sort_keys=True))
-        print(f"launches in the run (--decode-impl {impl}): "
+        print(f"dense run report (--decode-impl {impl} --quant {quant}): "
+              + json.dumps({k: v for k, v in report.items() if k != "tokens"},
+                           sort_keys=True))
+        print(f"launches in the run (--decode-impl {impl} --quant {quant}): "
               f"{json.dumps(launches)}")
     (kernel, kl), (plain, pl) = runs["pallas"], runs["full"]
-    assert kl["gqa_decode_ragged"] == 31 * n_layers, kl
-    assert kl["decode_attention"] == 0 and sum(pl.values()) == 0, (kl, pl)
+    assert kl[path] == 31 * n_layers, kl
+    assert sum(kl.values()) == kl[path] and sum(pl.values()) == 0, (kl, pl)
     for rep in (kernel, plain):
         assert np.asarray(rep["tokens"]).shape == (8, 32)
+        assert rep["quant"] == quant
     equal = sum(a == b for a, b in zip(kernel["tokens"], plain["tokens"]))
-    print(f"--decode-impl pallas vs full at full width: {equal}/8 token "
-          f"streams equal; prefill {kernel['prefill_ms']:.1f} / "
-          f"{plain['prefill_ms']:.1f} ms, decode {kernel['decode_ms']:.1f} / "
-          f"{plain['decode_ms']:.1f} ms, tokens/s "
+    print(f"--decode-impl pallas vs full --quant {quant} at full width: "
+          f"{equal}/8 token streams equal; prefill "
+          f"{kernel['prefill_ms']:.1f} / {plain['prefill_ms']:.1f} ms, decode "
+          f"{kernel['decode_ms']:.1f} / {plain['decode_ms']:.1f} ms, tokens/s "
           f"{kernel['tokens_per_s']:.1f} / {plain['tokens_per_s']:.1f}")
     if equal != 8:
-        raise AssertionError("dense serving: the kernel and the plain path "
-                             "give different tokens")
+        raise AssertionError(f"dense serving --quant {quant}: the kernel and "
+                             f"the plain path give different tokens")
     return {"report": kernel, "launches": kl}
 
 
-def dense_step_check(model, cfg, steps: int = 8) -> None:
+def dense_step_check(model, cfg, steps: int = 8, quant=None) -> None:
     """One full-width dense decode step (8 requests at position 512 after a
-    plain prefill of 512 tokens) through gqa_decode against the same step
-    through the plain einsum on clones of one cache: the same GEMMs on
-    both paths; logits held by ``hold_logits``, the residual stream
-    compared layer by layer; then a profiled window of kernel steps."""
+    plain prefill of 512 tokens; int8 caches under ``quant="kv8"``)
+    through gqa_decode (gqa_decode_kv8) against the same step through the
+    plain einsum on clones of one cache: the same GEMMs on both paths;
+    logits held by ``hold_logits``, the residual stream compared layer by
+    layer; then a profiled window of kernel steps."""
     from repro_torch.models import lm
+    kernel = "gqa_decode_kv8" if quant else "gqa_decode"
     rng = np.random.default_rng(9)
     prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 512))).cuda()
     _, cache = lm.prefill(model, cfg, prompts, max_len=512 + 2 * steps + 2,
-                          opts=lm.ForwardOpts(attn_chunk=64))
+                          opts=lm.ForwardOpts(attn_chunk=64, quant=quant))
     tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 1))).cuda()
     caches = {"kernel": [{k: v.clone() for k, v in layer.items()}
                          for layer in cache], "plain": cache}
@@ -581,14 +689,15 @@ def dense_step_check(model, cfg, steps: int = 8) -> None:
         with residual_streams(model, streams[path]):
             logits[path], _ = lm.decode_step(
                 model, cfg, tok, caches[path], 512,
-                lm.ForwardOpts(decode_impl=path))
-    hold_logits("dense decode step, gqa_decode vs plain einsum, 8 requests "
-                "at position 512", logits["kernel"], logits["plain"])
+                lm.ForwardOpts(decode_impl=path, quant=quant))
+    hold_logits(f"dense decode step{' --quant ' + quant if quant else ''}, "
+                f"{kernel} vs plain einsum, 8 requests at position 512",
+                logits["kernel"], logits["plain"])
     print(f"  residual stream, relative L2 after layer "
           f"{stream_errors(streams['kernel'], streams['plain'])}")
-    opts = lm.ForwardOpts(decode_impl="kernel")
+    opts = lm.ForwardOpts(decode_impl="kernel", quant=quant)
     profile_steps(
-        "dense decode step (8 rows, full width, gqa_decode)",
+        f"dense decode step (8 rows, full width, {kernel})",
         lambda i: lm.decode_step(model, cfg, tok, caches["kernel"], 513 + i,
                                  opts), steps)
 
@@ -960,6 +1069,7 @@ def main(argv=None) -> int:
     pvk = check_paged_verify(chip)
     rms = check_rms_norm(chip)
     dense_err = check_dense_decode(chip)
+    kv8_err = check_kv8_decode(chip)
     off_space_err = off_space_layouts(chip)
     pdk["max_abs_err"] = max(pdk["max_abs_err"], off_space_err)
     pvk["max_abs_err"] = max(pvk["max_abs_err"], off_space_err)
@@ -1037,6 +1147,13 @@ def main(argv=None) -> int:
             chip, 8, 24, 8, 128, DENSE_T, "bfloat16")))
     dak["max_abs_err"] = dense_err["decode_attention"]
     print("decode_attention at the serving shape, tuned: " + json.dumps(dak))
+    kv8_kernel_, kv8_ctx = serve.dense_context(
+        engine.cfg, 8, DENSE_T, torch.device("cuda"), "kv8")
+    kv8_cfg = tuner.best_config(kv8_kernel_, kv8_ctx)
+    kvk = time_kv8(chip, kv8_cfg)
+    kvk["max_abs_err"] = kv8_err
+    print("gqa_decode_kv8 at the serving shape under the serving config "
+          f"(tuned on {kv8_ctx.signature()}): " + json.dumps(kvk))
 
     phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
     counters = {"paged_decode": pd_kernel.paged_decode,
@@ -1085,9 +1202,13 @@ def main(argv=None) -> int:
         off["lifecycle"]["failed"] == 0, off
     assert pv_kernel.paged_verify.launches == off["verify_passes"] * 2 > 0
     dense = dense_serving(tuner, n_layers)
+    dense_kv8 = dense_serving(tuner, n_layers, "kv8")
+    same = sum(a == b for a, b in zip(dense_kv8["report"]["tokens"],
+                                      dense["report"]["tokens"]))
+    print(f"--quant kv8 vs bf16 caches (--decode-impl pallas): {same}/8 "
+          f"token streams equal (reported, not held)")
     gqk = time_dense(chip, "gqa_decode_ragged", tuner.best_config(
-        ops.GQA_DECODE_RAGGED, serve.dense_context(
-            engine.cfg, 8, DENSE_T, torch.device("cuda"))))
+        *serve.dense_context(engine.cfg, 8, DENSE_T, torch.device("cuda"))))
     gqk["max_abs_err"] = dense_err["gqa_decode_ragged"]
     print("gqa_decode_ragged at the serving shape under the serving config: "
           + json.dumps(gqk))
@@ -1097,6 +1218,7 @@ def main(argv=None) -> int:
     full_width_check(engine)
     verify_check(spec_engine)
     dense_step_check(engine.model, engine.cfg)
+    dense_step_check(engine.model, engine.cfg, quant="kv8")
     profile_decode_and_verify(engine, spec_engine)
     rejection_run()
     rejection_run(K=5, page_size=4)
@@ -1126,6 +1248,10 @@ def main(argv=None) -> int:
         entry("decode_attention", "cuda", "src/repro_torch/csrc/gqa_decode.cu",
               "src/repro/kernels/decode_attention.py:38",
               dense["launches"]["decode_attention"], dak),
+        entry("gqa_decode_kv8", "cuda",
+              "src/repro_torch/csrc/gqa_decode_kv8.cu",
+              "src/repro/kernels/gqa_decode_kv8.py:44",
+              dense_kv8["launches"]["gqa_decode_kv8"], kvk),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

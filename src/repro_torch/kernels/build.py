@@ -3,9 +3,10 @@
 Each CUDA kernel of the port lives in ``csrc/<name>.cu`` behind a plain C
 interface. ``KernelLibrary`` compiles it with ``nvcc`` for ``sm_90a`` into
 ``build/lib<name>_<hash>.so`` at the repository root (git-ignored), where
-the hash is the source's, so a changed source builds anew and an unchanged
-one is reused; then it loads the library with ``ctypes`` and lets the
-wrapper declare its functions' argument types. Nothing is built when a
+the hash is the source's and the shared headers' (``csrc/*.cuh``), so a
+changed source or header builds anew and an unchanged one is reused;
+then it loads the library with ``ctypes`` and lets the wrapper declare its
+functions' argument types. Nothing is built when a
 module is imported: the first launch on a CUDA tensor builds.
 """
 
@@ -51,7 +52,10 @@ class KernelLibrary:
     def build(self) -> Path:
         """Compile the source unless this version is built; returns the
         library's path."""
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         out = BUILD_DIR / f"lib{self.name}_{digest}.so"
         if out.exists():
             return out

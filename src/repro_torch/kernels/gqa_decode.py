@@ -22,15 +22,18 @@ per KV head scoring its whole query group, or one block per query head)
 and ``num_warps``. ``block_kv`` is clamped to the cache length rounded up
 to a warp's 32 keys, as the reference clamps it to its 128-lane tile.
 Tensors on the CPU take the plain version in ``kernels.ref``; a CUDA tensor
-launches the kernel or raises. An int8 cache (the kv8 policy, the TPU
-kernel ``gqa_decode_kv8``) is not ported yet and raises
-``NotImplementedError``.
+launches the kernel or raises.
+
+An int8 cache (the kv8 policy) goes through ``kernels.gqa_decode_kv8``,
+which launches the same kernel template built for int8 rows
+(``csrc/gqa_decode_kv8.cu``, the library ``LIB_KV8``) through ``launch``
+with the cache's scales; this wrapper refuses an int8 cache.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,7 +57,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gqa_decode_smem_bytes.restype = i32
 
 
+def _declare_kv8(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gqa_decode_kv8_launch.argtypes = (
+        [vp] * 9 + [i32] * 5 + [i64] * 6 + [ctypes.c_float] + [i32] * 5
+        + [vp])
+    lib.gqa_decode_kv8_launch.restype = i32
+    lib.gqa_decode_kv8_smem_bytes.argtypes = [i32] * 4
+    lib.gqa_decode_kv8_smem_bytes.restype = i32
+
+
 LIB = KernelLibrary("gqa_decode", _declare)
+LIB_KV8 = KernelLibrary("gqa_decode_kv8", _declare_kv8)
 
 
 def rows_per_block(group: int, pack_gqa: bool) -> int:
@@ -70,7 +84,8 @@ def clamp_block_kv(block_kv: int, T: int) -> int:
 def smem_bytes(D: int, itemsize: int, block_kv: int, group: int,
                pack_gqa: bool, num_warps: int) -> int:
     """Dynamic shared memory of one launch — the same formula as
-    ``gqa_decode_smem_bytes`` in the CUDA source: the block's query rows in
+    ``smem_bytes`` in ``csrc/gqa_decode.cuh`` (``itemsize`` the cache's,
+    1 for int8 rows): the block's query rows in
     f32, then the larger of the double-buffered K/V staging (rows padded
     by 16 bytes) and the warps' f32 (acc, m, l) merged at the end."""
     rows = rows_per_block(group, pack_gqa)
@@ -81,14 +96,24 @@ def smem_bytes(D: int, itemsize: int, block_kv: int, group: int,
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_len: Optional[torch.Tensor], *, scale: Optional[float],
            block_kv: int, k_splits: int, pack_gqa: bool, num_warps: int,
-           name: str) -> torch.Tensor:
+           name: str,
+           scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> torch.Tensor:
     """Check the operands and launch the kernel (and its combine) on q's
-    stream; returns (B, Hq, D) in q's dtype. Counts nothing: the public
-    wrappers count their own launches."""
-    if k.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 caches (gqa_decode_kv8, the kv8 policy) are not ported yet")
+    stream; returns (B, Hq, D) in q's dtype. A float cache shares q's
+    dtype; an int8 cache comes with ``scales`` = (k_scale, v_scale),
+    (B, Hkv, T) f32, any strides. Counts nothing: the public wrappers
+    count their own launches."""
+    quant = scales is not None
+    if (k.dtype == torch.int8) != quant:
+        raise ValueError(
+            f"{name}: " + ("an int8 cache goes through gqa_decode_kv8 with "
+                           "its scales" if not quant else
+                           "takes an int8 cache with its scales"))
     if not q.is_cuda:
+        if quant:
+            return ref.gqa_decode_kv8(q, k, v, *scales, kv_len=kv_len,
+                                      scale=scale)
         return ref.gqa_decode(q, k, v, kv_len=kv_len, scale=scale)
     q = q.contiguous()
     B, Hq, D = q.shape
@@ -97,11 +122,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             device=q.device)
     _, Hkv, T, Dk = k.shape
     group = Hq // Hkv if Hkv else 0
-    item = q.element_size()
+    item = k.element_size()
     errors = [
         (q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)"),
-        (k.dtype == q.dtype and v.dtype == q.dtype,
-         "q and the cache must share a dtype"),
+        (v.dtype == k.dtype and (quant or k.dtype == q.dtype),
+         "k and v must share a dtype, q's for a float cache"),
         (k.shape == v.shape and k.shape[0] == B and Dk == D,
          "k, v (B, Hkv, T, D) with q's B and D"),
         (k.stride() == v.stride() and k.stride(-1) == 1,
@@ -123,6 +148,20 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
          "q and the cache must be 16-byte aligned"),
     ]
+    if quant:
+        ks, vs = scales
+        errors += [
+            (ks.dtype == vs.dtype == torch.float32,
+             "k_scale and v_scale must be float32"),
+            (ks.shape == vs.shape == (B, Hkv, T),
+             "k_scale, v_scale (B, Hkv, T)"),
+            (ks.stride() == vs.stride(),
+             "k_scale and v_scale must share strides"),
+            (all(t.is_cuda and t.device == q.device for t in (ks, vs)),
+             "the scales on q's device"),
+            (all(t.data_ptr() % 4 == 0 for t in (ks, vs)),
+             "the scales must be 4-byte aligned"),
+        ]
     bad = [msg for ok, msg in errors if not ok]
     if bad:
         raise ValueError(f"{name}: " + "; ".join(bad))
@@ -144,13 +183,20 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part_lse = torch.empty(rows, k_splits, g, dtype=torch.float32,
                                device=q.device)
     sb, sh, st, _ = k.stride()
-    err = LIB.load().gqa_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), None if part_o is None else part_o.data_ptr(),
-        None if part_lse is None else part_lse.data_ptr(),
-        B, Hq, Hkv, T, D, sb, sh, st, float(scale), block_kv, k_splits,
-        int(bool(pack_gqa)), num_warps, _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    tail = (None if part_o is None else part_o.data_ptr(),
+            None if part_lse is None else part_lse.data_ptr(),
+            B, Hq, Hkv, T, D, sb, sh, st)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    cfg = (float(scale), block_kv, k_splits, int(bool(pack_gqa)), num_warps,
+           _DTYPE_CODE[q.dtype], stream)
+    if quant:
+        err = LIB_KV8.load().gqa_decode_kv8_launch(
+            *ptrs, ks.data_ptr(), vs.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), *tail, *ks.stride(), *cfg)
+    else:
+        err = LIB.load().gqa_decode_launch(*ptrs, lens.data_ptr(),
+                                           out.data_ptr(), *tail, *cfg)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out

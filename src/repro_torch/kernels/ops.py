@@ -10,7 +10,8 @@ For each of the port's kernels this module declares
   * a heuristic default;
 
 and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
-``decode(...)``, ``ragged_decode(...)`` and ``rmsnorm(...)`` that resolve
+``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)`` and
+``rmsnorm(...)`` that resolve
 their config through the tuner and dispatch. Every entry point accepts
 ``config=`` to bypass tuning. Tensors on the CPU need no config: the
 kernel wrappers run their plain versions there. A pool laid out with a
@@ -18,7 +19,7 @@ page size outside the space, or a verify deeper or shallower than the
 tuned depths, dispatches a fixed config with no tuning, as the reference
 does.
 
-Importing this module registers the five kernels in ``kernels.registry``
+Importing this module registers the six kernels in ``kernels.registry``
 under the reference's names, scenarios and bench cases.
 """
 
@@ -37,10 +38,12 @@ from repro_torch.core import (
 from repro_torch.core.config_space import dtype_bytes, smem_fits
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
+from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import rms_norm as rms_kernel
+from repro_torch.quant import quantize_kv
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -563,12 +566,15 @@ def _dense_space(name: str, version: int, with_pack: bool) -> ConfigSpace:
 
 
 def dense_decode_bytes(B: int, Hq: int, Hkv: int, D: int, kv_tokens: float,
-                       itemsize: int) -> float:
+                       itemsize: int, *, q_itemsize: Optional[int] = None,
+                       scale_bytes: int = 0) -> float:
     """HBM bytes of one call reading each K/V row once: the K and V rows
-    of ``kv_tokens`` valid positions over Hkv heads, q in, o out, the
-    lengths."""
-    return (2.0 * kv_tokens * Hkv * D * itemsize
-            + 2.0 * B * Hq * D * itemsize + 4.0 * B)
+    of ``kv_tokens`` valid positions over Hkv heads (an int8 row with its
+    f32 scale: ``itemsize`` 1, ``scale_bytes`` 4), q in, o out (in
+    ``q_itemsize``, by default the cache's), the lengths."""
+    q_item = itemsize if q_itemsize is None else q_itemsize
+    return (2.0 * kv_tokens * Hkv * (D * itemsize + scale_bytes)
+            + 2.0 * B * Hq * D * q_item + 4.0 * B)
 
 
 def _dense_canonical(cfg: Config, ctx: TuningContext) -> Config:
@@ -580,11 +586,23 @@ def _dense_canonical(cfg: Config, ctx: TuningContext) -> Config:
     return c
 
 
+def _q_dtype(ctx: TuningContext) -> str:
+    """q's dtype. A float context's dtype is q's and the cache's; an int8
+    context's (kv8) is the cache's, and q rides in ``extra["q_dtype"]``:
+    float32 in the reference's bench cases, the model's dtype at
+    serving."""
+    if ctx.dtype != "int8":
+        return ctx.dtype
+    return ctx.extra.get("q_dtype", "float32")
+
+
 def _dense_workload(cfg: Config, ctx: TuningContext,
                     lens: Optional[torch.Tensor]) -> KernelWorkload:
-    """What the timed call moves under ``cfg``: the valid K/V rows (each
-    group head re-reads them unpacked), q and o, and with k_splits > 1 the
-    f32 partials written and read back by the combine."""
+    """What the timed call moves under ``cfg``: the valid K/V rows (int8
+    rows with their f32 scales under kv8; each group head re-reads them
+    unpacked), q and o in q's dtype, and with k_splits > 1 the f32
+    partials written and read back by the combine. Operations are counted
+    at q's dtype's peak (an int8 cache is dequantized to f32 first)."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     kv_tokens = float(B * T if lens is None
@@ -594,11 +612,14 @@ def _dense_workload(cfg: Config, ctx: TuningContext,
     reads = 1 if pack else _group(ctx)
     ks = cfg["k_splits"]
     partials = 0.0 if ks == 1 else 2.0 * (B * Hq // g) * ks * g * (D + 1) * 4
+    q_dtype = _q_dtype(ctx)
     return KernelWorkload(
         flops=paged_decode_flops(Hq, D, kv_tokens),
-        hbm_bytes=dense_decode_bytes(B, Hq, Hkv, D, kv_tokens * reads,
-                                     dtype_bytes(ctx.dtype)) + partials,
-        dtype=ctx.dtype)
+        hbm_bytes=dense_decode_bytes(
+            B, Hq, Hkv, D, kv_tokens * reads, dtype_bytes(ctx.dtype),
+            q_itemsize=dtype_bytes(q_dtype),
+            scale_bytes=4 if ctx.dtype == "int8" else 0) + partials,
+        dtype=q_dtype)
 
 
 def _dense_operands(ctx: TuningContext, device, with_lens: bool):
@@ -628,7 +649,8 @@ def _dense_runner(fn, with_lens: bool):
 def _refuse_int8(k: torch.Tensor) -> None:
     if k.dtype == torch.int8:
         raise NotImplementedError(
-            "int8 caches (gqa_decode_kv8, the kv8 policy) are not ported yet")
+            "an int8 cache (the kv8 policy) takes its scales through "
+            "ragged_decode_kv8 (gqa_decode_kv8), not the float entry points")
 
 
 DECODE_ATTENTION = TunableKernel(
@@ -715,6 +737,81 @@ def ragged_decode(q, k, v, *, kv_len=None, config: Optional[Config] = None,
 
 
 # ===========================================================================
+# Int8-KV ragged decode (kv8): the dense decode over an int8 cache with its
+# per-token f32 scales, dequantized inside the kernel
+# ===========================================================================
+
+def _kv8_heuristic(ctx: TuningContext) -> Config:
+    """The float kernel's default at 128 int8 rows a block (72 KB of
+    staging at D 128, where 64 bf16 rows take 68 KB)."""
+    return dict(_gqa_decode_heuristic(ctx), block_kv=128)
+
+
+def _kv8_operands(ctx: TuningContext, device):
+    """q in its dtype, and a (B, T, Hkv, D) cache quantized through the
+    kv8 wire format (``quant.quantize_kv``, as serving writes it) handed
+    over as (B, Hkv, T, D) and (B, Hkv, T) views, with the seeded ragged
+    lengths: args (q, k, v, k_scale, v_scale), kwargs kv_len."""
+    B, Hq, D = ctx.shape("q")
+    Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
+    gen = torch.Generator(device=device).manual_seed(0)
+    q = _randn((B, Hq, D), getattr(torch, _q_dtype(ctx)), gen)
+    kq, ks, vq, vs = quantize_kv(_randn((B, T, Hkv, D), torch.float32, gen),
+                                 _randn((B, T, Hkv, D), torch.float32, gen))
+    args = (q, kq.transpose(1, 2), vq.transpose(1, 2), ks.transpose(1, 2),
+            vs.transpose(1, 2))
+    return args, {"kv_len": _ragged_lens(ctx).to(device)}
+
+
+def _kv8_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    args, kw = _memo_operands(("gqa_decode_kv8", ctx.signature()),
+                              lambda: _kv8_operands(ctx, "cuda"))
+    return KernelRunner(kv8_kernel.gqa_decode_kv8, *args, **kw, **cfg)
+
+
+GQA_DECODE_KV8 = TunableKernel(
+    name="gqa_decode_kv8",
+    space=_dense_space("gqa_decode_kv8", 1, with_pack=True),
+    version=1,
+    workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, _ragged_lens(ctx)),
+    make_runner=_kv8_runner,
+    heuristic=_kv8_heuristic,
+    canonicalize=_dense_canonical,
+)
+
+
+def gqa_decode_kv8_context(chip, B: int, Hq: int, Hkv: int, D: int, T: int,
+                           q_dtype: str = "float32") -> TuningContext:
+    """Tuning scenario of an int8-cache ragged decode over B requests of T
+    cache slots: dtype "int8" (the cache's, as the reference keys it), so
+    kv8 and float caches never share a tuned entry; q's dtype rides in
+    ``extra`` unless it is the reference's float32."""
+    extra = {} if q_dtype == "float32" else {"q_dtype": q_dtype}
+    return TuningContext(chip=chip, shapes={"q": (B, Hq, D),
+                                            "k": (B, Hkv, T, D)},
+                         dtype="int8", extra=extra)
+
+
+def ragged_decode_kv8(q, k, v, k_scale, v_scale, *, kv_len=None,
+                      config: Optional[Config] = None,
+                      tuner: Optional[Autotuner] = None):
+    """Autotuned int8-KV ragged decode. q (B, Hq, D) float; k, v
+    (B, Hkv, T, D) int8; k_scale, v_scale (B, Hkv, T) f32 per-token
+    scales (any strides, D contiguous); kv_len (B,) valid lengths."""
+    if config is None and q.is_cuda:
+        tuner = tuner or default_tuner()
+        B, Hq, D = q.shape
+        Hkv, T = k.shape[1], k.shape[2]
+        qt = dtype_name(q.dtype)
+        config = tuner.dispatch_config(
+            GQA_DECODE_KV8, (B, Hq, Hkv, T, D, "int8", qt, q.device.index),
+            lambda: gqa_decode_kv8_context(device_chip(q.device.index), B,
+                                           Hq, Hkv, D, T, qt))
+    return kv8_kernel.gqa_decode_kv8(q, k, v, k_scale, v_scale,
+                                     kv_len=kv_len, **(config or {}))
+
+
+# ===========================================================================
 # RMS norm
 # ===========================================================================
 
@@ -794,7 +891,8 @@ def rmsnorm(x, weight, *, eps: float = 1e-6,
 
 # ===========================================================================
 # Registry: the reference's names, scenarios, descriptions and bench cases
-# (its int8 cases join with kv8)
+# (the int8 cases of paged_decode and paged_verify join with their int8
+# branches)
 # ===========================================================================
 
 def _register_builtin_kernels() -> None:
@@ -829,6 +927,24 @@ def _register_builtin_kernels() -> None:
             BenchCase("serve32k",
                       {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
                       dtype="bfloat16", extra={"fill": 0.5}, scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=GQA_DECODE_KV8,
+        scenarios=("decode", "gqa", "ragged", "serving", "quant"),
+        precision="int8",
+        reference=ref.gqa_decode_kv8,
+        entry_point=ragged_decode_kv8,
+        operands=lambda ctx, cfg=None, device="cuda": _kv8_operands(
+            ctx, device),
+        description="Ragged GQA decode over an int8 KV cache "
+                    "(per-token scales, in-kernel dequant)",
+        bench_cases=(
+            BenchCase("r1024", {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
+                      dtype="int8", extra={"fill": 0.5}),
+            BenchCase("serve32k",
+                      {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
+                      dtype="int8", extra={"fill": 0.5}, scale="paper"),
         ),
     ))
     register(KernelSpec(

@@ -56,6 +56,20 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        0.0).to(q.dtype)
 
 
+def gqa_decode_kv8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                   kv_len: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Ragged decode over an int8 cache: dequantize it in f32 with its
+    per-token-per-head scales, then run the dense ragged decode
+    (``gqa_decode``: kv_len clamped to T, zero rows at kv_len 0). q
+    (B, Hq, D) float; k, v (B, Hkv, T, D) int8; k_scale, v_scale
+    (B, Hkv, T) f32. Returns (B, Hq, D) in q's dtype."""
+    kf = k.float() * k_scale.float()[..., None]
+    vf = v.float() * v_scale.float()[..., None]
+    return gqa_decode(q, kf, vf, kv_len=kv_len, scale=scale)
+
+
 def gather_pages(pages: torch.Tensor,
                  block_tables: torch.Tensor) -> torch.Tensor:
     """Densify a paged pool: pages (Hkv, P, page_size, D) + block tables

@@ -4,7 +4,8 @@ batch over dense caches.
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --max-batch 8 [--speculative [K]]
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
-      --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full
+      --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full \\
+      [--quant kv8]
 
 The port of ``repro.launch.serve``. ``--decode-impl`` takes the reference's
 choices, so one command line runs on both launchers:
@@ -14,8 +15,18 @@ choices, so one command line runs on both launchers:
             page pool, below;
   pallas  — a static batch over dense per-request caches, decoding through
             the registry's hand-written decode kernel (``gqa_decode_ragged``,
-            CUDA here), tuned at the serving context on a miss;
+            or ``gqa_decode_kv8`` under ``--quant kv8``, CUDA here), tuned at
+            the serving context on a miss;
   full    — the same static batch through the plain einsum decode.
+
+``--quant kv8`` (the reference's kv8 policy, ``repro_torch.quant``) makes
+the dense caches int8 with per-token-per-head f32 scales: the prompt is
+attended in full precision and only what persists is quantized, each
+decode step quantizes its new token, then attends through
+``gqa_decode_kv8`` (``pallas``) or the einsum over the cache dequantized
+in f32 (``full``). The weight policies (``w8a8``, ``w8a16``) and kv8 on
+the paged path (int8 page pools) are not ported and raise
+``NotImplementedError``.
 
 The dense path (``serve_dense``) follows the reference's: B uniform prompts
 of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill with
@@ -42,9 +53,8 @@ tuned ``paged_verify`` deployment entry (the same canonical scenario with
 page size either way.
 
 The paged path runs on the card only: with no CUDA device it raises
-instead of carrying on on the CPU. Tensor parallelism (``--tp``) and
-quantization (``--quant``) are not ported and raise
-``NotImplementedError``.
+instead of carrying on on the CPU. Tensor parallelism (``--tp``) is not
+ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -214,19 +224,27 @@ def serve(engine: ServingEngine, reqs: List[Request]) -> dict:
     return report
 
 
-def dense_context(cfg: ModelConfig, batch: int, max_len: int, device):
-    """The ``gqa_decode_ragged`` context the dense decode steps dispatch:
-    the batch, the model's heads and caches of ``max_len`` slots."""
-    return ops.gqa_decode_context(
-        ops.device_chip(device.index or 0), batch, cfg.n_heads,
-        cfg.n_kv_heads, cfg.head_dim, max_len, cfg.dtype)
+def dense_context(cfg: ModelConfig, batch: int, max_len: int, device,
+                  quant: Optional[str] = None):
+    """(kernel, context) the dense decode steps dispatch: the batch, the
+    model's heads and caches of ``max_len`` slots; ``gqa_decode_ragged``
+    over float caches, ``gqa_decode_kv8`` (int8 context, q in the
+    model's dtype) under kv8."""
+    chip = ops.device_chip(device.index or 0)
+    shape = (batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, max_len)
+    if lm.ForwardOpts(quant=quant).kv_dtype() == "int8":
+        return ops.GQA_DECODE_KV8, ops.gqa_decode_kv8_context(
+            chip, *shape, q_dtype=cfg.dtype)
+    return ops.GQA_DECODE_RAGGED, ops.gqa_decode_context(chip, *shape,
+                                                         cfg.dtype)
 
 
 def serve_dense(args, tuner: Autotuner) -> dict:
-    """Static batch with dense per-request caches: prefill, then G - 1
-    greedy decode steps through the ``gqa_decode_ragged`` kernel
-    (``--decode-impl pallas``) or the plain einsum (``full``). Returns the
-    run report, the generated tokens (B, G) under ``"tokens"``."""
+    """Static batch with dense per-request caches (int8 under ``--quant
+    kv8``): prefill, then G - 1 greedy decode steps through the
+    ``gqa_decode_ragged`` or ``gqa_decode_kv8`` kernel (``--decode-impl
+    pallas``) or the plain einsum (``full``). Returns the run report, the
+    generated tokens (B, G) under ``"tokens"``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
@@ -234,18 +252,20 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     cfg = get_config(args.arch, smoke=not args.full_config)
     B, P, G = args.requests, args.prompt_len, args.gen
     kernel = args.decode_impl == "pallas"
+    quant = None if args.quant == "none" else args.quant
     opts = lm.ForwardOpts(attn_chunk=64,
-                          decode_impl="kernel" if kernel else "plain")
+                          decode_impl="kernel" if kernel else "plain",
+                          quant=quant)
     model = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P),
                                             dtype=np.int64)).to(device)
     if kernel and device.type == "cuda":
-        tuned = tuner.best_config(ops.GQA_DECODE_RAGGED,
-                                  dense_context(cfg, B, P + G, device))
+        tunable, ctx = dense_context(cfg, B, P + G, device, quant)
+        tuned = tuner.best_config(tunable, ctx)
         ops.release_tuning_operands()
-        print(f"gqa_decode_ragged at the serving context: {tuned}")
+        print(f"{tunable.name} at the serving context: {tuned}")
 
     def sync():
         if device.type == "cuda":
@@ -269,6 +289,7 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     tokens = torch.cat(outs, 1).cpu().tolist()
     return {
         "arch": cfg.name, "decode_impl": args.decode_impl,
+        "quant": args.quant,
         "device": str(device), "requests": B, "prompt_len": P, "gen": G,
         "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3,
         "tokens_per_s": B * (G - 1) / decode_s if G > 1 else 0.0,
@@ -313,8 +334,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "wrappers run their plain versions); paged serving "
                          "needs the card")
     ap.add_argument("--quant", choices=("none", "w8a8", "w8a16", "kv8"),
-                    default="none", help="not ported: anything but none "
-                                         "raises")
+                    default="none",
+                    help="kv8 = int8 dense caches with per-token scales "
+                         "(--decode-impl pallas|full); w8a8, w8a16 and kv8 "
+                         "on the paged path are not ported and raise")
     ap.add_argument("--tp", type=int, default=1,
                     help="not ported: anything but 1 raises")
     return ap
@@ -322,9 +345,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.quant != "none":
-        raise NotImplementedError(f"--quant {args.quant}: quantization "
-                                  "(kv8, w8a8, w8a16) is not ported yet")
+    if args.quant in ("w8a8", "w8a16"):
+        raise NotImplementedError(
+            f"--quant {args.quant}: the weight policies (QTensor, "
+            "matmul_w8a8) are not ported yet")
+    if args.quant == "kv8" and args.decode_impl == "paged":
+        raise NotImplementedError(
+            "--quant kv8 --decode-impl paged: int8 page pools come with the "
+            "int8 branch of paged_decode, a later slice of the port; kv8 "
+            "serves dense caches (--decode-impl pallas|full)")
     if args.tp != 1:
         raise NotImplementedError(f"--tp {args.tp}: tensor-parallel serving "
                                   "is not ported")

@@ -11,18 +11,21 @@ cache or pool in place (``attn_prefill``, ``attn_decode``,
 ``_scatter_pages``): the cache is the largest buffer in serving, and the
 previous version is dead after every step.
 
-The dense path covers window-free GQA: SWA ring caches, MLA, int8 caches
-(kv8) and tensor parallelism are not ported and raise
-``NotImplementedError``.
+The dense path covers window-free GQA, with float caches or int8 caches
+(the kv8 policy: per-token-per-head int8 entries with f32 scales in
+parallel ``k_scale``/``v_scale`` buffers, the wire format of
+``repro_torch.quant.quantize_kv``). SWA ring caches, MLA, int8 page pools
+and tensor parallelism are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import ref as kref
+from repro_torch.quant import quantize_kv
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _Params, rope
 from repro_torch.models.param import ParamSpec, torch_dtype
@@ -140,15 +143,37 @@ def run_attention(q, k, v, *, impl: str = "chunked",
 
 # --- dense KV cache (static-batch serving) ---------------------------------
 
-def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+                    kv_dtype: Optional[str] = None):
     """(shape, dtype) of this layer's dense cache, layout (B, max_len,
-    Hkv, D) as the reference's; float and window-free only."""
+    Hkv, D) as the reference's; window-free only. ``kv_dtype="int8"`` (the
+    kv8 policy) stores int8 entries plus per-token-per-head f32 scales
+    (B, max_len, Hkv) in parallel ``k_scale``/``v_scale`` buffers."""
     if cfg.window is not None:
         raise NotImplementedError(
             f"{cfg.name!r}: SWA ring caches are not ported")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    dt = torch_dtype(cfg.dtype)
-    return {"k": (shape, dt), "v": (shape, dt)}
+    if kv_dtype is None:
+        dt = torch_dtype(cfg.dtype)
+        return {"k": (shape, dt), "v": (shape, dt)}
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype {kv_dtype!r} (None or 'int8')")
+    sshape = shape[:3]
+    return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+            "k_scale": (sshape, torch.float32),
+            "v_scale": (sshape, torch.float32)}
+
+
+def _write_kv(cache: Dict[str, torch.Tensor], k, v, pos: slice) -> None:
+    """Write k, v (B, S, Hkv, D) into the cache slots ``pos`` in place; an
+    int8 cache (it holds ``k_scale``) takes them quantized, each token and
+    head with its own absmax scale."""
+    if "k_scale" in cache:
+        k, ks, v, vs = quantize_kv(k, v)
+        cache["k_scale"][:, pos] = ks
+        cache["v_scale"][:, pos] = vs
+    cache["k"][:, pos] = k
+    cache["v"][:, pos] = v
 
 
 def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -156,13 +181,14 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  chunk: int = 512):
     """Forward over the prompt x (B, S, d) at positions 0..S-1, writing its
     K/V into slots 0..S-1 of ``cache`` (``lm.init_cache`` sizes it at
-    max_len slots), in place. Returns (out, cache)."""
+    max_len slots), in place. Under kv8 the attention over the prompt
+    still runs in full precision: only what persists is quantized.
+    Returns (out, cache)."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     o = run_attention(q, k, v, impl=impl, chunk=chunk)
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
+    _write_kv(cache, k, v, slice(0, S))
     return _proj_out(p, o, cfg), cache
 
 
@@ -171,32 +197,45 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                 impl: str = "plain"):
     """One-token decode at position ``pos`` (the same for every request of
     the static batch). x (B, 1, d). The new token's K/V land in slot
-    ``pos`` in place; then ``impl="kernel"`` attends through the autotuned
-    ``gqa_decode_ragged`` kernel (``kernels.ops.ragged_decode``, kv_len =
-    pos + 1, the cache handed over as a (B, Hkv, T, D) view) and
-    ``impl="plain"`` through the reference's einsum path. Returns
+    ``pos`` in place (quantized with their scales first in an int8
+    cache); then ``impl="kernel"`` attends through the autotuned kernel,
+    ``gqa_decode_ragged`` (``kernels.ops.ragged_decode``) or for an int8
+    cache ``gqa_decode_kv8`` (``kernels.ops.ragged_decode_kv8``), kv_len =
+    pos + 1, the cache and its scales handed over as (B, Hkv, T, D) and
+    (B, Hkv, T) views; ``impl="plain"`` attends through the reference's
+    einsum path, over the int8 cache dequantized in f32. Returns
     (out, cache)."""
     B = x.shape[0]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
+    _write_kv(cache, k, v, slice(pos, pos + 1))
     ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k[:, 0]
-    cv[:, pos] = v[:, 0]
+    quantized = "k_scale" in cache
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
         kv_len = torch.full((B,), pos + 1, dtype=torch.int32,
                             device=x.device)
-        o = kops.ragged_decode(q[:, 0], ck.transpose(1, 2),
-                               cv.transpose(1, 2), kv_len=kv_len)
+        if quantized:
+            o = kops.ragged_decode_kv8(
+                q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2),
+                cache["k_scale"].transpose(1, 2),
+                cache["v_scale"].transpose(1, 2), kv_len=kv_len)
+        else:
+            o = kops.ragged_decode(q[:, 0], ck.transpose(1, 2),
+                                   cv.transpose(1, 2), kv_len=kv_len)
         return _proj_out(p, o[:, None], cfg), cache
     if impl != "plain":
         raise ValueError(f"decode impl {impl!r}")
+    ckf, cvf = ck.float(), cv.float()
+    if quantized:                          # dequant for the einsum path
+        ckf = ckf * cache["k_scale"][..., None]
+        cvf = cvf * cache["v_scale"][..., None]
     s = torch.einsum("bskgd,btkd->bkgst", _group(q, hkv).float(),
-                     ck.float()) * dh ** -0.5
+                     ckf) * dh ** -0.5
     valid = torch.arange(ck.shape[1], device=x.device) <= pos
     prob = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
-    o = torch.einsum("bkgst,btkv->bskgv", prob, cv.float())
+    o = torch.einsum("bkgst,btkv->bskgv", prob, cvf)
     o = o.reshape(B, 1, hq, dh).to(x.dtype)
     return _proj_out(p, o, cfg), cache
 

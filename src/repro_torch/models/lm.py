@@ -15,7 +15,9 @@ and paged pools (continuous batching):
     prefill_paged        — one chunked-prefill step through block tables
     decode_step_paged    — one-token decode across the continuous batch
     verify_step_paged    — K positions per sequence (speculative verify)
-The steps write the caches in place and return them with f32 logits. Both
+The steps write the caches in place and return them with f32 logits. The
+dense caches are int8 with f32 scales under ``ForwardOpts(quant="kv8")``;
+the paged pools are float only. Both
 paths serve ``attn_mlp`` dense archs with RoPE and no window, MLA, learned
 positions or prefix embeddings (``_check_supported``).
 """
@@ -23,7 +25,7 @@ positions or prefix embeddings (``_check_supported``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -33,6 +35,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLP, Embed, Norm, apply_mlp, apply_norm, embed_tokens, logits_out,
 )
+from repro_torch.quant import get_policy
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -40,10 +43,19 @@ Cache = List[Dict[str, torch.Tensor]]
 @dataclasses.dataclass(frozen=True)
 class ForwardOpts:
     attn_impl: str = "chunked"       # dense prefill: full | chunked
-    # kernel (gqa_decode_ragged, paged_decode, paged_verify) | plain
+    # kernel (gqa_decode_ragged, gqa_decode_kv8, paged_decode,
+    # paged_verify) | plain
     decode_impl: str = "kernel"
     attn_chunk: int = 512            # KV chunk of chunked prefill
     norm_impl: str = "plain"         # plain | kernel (rms_norm)
+    # Quantization policy (repro_torch.quant): None | kv8 (w8a8 and w8a16
+    # are later slices). kv8 makes the dense caches int8 with per-token
+    # f32 scales.
+    quant: Optional[str] = None
+
+    def kv_dtype(self) -> Optional[str]:
+        pol = get_policy(self.quant)
+        return pol.kv_dtype if pol is not None else None
 
 
 class Block(nn.Module):
@@ -86,6 +98,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
+    if opts.kv_dtype() is not None:
+        raise NotImplementedError(
+            "int8 page pools (kv8 on the paged path) come with the int8 "
+            "branch of paged_decode, a later slice of the port")
     for block, layer_cache in zip(model.layers, cache):
         hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
         if mode == "prefill":
@@ -108,11 +124,12 @@ def _mlp_residual(block: Block, h, cfg, opts):
                                                impl=opts.norm_impl), cfg)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> Cache:
-    """Zero-filled dense caches (B, max_len, Hkv, D) for every layer."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               kv_dtype: Optional[str] = None) -> Cache:
+    """Zero-filled dense caches (B, max_len, Hkv, D) for every layer;
+    ``kv_dtype="int8"`` (kv8) adds the (B, max_len, Hkv) f32 scales."""
     _check_supported(cfg)
-    specs = ATT.attn_cache_spec(cfg, batch, max_len)
+    specs = ATT.attn_cache_spec(cfg, batch, max_len, kv_dtype)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in specs.items()}
             for _ in range(cfg.n_layers)]
@@ -122,10 +139,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: int, opts: ForwardOpts = ForwardOpts()):
     """Run the prompts tokens (B, S) at positions 0..S-1 into caches of
-    ``max_len`` slots (``init_cache``); attention over the prompt is
-    ``opts.attn_impl`` in plain torch ops, as the reference's is jnp.
-    Returns (last-position logits (B, vocab) f32, caches)."""
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    ``max_len`` slots (``init_cache``, int8 under ``opts.quant="kv8"``);
+    attention over the prompt is ``opts.attn_impl`` in plain torch ops, as
+    the reference's is jnp. Returns (last-position logits (B, vocab) f32,
+    caches)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
+                       kv_dtype=opts.kv_dtype())
     h = embed_tokens(model.embed, tokens, cfg)
     for block, layer_cache in zip(model.layers, cache):
         hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
@@ -140,7 +159,11 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
 def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache, pos: int, opts: ForwardOpts = ForwardOpts()):
     """token (B, 1) at position ``pos`` for every request; the caches are
-    written in place. Returns (logits (B, vocab) f32, caches)."""
+    written in place and must be of ``opts``' kv dtype (int8 under kv8).
+    Returns (logits (B, vocab) f32, caches)."""
+    if ("k_scale" in cache[0]) != (opts.kv_dtype() == "int8"):
+        raise ValueError(f"the caches do not hold opts.quant={opts.quant!r}'s "
+                         f"kv dtype (prefill with the same opts)")
     h = embed_tokens(model.embed, token, cfg)
     for block, layer_cache in zip(model.layers, cache):
         hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)

@@ -15,17 +15,24 @@ from repro_torch.configs import get_config
 from repro_torch.core import Autotuner, set_default_tuner
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
+from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import rms_norm as rms_kernel
 from repro_torch.models import lm
 from repro_torch.models.param import init_params
+from repro_torch.quant import quantize_kv
 from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# int8 caches: the kernel scales the finished dot product and the
+# probability where the plain version dequantizes first, so an f32 q takes
+# the reference's int8 tolerance (tests/test_kernel_oracles.py); bf16 q
+# keeps bf16's
+KV8_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 
 
 @pytest.fixture()
@@ -263,8 +270,66 @@ def test_gqa_decode_rejects_what_it_does_not_take(cuda):
         gqa_kernel.gqa_decode(q, k, v, k_splits=0)
     with pytest.raises(ValueError, match="contiguous"):
         gqa_kernel.gqa_decode(q, k.transpose(2, 3), v.transpose(2, 3))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="gqa_decode_kv8"):
         gqa_kernel.gqa_decode(q, k.to(torch.int8), v.to(torch.int8))
+
+
+def kv8_operands(seed, B, Hq, Hkv, D, T, dtype, device):
+    """q, and a (B, T, Hkv, D) cache quantized by the kv8 wire format,
+    handed over as the (B, Hkv, T, D) and (B, Hkv, T) views serving hands
+    the kernel: (q, k, v, k_scale, v_scale)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device=device)  # noqa: E731
+    kq, ks, vq, vs = quantize_kv(rand(B, T, Hkv, D), rand(B, T, Hkv, D))
+    return (rand(B, Hq, D).to(dtype), kq.transpose(1, 2), vq.transpose(1, 2),
+            ks.transpose(1, 2), vs.transpose(1, 2))
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: f"D{s[3]}-{s[5]}")
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32],
+                         ids=["q-bf16", "q-f32"])
+def test_gqa_decode_kv8_every_valid_config_matches_plain(cuda, shape,
+                                                         q_dtype):
+    """The int8 kernel, every valid config of its space, ragged lengths
+    with kv_len == 0 and kv_len > T, against the plain dequantize-then-
+    decode version."""
+    B, Hq, Hkv, D, T, _ = shape
+    args = kv8_operands(D, B, Hq, Hkv, D, T, q_dtype, cuda)
+    lens = torch.tensor(([0, T + 5, 1, T, 33] + list(range(7, T, 29)))[:B],
+                        dtype=torch.int32, device=cuda)
+    want = ref.gqa_decode_kv8(*args, kv_len=lens).float()
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.gqa_decode_kv8_context(chip, B, Hq, Hkv, D, T,
+                                     ops.dtype_name(q_dtype))
+    configs = ops.GQA_DECODE_KV8.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = kv8_kernel.gqa_decode_kv8.launches
+        out = ops.ragged_decode_kv8(*args, kv_len=lens, config=cfg)
+        torch.cuda.synchronize()
+        assert kv8_kernel.gqa_decode_kv8.launches == before + 1
+        assert out.dtype == q_dtype
+        torch.testing.assert_close(out.float(), want, atol=KV8_TOL[q_dtype],
+                                   rtol=KV8_TOL[q_dtype],
+                                   msg=lambda m: f"{cfg}: {m}")
+        assert not out[0].any(), "kv_len == 0 must give exact zeros"
+
+
+def test_gqa_decode_kv8_rejects_what_it_does_not_take(cuda):
+    q, k, v, ks, vs = kv8_operands(0, 2, 4, 2, 16, 40, torch.float32, cuda)
+    with pytest.raises(ValueError, match="int8 cache"):
+        kv8_kernel.gqa_decode_kv8(q, k.float(), v.float(), ks, vs)
+    with pytest.raises(ValueError, match="float32"):
+        kv8_kernel.gqa_decode_kv8(q, k, v, ks.bfloat16(), vs.bfloat16())
+    with pytest.raises(ValueError, match="B, Hkv, T"):
+        kv8_kernel.gqa_decode_kv8(q, k, v, ks[:, :, :8], vs[:, :, :8])
+    with pytest.raises(ValueError, match="16-byte"):
+        kv8_kernel.gqa_decode_kv8(q[..., :8], k[..., :8], v[..., :8], ks, vs)
+    lib = gqa_kernel.LIB_KV8.load()
+    for D, block_kv, g, warps in ((128, 128, 3, 4), (64, 256, 1, 8),
+                                  (160, 32, 4, 2)):
+        assert lib.gqa_decode_kv8_smem_bytes(D, block_kv, g, warps) == \
+            gqa_kernel.smem_bytes(D, 1, block_kv, g, g > 1, warps)
 
 
 def test_dense_serving_on_card_matches_cpu(cuda):
@@ -301,6 +366,47 @@ def test_dense_serving_on_card_matches_cpu(cuda):
         assert torch.equal(gpu_toks, cpu_toks)
         for a, b in zip(gpu_rows, cpu_rows):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        set_default_tuner(None)
+
+
+def test_dense_kv8_serving_on_card_matches_cpu(cuda):
+    """Smoke phi4-mini in f32 with int8 caches (kv8): dense prefill and
+    decode steps on the card through the gqa_decode_kv8 kernel give the
+    CPU's plain path tokens, and its logits at the int8 tolerance."""
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        cfg = get_config("phi4-mini-3.8b", smoke=True)
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        prompts = torch.from_numpy(np.random.default_rng(3).integers(
+            1, cfg.vocab_size, (3, 11)))
+        G = 6
+
+        def run(m, device, impl):
+            opts = lm.ForwardOpts(attn_chunk=4, decode_impl=impl,
+                                  quant="kv8")
+            logits, cache = lm.prefill(m, cfg, prompts.to(device),
+                                       max_len=11 + G, opts=opts)
+            assert cache[0]["k"].dtype == torch.int8
+            rows, tok = [logits.cpu()], torch.argmax(logits, -1,
+                                                     keepdim=True)
+            toks = [tok.cpu()]
+            for i in range(G - 1):
+                logits, cache = lm.decode_step(m, cfg, tok, cache, 11 + i,
+                                               opts)
+                tok = torch.argmax(logits, -1, keepdim=True)
+                rows.append(logits.cpu())
+                toks.append(tok.cpu())
+            return torch.cat(toks, 1), rows
+
+        cpu_toks, cpu_rows = run(model, "cpu", "plain")
+        before = kv8_kernel.gqa_decode_kv8.launches
+        gpu_toks, gpu_rows = run(model.to(cuda), cuda, "kernel")
+        assert kv8_kernel.gqa_decode_kv8.launches == \
+            before + (G - 1) * cfg.n_layers
+        assert torch.equal(gpu_toks, cpu_toks)
+        for a, b in zip(gpu_rows, cpu_rows):
+            torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-3)
     finally:
         set_default_tuner(None)
 

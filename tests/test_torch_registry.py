@@ -1,6 +1,7 @@
-"""The port's kernel registry held against the reference's: the five ported
+"""The port's kernel registry held against the reference's: the six ported
 kernels under the same names, scenarios, precision and bench cases (the
-reference's int8 cases join with kv8), and the registry's own rules."""
+reference's int8 cases of paged_decode and paged_verify join with their
+int8 branches), and the registry's own rules."""
 
 import pytest
 import torch
@@ -10,8 +11,8 @@ from repro.kernels import registry as jreg
 from repro_torch.core import TunableKernel, cpu_host
 from repro_torch.kernels import registry
 
-PORTED = ("decode_attention", "gqa_decode_ragged", "paged_decode",
-          "paged_verify", "rms_norm")
+PORTED = ("decode_attention", "gqa_decode_kv8", "gqa_decode_ragged",
+          "paged_decode", "paged_verify", "rms_norm")
 
 
 def _cases(spec, float_only):
@@ -25,9 +26,11 @@ def test_ported_kernels_match_the_reference_registry(name):
     ours, theirs = registry.get_kernel(name), jreg.get_kernel(name)
     assert ours.name == theirs.name == name
     assert ours.scenarios == theirs.scenarios
-    assert ours.precision == theirs.precision == "float"
+    assert ours.precision == theirs.precision
+    assert ours.precision == ("int8" if name == "gqa_decode_kv8" else "float")
     assert ours.description == theirs.description
-    assert _cases(ours, False) == _cases(theirs, True)
+    assert _cases(ours, False) == _cases(theirs,
+                                         ours.precision == "float")
     assert ours.reference is not None and ours.entry_point is not None
     assert ours.operands is not None
 
@@ -36,10 +39,14 @@ def test_list_kernels_is_a_subset_of_the_reference():
     assert registry.kernel_names() == sorted(PORTED)
     ours = registry.kernel_names(scenario="decode")
     assert set(ours) <= set(jreg.kernel_names(scenario="decode"))
-    assert set(ours) == {"decode_attention", "gqa_decode_ragged",
-                         "paged_decode", "paged_verify", "rms_norm"}
+    assert set(ours) == {"decode_attention", "gqa_decode_kv8",
+                         "gqa_decode_ragged", "paged_decode", "paged_verify",
+                         "rms_norm"}
     assert registry.kernel_names(scenario="speculative") == ["paged_verify"]
-    assert registry.kernel_names(precision="int8") == []
+    assert registry.kernel_names(precision="int8") == ["gqa_decode_kv8"]
+    assert registry.kernel_names(scenario="quant", precision="int8") == \
+        jreg.kernel_names(scenario="quant", precision="int8")[:1] == \
+        ["gqa_decode_kv8"]
     assert set(registry.scenarios()) <= set(jreg.scenarios())
 
 
@@ -80,3 +87,12 @@ def test_operands_feed_entry_point_and_reference(name):
         got = spec.entry_point(*args, **kw, config=cfg)
         assert got.shape == want.shape and torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if spec.precision == "int8":
+            # the int8 operands are the serving layout: (B, Hkv, T, D) and
+            # (B, Hkv, T) views of caches quantized through the wire format
+            q, k, v, ks, vs = args
+            assert k.dtype == v.dtype == torch.int8
+            assert ks.dtype == torch.float32 and ks.shape == k.shape[:3]
+            assert k.transpose(1, 2).is_contiguous()
+            assert ks.transpose(1, 2).is_contiguous()
+            assert q.dtype == torch.float32

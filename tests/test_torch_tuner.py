@@ -451,12 +451,72 @@ def test_dispatch_keys_separate_dtypes(monkeypatch):
             self.device = torch.device("cuda", 0)
 
     monkeypatch.setattr(ops.gqa_kernel, "gqa_decode", lambda *a, **k: k)
+    monkeypatch.setattr(ops.kv8_kernel, "gqa_decode_kv8", lambda *a, **k: k)
     for dtype in (torch.float32, torch.bfloat16):
         q = FakeCuda(torch.zeros(2, 4, 16, dtype=dtype))
         k = FakeCuda(torch.zeros(2, 2, 40, 16, dtype=dtype))
         cfg = ops.ragged_decode(q, k, k, kv_len=None, tuner=tuner)
         assert set(cfg) >= {"block_kv", "k_splits", "pack_gqa", "num_warps"}
-    (k32, s32), (k16, s16) = seen
+    # kv8: an int8 cache of the same shapes, q in bf16 and in f32
+    k8 = FakeCuda(torch.zeros(2, 2, 40, 16, dtype=torch.int8))
+    s8 = FakeCuda(torch.zeros(2, 2, 40))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = FakeCuda(torch.zeros(2, 4, 16, dtype=dtype))
+        cfg = ops.ragged_decode_kv8(q, k8, k8, s8, s8, kv_len=None,
+                                    tuner=tuner)
+        assert set(cfg) >= {"block_kv", "k_splits", "pack_gqa", "num_warps"}
+    (k32, s32), (k16, s16), (k8b, s8b), (k8f, s8f) = seen
     assert k32 != k16 and s32 != s16
     assert "float32" in k32 and "bfloat16" in k16
-    assert tuner.stats()["misses"] == 2
+    # the int8 context: dtype "int8" as the reference keys it, so kv8 and
+    # the float caches of the same shapes never share an entry
+    assert len({k32, k16, k8b, k8f}) == len({s32, s16, s8b, s8f}) == 4
+    assert "int8" in k8b and "int8" in k8f
+    assert all('"dtype": "int8"' in sig for sig in (s8b, s8f))
+    assert '"q_dtype": "bfloat16"' in s8b and "q_dtype" not in s8f
+    assert tuner.stats()["misses"] == 4
+
+
+def test_kv8_space_workload_and_operands():
+    """The int8 kernel's Hopper space: the dense space's constraints on its
+    own shared-memory formula with int8 rows (so 256-key blocks fit where
+    bf16's do not), the reference's splits<=blocks; a workload of int8
+    rows plus f32 scales (about half of bf16's bytes); operands quantized
+    through the port's wire format."""
+    from repro_torch.quant import quantize_kv
+    ctx = ops.gqa_decode_kv8_context(H100_SXM, *H100_DENSE, "bfloat16")
+    space = ops.GQA_DECODE_KV8.space
+    valid = space.valid_configs(ctx)
+    assert valid == _valid_by_brute_force(space, ctx)
+    assert {c["block_kv"] for c in valid} == {32, 64, 128, 256}
+    for c in valid:
+        assert c["k_splits"] <= -(-544 // c["block_kv"])
+        assert ops._dense_smem(c, ctx) <= H100_SXM.smem_per_block
+    assert space.why_invalid(dict(valid[0], block_kv=128, k_splits=8),
+                             ctx) == "splits<=blocks"
+    heur = ops.GQA_DECODE_KV8.default_config(ctx)
+    assert heur == {"block_kv": 128, "k_splits": 1, "pack_gqa": True,
+                    "num_warps": 4}
+    # 128 int8 rows of 128 (+16 padding), double-buffered K and V
+    assert ops._dense_smem(heur, ctx) == 3 * 128 * 4 + 4 * 128 * 144
+    # bytes at the serving shape, every request at 528 of 544 (PERF.md)
+    assert ops.dense_decode_bytes(8, 24, 8, 128, 8 * 528, 1, q_itemsize=2,
+                                  scale_bytes=4) == \
+        2 * 8 * 528 * 8 * (128 + 4) + 2 * 8 * 24 * 128 * 2 + 4 * 8
+    float_ctx = ops.gqa_decode_context(H100_SXM, *H100_DENSE, "bfloat16")
+    w8 = ops.GQA_DECODE_KV8.workload_fn(heur, ctx)
+    w16 = ops.GQA_DECODE_RAGGED.workload_fn(heur, float_ctx)
+    assert 0.5 < w8.hbm_bytes / w16.hbm_bytes < 0.55
+    assert w8.flops == w16.flops and w8.dtype == "bfloat16"
+    # operands: the reference's f32 q in a bench case, serving's bf16 q
+    small = ops.gqa_decode_kv8_context(H100_SXM, 2, 4, 2, 16, 40)
+    (q, k, v, ks, vs), kw = ops._kv8_operands(small, "cpu")
+    assert q.dtype == torch.float32 and k.dtype == torch.int8
+    assert k.shape == (2, 2, 40, 16) and ks.shape == (2, 2, 40)
+    kq, ksq = quantize_kv(k.transpose(1, 2).float() * ks.transpose(
+        1, 2)[..., None], v.transpose(1, 2).float())[:2]
+    assert int((kq - k.transpose(1, 2)).abs().max()) <= 1
+    assert kw["kv_len"].shape == (2,)
+    (qb, *_), _ = ops._kv8_operands(ops.gqa_decode_kv8_context(
+        H100_SXM, 2, 4, 2, 16, 40, "bfloat16"), "cpu")
+    assert qb.dtype == torch.bfloat16
