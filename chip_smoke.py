@@ -9,37 +9,43 @@ Phases, each failing loudly:
 
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
-     ``paged_decode``, ``paged_verify``, ``gqa_decode`` (which also serves
-     ``decode_attention``) and ``gqa_decode_kv8`` (the same kernel
-     template built for int8 caches) and the Triton compile of
-     ``rms_norm``;
+     ``paged_decode`` (float and int8 pools), ``paged_verify``,
+     ``gqa_decode`` (which also serves ``decode_attention``) and
+     ``gqa_decode_kv8`` (the same kernel template built for int8 caches)
+     and the Triton compile of ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
-     ``gqa_decode_kv8`` for q in bf16 and in f32; the fixed configs of
-     off-space layouts (pages of 4 and 256, a verify at depth 5); then the
-     registry's oracle sweep: every valid config of every registered
-     kernel's host bench cases against its reference;
-  4. tuning: the serve entry point's deployment lookups (``paged_decode``;
-     ``paged_verify`` with the speculation depth free) and the contexts
-     the plain and the speculative engine will dispatch, tuned on the
-     card; then every valid ``paged_decode`` and ``paged_verify`` config at
-     the pool layout the tuning chose (the tuned ones among them) against
-     the plain versions, and the tuned ones timed; the kv8 dense serving
+     ``gqa_decode_kv8`` and the int8 branch of ``paged_decode`` for q in
+     bf16 and in f32; the fixed configs of off-space layouts (float and
+     int8 pages of 4 and 256, a verify at depth 5); then the registry's
+     oracle sweep: every valid config of every registered kernel's host
+     bench cases against its reference;
+  4. tuning: the serve entry point's deployment lookups (``paged_decode``,
+     float and, under ``--quant kv8``, int8; ``paged_verify`` with the
+     speculation depth free) and the contexts the plain, the speculative
+     and the kv8 engine will dispatch, tuned on the card; then every valid
+     ``paged_decode`` (float and int8) and ``paged_verify`` config at the
+     pool layouts the tuning chose (the tuned ones among them) against the
+     plain versions, and the tuned ones timed; the kv8 dense serving
      context tuned and timed;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
      decode (``--speculative``: draft and verify, depth from the tuned
      deployment entry), with the kernels' launch counts read around each
-     run; the two runs' tokens must agree; then the launcher at the smoke
+     run; the two runs' tokens must agree; the same requests with
+     ``--quant kv8`` (int8 page pools) through the int8 branch of
+     ``paged_decode`` and through the plain versions, streams equal 8/8;
+     then the launcher at the smoke
      widths with ``--speculative 5`` (off the tuned depths); then the
      static batch over dense caches (``--decode-impl pallas`` through
      ``gqa_decode_ragged``, then ``--decode-impl full``): 8 prompts of 512
      tokens, 32 new tokens each, the token streams equal 8 of 8; the same
      with ``--quant kv8`` (int8 caches, ``gqa_decode_kv8``), and how many
      of its streams equal the bf16 run's;
-  6. one full-width decode step and one full-width verify step through the
+  6. one full-width decode step (float pools and int8 pools) and one
+     full-width verify step through the
      kernels against the same step through the plain versions on the same
      cache, and one full-width dense decode step through ``gqa_decode``
      and one through ``gqa_decode_kv8`` (int8 caches) against the plain
@@ -179,19 +185,45 @@ def paged_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype, K=None):
             torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
 
 
-def time_paged(chip, args, cfg, ps, max_pages) -> dict:
+def paged_kv8_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, q_dtype):
+    """``paged_case``'s pool in f32 quantized by the kv8 wire format, q in
+    ``q_dtype``: (args (q, k_pages, v_pages, tables, kv_len), scales
+    {"k_scales", "v_scales"})."""
+    from repro_torch.quant import quantize_kv
+    q, kp, vp, tables, lens = paged_case(seed, B, Hq, Hkv, D, ps, max_pages,
+                                         kv_len, torch.float32)
+    kq, ks, vq, vs = quantize_kv(kp, vp)
+    return ((q.to(q_dtype), kq, vq, tables, lens),
+            {"k_scales": ks, "v_scales": vs})
+
+
+def time_paged(chip, args, cfg, ps, max_pages, scales=None) -> dict:
     """Kernel (under ``cfg``), plain version, library yardstick and the
-    roofline bound for one decode or verify input set; the bound counts
-    the resident tokens (and a verify's attended (row, key) pairs) these
-    inputs have."""
+    roofline bound for one decode or verify input set (int8 pools with
+    their ``scales``: the bound counts int8 rows and f32 scales, the
+    yardstick is SDPA over the pools dequantized to q's dtype beforehand,
+    the dequant not timed); the bound counts the resident tokens (and a
+    verify's attended (row, key) pairs) these inputs have."""
     from repro_torch.core import KernelWorkload
     from repro_torch.kernels import ops
+    scales = scales or {}
     _, _, entry, plain, _ = paged_kernel(args, ps, max_pages, chip)
     q, kp, lens = args[0], args[1], args[4]
     B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
     cap = ps * max_pages
     kv_tokens = int(torch.clamp(lens, 0, cap).sum())
-    if q.dim() == 3:
+    yard = args
+    if scales:
+        flops = ops.paged_decode_flops(Hq, D, kv_tokens)
+        nbytes = ops.paged_decode_bytes(B, Hq, kp.shape[0], D, kv_tokens,
+                                        max_pages, 1,
+                                        q_itemsize=q.element_size(),
+                                        scale_bytes=4)
+        yard = (q, *(
+            (pool.float() * sc[..., None]).to(q.dtype)
+            for pool, sc in ((args[1], scales["k_scales"]),
+                             (args[2], scales["v_scales"]))), *args[3:])
+    elif q.dim() == 3:
         flops = ops.paged_decode_flops(Hq, D, kv_tokens)
         nbytes = ops.paged_decode_bytes(B, Hq, kp.shape[0], D, kv_tokens,
                                         max_pages, q.element_size())
@@ -204,9 +236,10 @@ def time_paged(chip, args, cfg, ps, max_pages) -> dict:
     bound_ms, by = bound(KernelWorkload(flops, nbytes,
                                         ops.dtype_name(q.dtype)), chip)
     return {"kernel_ms": timer().time_runner(
-                lambda: entry(*args, config=cfg)) * 1e3,
-            "plain_ms": timer().time_runner(lambda: plain(*args)) * 1e3,
-            "library_ms": sdpa_ms(args, cap), "bound_ms": bound_ms,
+                lambda: entry(*args, **scales, config=cfg)) * 1e3,
+            "plain_ms": timer().time_runner(
+                lambda: plain(*args, **scales)) * 1e3,
+            "library_ms": sdpa_ms(yard, cap), "bound_ms": bound_ms,
             "bound_by": by, "kv_tokens": kv_tokens}
 
 
@@ -244,39 +277,47 @@ def ragged_lens(cap: int, group: int) -> list:
 
 def paged_kernel(args, ps, max_pages, chip):
     """(kernel name, tunable, entry point, plain version, context) of the
-    paged attention kernel these inputs are for: a 3-d q is a decode, a
-    4-d q a verify of depth q.shape[1]."""
+    paged attention kernel these inputs are for: a 3-d q is a decode (of
+    int8 pools: the int8 context, q's dtype beside it), a 4-d q a verify
+    of depth q.shape[1]."""
     from repro_torch.kernels import ops, ref
     q, kp = args[0], args[1]
     Hkv, cap, dt = kp.shape[0], ps * max_pages, ops.dtype_name(q.dtype)
     if q.dim() == 3:
         B, Hq, D = q.shape
-        return ("paged_decode", ops.PAGED_DECODE, ops.paged_decode,
-                ref.paged_decode,
-                ops.paged_decode_context(chip, B, Hq, Hkv, D, cap, dt, ps))
+        int8 = kp.dtype == torch.int8
+        return ("paged_decode" + (" int8" if int8 else ""), ops.PAGED_DECODE,
+                ops.paged_decode, ref.paged_decode,
+                ops.paged_decode_context(chip, B, Hq, Hkv, D, cap,
+                                         "int8" if int8 else dt, ps, dt))
     B, K, Hq, D = q.shape
     return ("paged_verify", ops.PAGED_VERIFY, ops.paged_verify,
             ref.paged_verify,
             ops.paged_verify_context(chip, B, Hq, Hkv, D, cap, dt, ps, K))
 
 
-def check_paged_layout(chip, name, args, ps, max_pages):
-    """Every valid config of the context these inputs give, against the
-    plain version on the same inputs; returns (context, configs checked,
-    worst max abs error)."""
+def check_paged_layout(chip, name, args, ps, max_pages, scales=None):
+    """Every valid config of the context these inputs give (int8 pools
+    with their ``scales``: the int8 context, at INT8_TOL for an f32 q),
+    against the plain version on the same inputs, rows with kv_len 0
+    exactly zero; returns (context, configs checked, worst max abs
+    error)."""
     kname, tunable, entry, plain, ctx = paged_kernel(args, ps, max_pages,
                                                      chip)
-    q = args[0]
-    tol = BF16_TOL if q.dtype == torch.bfloat16 else F32_TOL
-    want = plain(*args).float()
+    q, scales = args[0], scales or {}
+    tol = BF16_TOL if q.dtype == torch.bfloat16 else (
+        INT8_TOL if scales else F32_TOL)
+    want = plain(*args, **scales).float()
+    empty = args[4] == 0
     configs = tunable.space.valid_configs(ctx)
     if not configs:
         raise AssertionError(f"{kname} {name}: no valid config")
     worst = 0.0
     for cfg in configs:
-        got = entry(*args, config=cfg).float()
+        got = entry(*args, **scales, config=cfg).float()
         err = float((got - want).abs().max())
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
+        if not torch.allclose(got, want, atol=tol, rtol=tol) \
+                or got[empty].any():
             raise AssertionError(f"{kname} {name} {cfg}: max abs "
                                  f"err {err} over tolerance {tol}")
         worst = max(worst, err)
@@ -308,6 +349,32 @@ def check_paged_decode(chip) -> dict:
               f"{tm['plain_ms']:.4f} library_ms {tm['library_ms']:.4f} "
               f"bound_ms {tm['bound_ms']:.5f} ({tm['bound_by']}, "
               f"{tm['kv_tokens']} resident tokens)")
+    return out
+
+
+def check_paged_decode_kv8(chip) -> dict:
+    """The int8 branch: every valid config of the int8 context against the
+    plain version (dequantize, gather, decode) at pages of 16 on
+    phi4-mini's heads, q in bf16 (BF16_TOL) and in f32 (INT8_TOL), ragged
+    lengths with 0 and one past the capacity; the heuristic config timed
+    for the bf16 q. The serving layout is checked in phase 4."""
+    from repro_torch.kernels import ops
+    ps, max_pages = 16, 36
+    out = {"max_abs_err": 0.0}
+    for q_dtype in (torch.bfloat16, torch.float32):
+        name = f"phi4-mini int8 pools, q {ops.dtype_name(q_dtype)}"
+        args, scales = paged_kv8_case(130, 8, 24, 8, 128, ps, max_pages,
+                                      ragged_lens(ps * max_pages, 3), q_dtype)
+        ctx, _, worst = check_paged_layout(chip, name, args, ps, max_pages,
+                                           scales)
+        out["max_abs_err"] = max(out["max_abs_err"], worst)
+        if q_dtype == torch.bfloat16:
+            heur = ops.PAGED_DECODE.default_config(ctx)
+            tm = time_paged(chip, args, heur, ps, max_pages, scales)
+            print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} "
+                  f"plain_ms {tm['plain_ms']:.4f} library_ms "
+                  f"{tm['library_ms']:.4f} bound_ms {tm['bound_ms']:.5f} "
+                  f"({tm['bound_by']}, {tm['kv_tokens']} resident tokens)")
     return out
 
 
@@ -384,15 +451,15 @@ def check_rms_norm(chip) -> dict:
     return out
 
 
-def off_space_layouts(chip) -> float:
-    """Pools with page sizes outside the space (4 and 256) and a verify at
-    depth 5 (outside the tuned depths) through ``ops``: the fixed config,
-    no tuning (a tuner that errors on a miss), against the plain
-    versions; returns the worst max abs error."""
+def off_space_layouts(chip) -> dict:
+    """Pools with page sizes outside the space (4 and 256; float and int8)
+    and a verify at depth 5 (outside the tuned depths) through ``ops``:
+    the fixed config, no tuning (a tuner that errors on a miss), against
+    the plain versions; returns the worst max abs error by kernel."""
     from repro_torch.core import Autotuner
     from repro_torch.kernels import ops, ref
     tuner = Autotuner(on_miss="error")
-    worst = 0.0
+    worst = {}
     for ps, max_pages, K in ((4, 136, 5), (256, 3, 5), (16, 36, 5)):
         cap = ps * max_pages
         lens = ragged_lens(cap, 3)
@@ -406,6 +473,13 @@ def off_space_layouts(chip) -> float:
             runs.append(("paged_decode", ops.paged_decode, ref.paged_decode,
                          args, ops.paged_decode_config(args[0], args[1],
                                                        args[3])))
+        if ps not in ops.PAGE_SIZES:
+            a8, sc = paged_kv8_case(ps + K + 1, 8, 24, 8, 128, ps,
+                                    max_pages, lens, torch.bfloat16)
+            runs.append(("paged_decode int8", functools.partial(
+                ops.paged_decode, **sc), functools.partial(
+                ref.paged_decode, **sc), a8, ops.paged_decode_config(
+                a8[0], a8[1], a8[3])))
         for name, entry, plain, a, cfg in runs:
             got = entry(*a, tuner=tuner).float()
             err = float((got - plain(*a).float()).abs().max())
@@ -414,7 +488,7 @@ def off_space_layouts(chip) -> float:
                   f"config {cfg}: max_abs_err {err:.3g} (tol {BF16_TOL})")
             if err > BF16_TOL:
                 raise AssertionError(f"{name} pages of {ps}: {err}")
-            worst = max(worst, err)
+            worst[name] = max(worst.get(name, 0.0), err)
     assert tuner.stats()["misses"] == 0
     return worst
 
@@ -668,6 +742,66 @@ def dense_serving(tuner, n_layers: int, quant: str = "none") -> dict:
     return {"report": kernel, "launches": kl}
 
 
+def kv8_paged_serving(engine, reqs, bf16_reqs, counters) -> dict:
+    """The launcher's kv8 paged run at full width (``--quant kv8``: int8
+    page pools, decode through the int8 branch of paged_decode) and the
+    same requests through the plain versions on the card, on the same
+    model and pool layout: equal token streams 8/8, paged_decode launched
+    once a layer and decode step with int8 pools and nothing launched on
+    the plain path, no failed request; how many streams equal the bf16
+    paged run's is printed, not held. Returns the kernel run's report and
+    launch counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import Request, ServingEngine
+    sched = engine.scheduler
+    assert engine.cache[0]["k_pages"].dtype == torch.int8
+    plain_engine = ServingEngine(
+        engine.cfg, engine.model, num_pages=engine.pool.num_pages,
+        page_size=engine.pool.page_size, max_batch=sched.max_batch,
+        max_seq_len=engine.max_seq_len, prefill_chunk=sched.prefill_chunk,
+        opts=lm.ForwardOpts(**PATH_OPTS["plain"], quant="kv8"),
+        device=engine.device)
+    plain_reqs = [Request(rid=r.rid, prompt=r.prompt.copy(),
+                          max_new_tokens=r.max_new_tokens) for r in reqs]
+    runs = {}
+    for label, eng, rs in (("kernel", engine, reqs),
+                           ("plain", plain_engine, plain_reqs)):
+        for fn in counters.values():
+            fn.launches = 0
+        report = serve.serve(eng, rs)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[label] = (report, launches)
+        print(f"run report (--quant kv8, {label}): "
+              + json.dumps(report, sort_keys=True))
+        print(f"launches in the run (--quant kv8, {label}): "
+              + json.dumps(launches))
+        assert report["quant"] == "kv8"
+        assert report["lifecycle"]["terminal"] == len(rs) == 8
+        assert report["lifecycle"]["failed"] == 0
+        assert all(len(r.tokens) == 32 for r in rs)
+    (kernel, kl), (plain, pl) = runs["kernel"], runs["plain"]
+    n_layers = engine.cfg.n_layers
+    assert kl["paged_decode"] == kernel["decode_steps"] * n_layers > 0, kl
+    assert kl["paged_verify"] == 0 and kl["rms_norm"] > 0, kl
+    assert sum(pl.values()) == 0, pl
+    equal = sum(a.tokens == b.tokens for a, b in zip(reqs, plain_reqs))
+    same = sum(a.tokens == b.tokens for a, b in zip(reqs, bf16_reqs))
+    print(f"--quant kv8 paged, kernels vs plain versions at full width: "
+          f"{equal}/8 token streams equal; tokens/s "
+          f"{kernel['tokens_per_s']:.1f} / {plain['tokens_per_s']:.1f}, ITL "
+          f"p50 {kernel['itl_p50_ms']:.2f} / {plain['itl_p50_ms']:.2f} ms, "
+          f"peak memory {kernel['peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"{same}/8 streams equal the bf16 paged run's (reported, not "
+          f"held)")
+    if equal != 8:
+        raise AssertionError("kv8 paged serving: the kernel and the plain "
+                             "path give different tokens")
+    del plain_engine
+    torch.cuda.empty_cache()
+    return {"report": kernel, "launches": kl}
+
+
 def dense_step_check(model, cfg, steps: int = 8, quant=None) -> None:
     """One full-width dense decode step (8 requests at position 512 after a
     plain prefill of 512 tokens; int8 caches under ``quant="kv8"``)
@@ -704,8 +838,9 @@ def dense_step_check(model, cfg, steps: int = 8, quant=None) -> None:
 
 def decode_state(engine, steps: int):
     """A fresh cache holding 8 prefilled sequences of 96-255 tokens (plain
-    prefill), laid out like the engine's pool, ready for ``steps`` decode
-    steps: (cache, tables, lens, first tokens)."""
+    prefill), laid out like the engine's pool and of its kv dtype (int8
+    pools under kv8), ready for ``steps`` decode steps: (cache, tables,
+    lens, first tokens)."""
     from repro_torch.models import lm
     cfg, model = engine.cfg, engine.model
     ps = engine.pool.page_size
@@ -718,8 +853,9 @@ def decode_state(engine, steps: int):
     for b in range(B):
         tables[b, :need] = 1 + b * need + np.arange(need)
     tables_d = torch.from_numpy(tables).cuda()
-    cache = lm.init_paged_cache(cfg, 1 + B * need, ps, device="cuda")
-    plain = lm.ForwardOpts(decode_impl="plain", norm_impl="plain")
+    cache = lm.init_paged_cache(cfg, 1 + B * need, ps, device="cuda",
+                                kv_dtype=engine.opts.kv_dtype())
+    plain = lm.ForwardOpts(**PATH_OPTS["plain"], quant=engine.opts.quant)
     for b in range(B):
         prompt = torch.from_numpy(rng.integers(
             1, cfg.vocab_size, (1, int(lens[b]))).astype(np.int64)).cuda()
@@ -797,11 +933,12 @@ def hold_logits(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
 
 def full_width_check(engine, steps: int = 16) -> None:
     """One decode step through both kernels against the same step through
-    the plain versions on clones of one cache (logits and greedy tokens
-    held by ``hold_logits``, residual stream compared layer by layer),
-    then a short greedy continuation on each path (agreement printed)."""
+    the plain versions on clones of one cache (int8 pools under the
+    engine's kv8; logits and greedy tokens held by ``hold_logits``,
+    residual stream compared layer by layer), then a short greedy
+    continuation on each path (agreement printed)."""
     from repro_torch.models import lm
-    cfg, model = engine.cfg, engine.model
+    cfg, model, quant = engine.cfg, engine.model, engine.opts.quant
     cache, tables_d, lens_d, tok = decode_state(engine, steps)
     B = tok.shape[0]
     caches = {"kernel": [{k: v.clone() for k, v in layer.items()}
@@ -809,7 +946,7 @@ def full_width_check(engine, steps: int = 16) -> None:
     first, toks, streams = {}, {}, {}
     for path in ("kernel", "plain"):
         t, seq = tok, []
-        opts = lm.ForwardOpts(**PATH_OPTS[path])
+        opts = lm.ForwardOpts(**PATH_OPTS[path], quant=quant)
         for i in range(steps):
             record = (residual_streams(model, streams.setdefault(path, {}))
                       if i == 0 else contextlib.nullcontext())
@@ -823,7 +960,8 @@ def full_width_check(engine, steps: int = 16) -> None:
         toks[path] = np.stack(seq, 1)
     assert first["kernel"].shape == (B, cfg.vocab_size)
     lens = lens_d.cpu().numpy()
-    hold_logits(f"decode step, kernels vs plain, {B} sequences of "
+    pools = " over int8 pools (kv8)" if quant else ""
+    hold_logits(f"decode step{pools}, kernels vs plain, {B} sequences of "
                 f"{lens.min()}-{lens.max()} tokens", first["kernel"],
                 first["plain"])
     print(f"  residual stream, relative L2 after layer "
@@ -903,15 +1041,25 @@ def profile_steps(label: str, step, steps: int = 8) -> None:
               f"  {name[:90]}")
 
 
-def profile_decode_and_verify(engine, spec_engine, steps: int = 8) -> None:
+def profile_decode(engine, steps: int = 8) -> None:
+    """A profiled window of paged decode steps through the kernels on a
+    cache of the engine's kv dtype."""
     from repro_torch.models import lm
-    cfg, model = engine.cfg, engine.model
-    opts = lm.ForwardOpts(**PATH_OPTS["kernel"])
+    cfg, model, quant = engine.cfg, engine.model, engine.opts.quant
+    opts = lm.ForwardOpts(**PATH_OPTS["kernel"], quant=quant)
     cache, tables_d, lens_d, tok = decode_state(engine, 2 * steps + 2)
+    pools = ", int8 pools" if quant else ""
     profile_steps(
-        f"decode step ({tok.shape[0]} rows, full width)",
+        f"decode step ({tok.shape[0]} rows, full width{pools})",
         lambda i: lm.decode_step_paged(model, cfg, tok, cache, tables_d,
                                        lens_d + i, opts), steps)
+
+
+def profile_decode_and_verify(engine, spec_engine, steps: int = 8) -> None:
+    from repro_torch.models import lm
+    cfg = engine.cfg
+    opts = lm.ForwardOpts(**PATH_OPTS["kernel"])
+    profile_decode(engine, steps)
     K = spec_engine.spec_k
     cache, tables_d, lens_d, tok = decode_state(spec_engine,
                                                 (2 * steps + 1) * K)
@@ -1070,9 +1218,11 @@ def main(argv=None) -> int:
     rms = check_rms_norm(chip)
     dense_err = check_dense_decode(chip)
     kv8_err = check_kv8_decode(chip)
+    pd8 = check_paged_decode_kv8(chip)
     off_space_err = off_space_layouts(chip)
-    pdk["max_abs_err"] = max(pdk["max_abs_err"], off_space_err)
-    pvk["max_abs_err"] = max(pvk["max_abs_err"], off_space_err)
+    for out, name in ((pdk, "paged_decode"), (pvk, "paged_verify"),
+                      (pd8, "paged_decode int8")):
+        out["max_abs_err"] = max(out["max_abs_err"], off_space_err[name])
     registry_sweep(chip)
 
     phase(f"4. tuning (deployment lookups and the engines' contexts) "
@@ -1095,6 +1245,11 @@ def main(argv=None) -> int:
           f"{json.dumps(spec_info)}")
     print(f"the paged_verify deployment entry "
           f"{spec_info['verify_deployment_config']} recommends draft_k {K}")
+    t = time.perf_counter()
+    kv8_engine, kv8_reqs, kv8_info = serve.prepare(
+        serve.build_parser().parse_args(argv + ["--quant", "kv8"]), tuner)
+    print(f"prepare --quant kv8: {time.perf_counter() - t:.1f} s; "
+          f"{json.dumps(kv8_info)}")
     for k, entry in tuner.cache.items():
         ctx = json.loads(k["ctx"])
         print(f"tuned {k['kernel']} shapes {ctx['shapes']} extra "
@@ -1135,6 +1290,30 @@ def main(argv=None) -> int:
         print(f"{name} at the serving layout (page {ps}, {max_pages} "
               f"pages a table) under {tuned}: " + json.dumps(
                   {k: v for k, v in out.items() if k != "max_abs_err"}))
+    # The kv8 engine's layout: the int8 context (q bf16) at its pool
+    ((kv8_tunable, kv8_ctx),) = [(k, c) for k, c in
+                                 serve.engine_contexts(kv8_engine)
+                                 if k.name == "paged_decode"]
+    kv8_tuned = tuner.best_config(kv8_tunable, kv8_ctx)
+    ps8 = kv8_engine.pool.page_size
+    mp8 = kv8_engine.scheduler.max_pages
+    args, scales = paged_kv8_case(
+        8, kv8_engine.scheduler.max_batch, cfg.n_heads, cfg.n_kv_heads,
+        cfg.head_dim, ps8, mp8, ragged_lens(ps8 * mp8, 3), torch.bfloat16)
+    ctx, configs, worst = check_paged_layout(
+        chip, "phi4-mini int8 pools, q bfloat16, at the kv8 serving layout",
+        args, ps8, mp8, scales)
+    if ctx.signature() != kv8_ctx.signature() or kv8_tuned not in configs:
+        raise AssertionError(f"kv8 serving config {kv8_tuned} under "
+                             f"{kv8_ctx} is not among the configs checked "
+                             f"under {ctx}")
+    pd8["max_abs_err"] = max(pd8["max_abs_err"], worst)
+    pd8.update(time_paged(chip, args, kv8_tuned, ps8, mp8, scales),
+               library="SDPA over the pools pre-gathered and dequantized "
+                       "to bf16 (dequant not timed)")
+    print(f"paged_decode int8 at the kv8 serving layout (page {ps8}, {mp8} "
+          f"pages a table) under {kv8_tuned}: " + json.dumps(
+              {k: v for k, v in pd8.items() if k != "max_abs_err"}))
     rms_cfg = tuner.best_config(
         ops.RMS_NORM, ops.rmsnorm_context(chip, (8, 1, 3072), "bfloat16"))
     x, w = rms["args"]
@@ -1191,6 +1370,7 @@ def main(argv=None) -> int:
     assert spec_launches["paged_verify"] == \
         spec_report["verify_passes"] * n_layers > 0, spec_launches
     first_divergences(engine, reqs, spec_reqs, K)
+    kv8_paged = kv8_paged_serving(kv8_engine, kv8_reqs, reqs, counters)
     for fn in counters.values():
         fn.launches = 0
     off = serve.main(["--requests", "4", "--prompt-len", "48", "--gen",
@@ -1216,10 +1396,12 @@ def main(argv=None) -> int:
     phase(f"6. full-width steps: kernels against plain versions, and where "
           f"their time goes {elapsed()}")
     full_width_check(engine)
+    full_width_check(kv8_engine)
     verify_check(spec_engine)
     dense_step_check(engine.model, engine.cfg)
     dense_step_check(engine.model, engine.cfg, quant="kv8")
     profile_decode_and_verify(engine, spec_engine)
+    profile_decode(kv8_engine)
     rejection_run()
     rejection_run(K=5, page_size=4)
 
@@ -1237,6 +1419,10 @@ def main(argv=None) -> int:
         entry("paged_decode", "cuda", "src/repro_torch/csrc/paged_decode.cu",
               "src/repro/kernels/paged_decode.py:54",
               launches["paged_decode"], pdk),
+        entry("paged_decode_int8", "cuda",
+              "src/repro_torch/csrc/paged_decode.cu",
+              "src/repro/kernels/paged_decode.py:54",
+              kv8_paged["launches"]["paged_decode"], pd8),
         entry("paged_verify", "cuda", "src/repro_torch/csrc/paged_verify.cu",
               "src/repro/kernels/paged_verify.py:52",
               spec_launches["paged_verify"], pvk),

@@ -91,6 +91,16 @@ def _randn(shape, dtype, gen):
                        dtype=torch.float32).to(dtype)
 
 
+def _q_dtype(ctx: TuningContext) -> str:
+    """q's dtype. A float context's dtype is q's and the cache's; an int8
+    context's (kv8) is the cache's, and q rides in ``extra["q_dtype"]``:
+    float32 in the reference's bench cases, the model's dtype at
+    serving."""
+    if ctx.dtype != "int8":
+        return ctx.dtype
+    return ctx.extra.get("q_dtype", "float32")
+
+
 def _fixed_block_kv(page_size: int, smem_of, limit: int) -> int:
     """The reference's fixed block of one page, halved until its shared
     memory (``smem_of(block_kv)``) fits the kernel's limit."""
@@ -150,12 +160,16 @@ def paged_decode_space() -> ConfigSpace:
 
 
 def paged_decode_bytes(B: int, Hq: int, Hkv: int, D: int, kv_tokens: float,
-                       max_pages: int, itemsize: int) -> float:
-    """HBM bytes of one call reading each K/V row once: the K and V rows
-    of ``kv_tokens`` resident tokens over Hkv heads, q in, o out, the
-    block tables and lengths."""
-    return (2.0 * kv_tokens * Hkv * D * itemsize + 2.0 * B * Hq * D * itemsize
-            + 4.0 * B * max_pages + 4.0 * B)
+                       max_pages: int, itemsize: int, *,
+                       q_itemsize: Optional[int] = None,
+                       scale_bytes: int = 0) -> float:
+    """HBM bytes of one call reading each K/V row once: the dense decode's
+    (``dense_decode_bytes``: the K and V rows of ``kv_tokens`` resident
+    tokens, int8 ones with their f32 scales, q in, o out, the lengths)
+    and the block tables."""
+    return dense_decode_bytes(B, Hq, Hkv, D, kv_tokens, itemsize,
+                              q_itemsize=q_itemsize,
+                              scale_bytes=scale_bytes) + 4.0 * B * max_pages
 
 
 def paged_decode_flops(Hq: int, D: int, kv_tokens: float) -> float:
@@ -176,17 +190,23 @@ def _ragged_lens(ctx: TuningContext) -> torch.Tensor:
 
 def _paged_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
     """What the timed call moves under ``cfg``: unpacked heads each read
-    their KV head's rows, so the group re-reads them."""
+    their KV head's rows, so the group re-reads them. An int8 context
+    (kv8) reads int8 rows with their f32 scales, q and o in q's dtype,
+    and counts operations at q's dtype's peak (the pool is dequantized to
+    f32 first)."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     ps = cfg["page_size"]
     kv_tokens = float(torch.clamp(_ragged_lens(ctx), max=_rup(T, ps)).sum())
     reads = 1 if cfg["pack_gqa"] else _group(ctx)
+    q_dtype = _q_dtype(ctx)
     return KernelWorkload(
         flops=paged_decode_flops(Hq, D, kv_tokens),
-        hbm_bytes=paged_decode_bytes(B, Hq, Hkv, D, kv_tokens * reads,
-                                     _cdiv(T, ps), dtype_bytes(ctx.dtype)),
-        dtype=ctx.dtype)
+        hbm_bytes=paged_decode_bytes(
+            B, Hq, Hkv, D, kv_tokens * reads, _cdiv(T, ps),
+            dtype_bytes(ctx.dtype), q_itemsize=dtype_bytes(q_dtype),
+            scale_bytes=4 if ctx.dtype == "int8" else 0),
+        dtype=q_dtype)
 
 
 def _paged_heuristic(ctx: TuningContext) -> Config:
@@ -204,19 +224,29 @@ def _pool_operands(ctx: TuningContext, ps: int, lens: torch.Tensor,
                    device, K: Optional[int] = None):
     """A filled pool of pages of ``ps`` from the logical (q, k) shapes;
     page 0 is the scratch page and each sequence owns a contiguous run of
-    pages. q is (B, Hq, D), or (B, K, Hq, D) for a verify of depth K."""
+    pages. q is (B, Hq, D), or (B, K, Hq, D) for a verify of depth K.
+    An int8 context (kv8) quantizes the pools through the wire format
+    (``quant.quantize_kv``, as serving writes them) with q in its own
+    dtype. Returns (args (q, k_pages, v_pages, tables, lens), kwargs:
+    ``k_scales``/``v_scales`` under int8)."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
-    dtype = getattr(torch, ctx.dtype)
+    quant = ctx.dtype == "int8"
+    dtype = torch.float32 if quant else getattr(torch, ctx.dtype)
     gen = torch.Generator(device=device).manual_seed(0)
     pps = _cdiv(T, ps)
     n_pages = 1 + B * pps
-    q = _randn((B, Hq, D) if K is None else (B, K, Hq, D), dtype, gen)
+    q = _randn((B, Hq, D) if K is None else (B, K, Hq, D),
+               getattr(torch, _q_dtype(ctx)), gen)
     kp = _randn((Hkv, n_pages, ps, D), dtype, gen)
     vp = _randn((Hkv, n_pages, ps, D), dtype, gen)
     tbl = torch.arange(1, n_pages, dtype=torch.int32,
                        device=device).reshape(B, pps)
-    return q, kp, vp, tbl, lens.to(device)
+    kw = {}
+    if quant:
+        kp, ks, vp, vs = quantize_kv(kp, vp)
+        kw = {"k_scales": ks, "v_scales": vs}
+    return (q, kp, vp, tbl, lens.to(device)), kw
 
 
 def _paged_operands(ctx: TuningContext, cfg: Optional[Config] = None,
@@ -224,16 +254,16 @@ def _paged_operands(ctx: TuningContext, cfg: Optional[Config] = None,
     """Registry operands: the pool at the config's (or the context's, or
     16-token) page size, ragged lengths from ``extra["fill"]``."""
     ps = int((cfg or {}).get("page_size", ctx.extra.get("page_size", 16)))
-    return _pool_operands(ctx, ps, _ragged_lens(ctx), device), {}
+    return _pool_operands(ctx, ps, _ragged_lens(ctx), device)
 
 
 def _paged_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
     """A filled pool with the config's page size (``_pool_operands``)."""
     ps = cfg["page_size"]
-    args = _memo_operands(
+    args, kw = _memo_operands(
         ("paged_decode", ctx.signature(), ps),
         lambda: _pool_operands(ctx, ps, _ragged_lens(ctx), "cuda"))
-    return KernelRunner(pd_kernel.paged_decode, *args,
+    return KernelRunner(pd_kernel.paged_decode, *args, **kw,
                         block_kv=cfg["block_kv"], pack_gqa=cfg["pack_gqa"],
                         num_warps=cfg["num_warps"])
 
@@ -250,11 +280,17 @@ PAGED_DECODE = TunableKernel(
 
 def paged_decode_context(chip, B: int, Hq: int, Hkv: int, D: int,
                          capacity: int, dtype: str,
-                         page_size: Optional[int] = None) -> TuningContext:
+                         page_size: Optional[int] = None,
+                         q_dtype: Optional[str] = None) -> TuningContext:
     """Tuning scenario of a decode over B sequences of ``capacity`` token
     slots; ``page_size`` pins the pool's layout (omit it for deployment
-    tuning, where the winner sizes the pool)."""
+    tuning, where the winner sizes the pool). ``dtype`` is the pool's:
+    an int8 pool (kv8) keys apart from the float pools of the same shapes,
+    with q's dtype in ``extra`` unless it is the reference's float32 (as
+    ``gqa_decode_kv8_context``)."""
     extra = {} if page_size is None else {"page_size": int(page_size)}
+    if dtype == "int8" and q_dtype not in (None, "float32"):
+        extra["q_dtype"] = q_dtype
     return TuningContext(chip=chip, shapes={"q": (B, Hq, D),
                                             "k": (B, Hkv, capacity, D)},
                          dtype=dtype, extra=extra)
@@ -265,7 +301,9 @@ def paged_decode_fixed_config(group: int, D: int, page_size: int,
     """What a pool with an off-space page size dispatches, untuned: the
     reference's one page per step with packed heads
     (``src/repro/kernels/ops.py:836-840``), the block halved until it fits
-    in shared memory (pages of 256 at bf16 and D 128 would stage 256 KB)."""
+    in shared memory (pages of 256 at bf16 and D 128 would stage 256 KB).
+    ``itemsize`` is the pool's (1 for int8, whose rows stage their
+    scales too), not q's."""
     pack = 1 < group <= pd_kernel.MAX_PACKED_GROUP
     block_kv = _fixed_block_kv(
         page_size, lambda bkv: pd_kernel.smem_bytes(D, itemsize, bkv, group,
@@ -282,29 +320,36 @@ def paged_decode_config(q, k_pages, block_tables,
     B, Hq, D = q.shape
     Hkv, _, ps, _ = k_pages.shape
     if ps not in PAGE_SIZES:
-        return paged_decode_fixed_config(Hq // Hkv, D, ps, q.element_size())
+        return paged_decode_fixed_config(Hq // Hkv, D, ps,
+                                         k_pages.element_size())
     tuner = tuner or default_tuner()
     max_pages = block_tables.shape[1]
-    dt = dtype_name(k_pages.dtype)
-    key = (B, Hq, Hkv, D, ps, max_pages, dt, q.device.index)
+    dt, qt = dtype_name(k_pages.dtype), dtype_name(q.dtype)
+    # an int8 pool's scenario also depends on q's dtype (its bytes and
+    # peak); a float pool's dtype is q's
+    key = (B, Hq, Hkv, D, ps, max_pages, dt, qt, q.device.index)
     return tuner.dispatch_config(
         PAGED_DECODE, key,
         lambda: paged_decode_context(device_chip(q.device.index), B, Hq, Hkv,
-                                     D, max_pages * ps, dt, ps))
+                                     D, max_pages * ps, dt, ps, qt))
 
 
 def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
+                 k_scales=None, v_scales=None,
                  scale: Optional[float] = None,
                  config: Optional[Config] = None,
                  tuner: Optional[Autotuner] = None):
     """Autotuned paged decode. q (B, Hq, D); k/v_pages (Hkv, P, page_size,
-    D); block_tables (B, max_pages); kv_len (B,). The pool pins
-    ``page_size``, so the lookup context carries it and the remaining
-    tunables dispatch to the kernel."""
+    D) in q's dtype, or int8 with ``k_scales``/``v_scales`` (Hkv, P,
+    page_size) f32 (the kv8 policy: an "int8" context, so int8 and float
+    pools tune apart); block_tables (B, max_pages); kv_len (B,). The pool
+    pins ``page_size``, so the lookup context carries it and the
+    remaining tunables dispatch to the kernel."""
     if config is None and q.is_cuda:
         config = paged_decode_config(q, k_pages, block_tables, tuner)
     cfg = {k: v for k, v in (config or {}).items() if k != "page_size"}
     return pd_kernel.paged_decode(q, k_pages, v_pages, block_tables, kv_len,
+                                  k_scales=k_scales, v_scales=v_scales,
                                   scale=scale, **cfg)
 
 
@@ -423,17 +468,17 @@ def _paged_verify_operands(ctx: TuningContext, cfg: Optional[Config] = None,
     cfg = cfg or {}
     ps = int(cfg.get("page_size", ctx.extra.get("page_size", 16)))
     K = int(cfg.get("draft_k", ctx.extra.get("draft_k", 4)))
-    return _pool_operands(ctx, ps, _verify_lens(ctx, K), device, K), {}
+    return _pool_operands(ctx, ps, _verify_lens(ctx, K), device, K)
 
 
 def _paged_verify_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
     """The decode runner's pool with the config's page size, a K-position
     query block and lengths >= K."""
     ps, K = cfg["page_size"], cfg["draft_k"]
-    args = _memo_operands(
+    args, kw = _memo_operands(
         ("paged_verify", ctx.signature(), ps, K),
         lambda: _pool_operands(ctx, ps, _verify_lens(ctx, K), "cuda", K))
-    return KernelRunner(pv_kernel.paged_verify, *args,
+    return KernelRunner(pv_kernel.paged_verify, *args, **kw,
                         block_kv=cfg["block_kv"], pack_gqa=cfg["pack_gqa"],
                         num_warps=cfg["num_warps"])
 
@@ -584,16 +629,6 @@ def _dense_canonical(cfg: Config, ctx: TuningContext) -> Config:
     c["block_kv"] = gqa_kernel.clamp_block_kv(c["block_kv"],
                                               ctx.shape("k")[2])
     return c
-
-
-def _q_dtype(ctx: TuningContext) -> str:
-    """q's dtype. A float context's dtype is q's and the cache's; an int8
-    context's (kv8) is the cache's, and q rides in ``extra["q_dtype"]``:
-    float32 in the reference's bench cases, the model's dtype at
-    serving."""
-    if ctx.dtype != "int8":
-        return ctx.dtype
-    return ctx.extra.get("q_dtype", "float32")
 
 
 def _dense_workload(cfg: Config, ctx: TuningContext,
@@ -891,8 +926,7 @@ def rmsnorm(x, weight, *, eps: float = 1e-6,
 
 # ===========================================================================
 # Registry: the reference's names, scenarios, descriptions and bench cases
-# (the int8 cases of paged_decode and paged_verify join with their int8
-# branches)
+# (the int8 cases of paged_verify join with its int8 branch)
 # ===========================================================================
 
 def _register_builtin_kernels() -> None:
@@ -958,9 +992,15 @@ def _register_builtin_kernels() -> None:
         bench_cases=(
             BenchCase("p1024", {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
                       extra={"fill": 0.5}),
+            BenchCase("p1024_kv8",
+                      {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
+                      dtype="int8", extra={"fill": 0.5}),
             BenchCase("pool32k",
                       {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
                       dtype="bfloat16", extra={"fill": 0.5}, scale="paper"),
+            BenchCase("pool32k_kv8",
+                      {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
+                      dtype="int8", extra={"fill": 0.5}, scale="paper"),
         ),
     ))
     register(KernelSpec(

@@ -1,8 +1,10 @@
 """Paged-KV decode attention: the wrapper around ``csrc/paged_decode.cu``.
 
 The CUDA C++ kernel replaces the TPU kernel ``paged_decode`` of
-``src/repro/kernels/paged_decode.py``; the source's header note says what
-bounds it on Hopper (HBM bytes) and how its design answers that.
+``src/repro/kernels/paged_decode.py``, both its branches: float pools
+(q's dtype) and int8 pools with per-token f32 scale pools (the kv8
+policy); the source's header note says what bounds it on Hopper (HBM
+bytes) and how its design answers that.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``LIB``, ``kernels.build``) and
@@ -35,13 +37,13 @@ from repro_torch.kernels.build import KernelLibrary
 MAX_HEAD_DIM = 256
 MAX_PACKED_GROUP = 8
 MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_launch.argtypes = (
-        [vp] * 6 + [i32] * 7 + [ctypes.c_float] + [i32] * 4 + [vp])
+        [vp] * 8 + [i32] * 7 + [ctypes.c_float] + [i32] * 5 + [vp])
     lib.paged_decode_launch.restype = i32
     lib.paged_decode_smem_bytes.argtypes = [i32] * 6
     lib.paged_decode_smem_bytes.restype = i32
@@ -51,7 +53,9 @@ LIB = KernelLibrary("paged_decode", _declare)
 
 
 def _lanes_per_row(D: int, itemsize: int) -> int:
-    n_vec, tpr = D * itemsize // 16, 1
+    """Lanes that share one staged row: a lane reads 16 bytes of a float
+    pool, 8 bytes (8 values) of an int8 one."""
+    n_vec, tpr = D // (8 if itemsize == 1 else 16 // itemsize), 1
     while tpr < n_vec and tpr < 32:
         tpr *= 2
     return tpr
@@ -61,10 +65,13 @@ def smem_bytes(D: int, itemsize: int, block_kv: int, group: int,
                pack_gqa: bool, num_warps: int) -> int:
     """Dynamic shared memory of one launch — the same formula as
     ``paged_decode_smem_bytes`` in the CUDA source (kept in Python so the
-    config space can check it without the card)."""
+    config space can check it without the card). ``itemsize`` is the
+    pool's: 1 for an int8 pool, whose staged rows carry their two f32
+    scales."""
     g = group if pack_gqa and group > 1 else 1
     n_rg = num_warps * 32 // _lanes_per_row(D, itemsize)
-    return max(4 * block_kv * D * itemsize, n_rg * g * (D + 2) * 4)
+    row = D * itemsize + (4 if itemsize == 1 else 0)
+    return max(4 * block_kv * row, n_rg * g * (D + 2) * 4)
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -78,16 +85,19 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  num_warps: int = 4) -> torch.Tensor:
     """Block-table-indexed decode attention over a shared page pool.
 
-    q (B, Hq, D); k/v_pages (Hkv, P, page_size, D) float32 or bfloat16 (same
-    dtype as q); block_tables (B, max_pages) int; kv_len (B,) int, clamped
-    to the table capacity. Rows with kv_len == 0 return zeros. ``block_kv``
+    q (B, Hq, D) float32 or bfloat16; k/v_pages (Hkv, P, page_size, D) in
+    q's dtype, or int8 with ``k_scales``/``v_scales`` (Hkv, P, page_size)
+    float32 per-token scales (the kv8 policy; scales go with int8 pools
+    only); block_tables (B, max_pages) int; kv_len (B,) int, clamped to
+    the table capacity. Rows with kv_len == 0 return zeros. ``block_kv``
     defaults to one page. Returns (B, Hq, D) in q's dtype."""
-    if k_pages.dtype == torch.int8 or k_scales is not None \
-            or v_scales is not None:
-        raise NotImplementedError(
-            "int8 pools (the kv8 policy) are not ported yet")
+    quant = k_pages.dtype == torch.int8
+    if (k_scales is not None) != quant or (v_scales is not None) != quant:
+        raise ValueError("paged_decode: k_scales and v_scales go with int8 "
+                         f"pools and only with them (pools {k_pages.dtype})")
     if not q.is_cuda:
         return ref.paged_decode(q, k_pages, v_pages, block_tables, kv_len,
+                                k_scales=k_scales, v_scales=v_scales,
                                 scale=scale)
     q = q.contiguous()
     B, Hq, D = q.shape
@@ -95,14 +105,21 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if block_kv is None:
         block_kv = page_size
     group = Hq // Hkv if Hkv else 0
+    pools = (k_pages, v_pages) + ((k_scales, v_scales) if quant else ())
     errors = [
-        (q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)"),
-        (k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
-         "q and the pools must share a dtype"),
+        (q.dtype in (torch.float32, torch.bfloat16),
+         f"q dtype {q.dtype} (float32 or bfloat16)"),
+        (v_pages.dtype == k_pages.dtype
+         and k_pages.dtype in (q.dtype, torch.int8),
+         "the pools' dtype must be q's or int8"),
         (v_pages.shape == k_pages.shape and Dk == D, "pool shapes"),
+        (not quant or all(s.dtype == torch.float32
+                          and s.shape == k_pages.shape[:3]
+                          for s in (k_scales, v_scales)),
+         "k_scales/v_scales must be float32 (Hkv, P, page_size)"),
         (Hkv > 0 and Hq % Hkv == 0, f"Hq {Hq} not a multiple of Hkv {Hkv}"),
         (D <= MAX_HEAD_DIM, f"head_dim {D} > {MAX_HEAD_DIM}"),
-        (D * q.element_size() % 16 == 0,
+        (D * k_pages.element_size() % 16 == 0,
          f"head_dim {D} rows are not 16-byte multiples"),
         (block_kv > 0, f"block_kv {block_kv}"),
         (not (pack_gqa and group > MAX_PACKED_GROUP),
@@ -111,16 +128,17 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         (block_tables.dim() == 2 and block_tables.shape[0] == B
          and kv_len.shape == (B,), "block_tables (B, max_pages), kv_len (B,)"),
         (all(t.is_cuda and t.device == q.device
-             for t in (k_pages, v_pages, block_tables, kv_len)),
+             for t in pools + (block_tables, kv_len)),
          "every operand on q's device"),
         (all(t.is_contiguous() and t.data_ptr() % 16 == 0
-             for t in (q, k_pages, v_pages)),
-         "q and the pools must be contiguous and 16-byte aligned"),
+             for t in (q,) + pools),
+         "q, the pools and the scales must be contiguous and 16-byte "
+         "aligned"),
     ]
     bad = [msg for ok, msg in errors if not ok]
     if bad:
         raise ValueError("paged_decode: " + "; ".join(bad))
-    smem = smem_bytes(D, q.element_size(), block_kv, group, pack_gqa,
+    smem = smem_bytes(D, k_pages.element_size(), block_kv, group, pack_gqa,
                       num_warps)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged_decode: {smem} bytes of shared memory > "
@@ -133,9 +151,12 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     lib = LIB.load()
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None,
+        v_scales.data_ptr() if quant else None,
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, D, n_pages, page_size, tables.shape[1], float(scale),
         block_kv, int(bool(pack_gqa)), num_warps, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {err}")

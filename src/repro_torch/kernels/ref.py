@@ -83,13 +83,22 @@ def gather_pages(pages: torch.Tensor,
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, block_tables: torch.Tensor,
                  kv_len: torch.Tensor, *,
+                 k_scales: Optional[torch.Tensor] = None,
+                 v_scales: Optional[torch.Tensor] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
     """Paged decode: gather each sequence's pages into a dense cache and run
     the dense ragged decode. ``kv_len`` is clamped to the table capacity;
-    rows with kv_len == 0 (inactive batch slots) return zeros."""
-    return gqa_decode(q, gather_pages(k_pages, block_tables),
-                      gather_pages(v_pages, block_tables), kv_len=kv_len,
-                      scale=scale)
+    rows with kv_len == 0 (inactive batch slots) return zeros. Int8 pools
+    (the kv8 policy) come with per-token ``k_scales``/``v_scales``
+    (Hkv, P, page_size) and are dequantized in f32, gathered with their
+    scales through the same tables (the reference dequantizes the pool
+    before the gather: the same values, elementwise)."""
+    k = gather_pages(k_pages, block_tables)
+    v = gather_pages(v_pages, block_tables)
+    if k_scales is not None:
+        k = k.float() * gather_pages(k_scales[..., None], block_tables)
+        v = v.float() * gather_pages(v_scales[..., None], block_tables)
+    return gqa_decode(q, k, v, kv_len=kv_len, scale=scale)
 
 
 def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,

@@ -2,7 +2,8 @@
 batch over dense caches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
-      --requests 8 --prompt-len 512 --gen 32 --max-batch 8 [--speculative [K]]
+      --requests 8 --prompt-len 512 --gen 32 --max-batch 8 \\
+      [--speculative [K] | --quant kv8]
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full \\
       [--quant kv8]
@@ -20,13 +21,18 @@ choices, so one command line runs on both launchers:
   full    — the same static batch through the plain einsum decode.
 
 ``--quant kv8`` (the reference's kv8 policy, ``repro_torch.quant``) makes
-the dense caches int8 with per-token-per-head f32 scales: the prompt is
-attended in full precision and only what persists is quantized, each
-decode step quantizes its new token, then attends through
-``gqa_decode_kv8`` (``pallas``) or the einsum over the cache dequantized
-in f32 (``full``). The weight policies (``w8a8``, ``w8a16``) and kv8 on
-the paged path (int8 page pools) are not ported and raise
-``NotImplementedError``.
+the caches int8 with per-token-per-head f32 scales. On the dense path the
+prompt is attended in full precision and only what persists is
+quantized; each decode step quantizes its new token, then attends
+through ``gqa_decode_kv8`` (``pallas``) or the einsum over the cache
+dequantized in f32 (``full``). On the paged path the page pools are int8
+with f32 scale pools: each prefill chunk and decode token is quantized as
+it is written, the chunked prefill attends the pool dequantized in f32,
+and decode runs the int8 branch of the ``paged_decode`` CUDA kernel; the
+deployment lookup is the canonical scenario at dtype ``int8`` (q in
+bfloat16), a key of its own. The weight policies (``w8a8``, ``w8a16``)
+and kv8 under ``--speculative`` (the int8 branch of ``paged_verify``) are
+not ported and raise ``NotImplementedError``.
 
 The dense path (``serve_dense``) follows the reference's: B uniform prompts
 of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill with
@@ -83,10 +89,16 @@ DEPLOY_TOKENS = 32768
 DEPLOY_DTYPE = "bfloat16"
 
 
-def deployment_context(full_cfg: ModelConfig, chip):
+def deployment_context(full_cfg: ModelConfig, chip,
+                       quant: Optional[str] = None):
+    """The canonical ``paged_decode`` deployment scenario; under kv8 the
+    same shapes at dtype ``int8`` with q in the shipped dtype, so int8
+    pools size by their own winner."""
+    kv8 = lm.ForwardOpts(quant=quant).kv_dtype() == "int8"
     return ops.paged_decode_context(
         chip, DEPLOY_BATCH, full_cfg.n_heads, full_cfg.n_kv_heads,
-        full_cfg.head_dim, DEPLOY_TOKENS, DEPLOY_DTYPE)
+        full_cfg.head_dim, DEPLOY_TOKENS, "int8" if kv8 else DEPLOY_DTYPE,
+        q_dtype=DEPLOY_DTYPE)
 
 
 def verify_deployment_context(full_cfg: ModelConfig, chip):
@@ -117,10 +129,11 @@ def make_requests(cfg: ModelConfig, n: int, min_prompt: int, max_prompt: int,
 
 def engine_contexts(engine: ServingEngine):
     """Every (kernel, context) the engine's steps tune: paged_decode at the
-    pool layout, rms_norm on prefill chunks and on decode rows, and under
-    speculation paged_verify at the pool layout and the engine's depth,
-    with rms_norm on its K rows a slot. A page size or depth outside the
-    spaces dispatches a fixed config and has no context to tune."""
+    pool layout (an int8 context, q in the model's dtype, for kv8 pools),
+    rms_norm on prefill chunks and on decode rows, and under speculation
+    paged_verify at the pool layout and the engine's depth, with rms_norm
+    on its K rows a slot. A page size or depth outside the spaces
+    dispatches a fixed config and has no context to tune."""
     cfg, sched, pool = engine.cfg, engine.scheduler, engine.pool
     chip = ops.device_chip(engine.device.index or 0)
     dt = cfg.dtype
@@ -130,7 +143,8 @@ def engine_contexts(engine: ServingEngine):
     if in_space:
         out.append((ops.PAGED_DECODE, ops.paged_decode_context(
             chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads,
-            cfg.head_dim, cap, dt, pool.page_size)))
+            cfg.head_dim, cap, engine.opts.kv_dtype() or dt, pool.page_size,
+            q_dtype=dt)))
     norm_shapes = [(1, sched.prefill_chunk, cfg.d_model),
                    (sched.max_batch, 1, cfg.d_model)]
     if engine.spec_k > 1:
@@ -157,9 +171,11 @@ def prepare(args, tuner: Autotuner) -> Tuple[ServingEngine, List[Request],
     device = torch.device("cuda")
     max_seq_len = args.prompt_len + args.gen
     chip = ops.device_chip(device.index or 0)
+    quant = None if args.quant == "none" else args.quant
     deploy_cfg = tuner.best_config(ops.PAGED_DECODE,
-                                   deployment_context(full_cfg, chip))
-    info = {"arch": cfg.name, "deployment_config": deploy_cfg}
+                                   deployment_context(full_cfg, chip, quant))
+    info = {"arch": cfg.name, "quant": args.quant,
+            "deployment_config": deploy_cfg}
     spec_k = 0
     if args.speculative is not None:
         verify_cfg = tuner.best_config(
@@ -179,7 +195,8 @@ def prepare(args, tuner: Autotuner) -> Tuple[ServingEngine, List[Request],
         page_size=page_size, max_batch=args.max_batch,
         max_seq_len=max_seq_len + room,
         prefill_chunk=args.prefill_chunk,
-        opts=lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel"),
+        opts=lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel",
+                            quant=quant),
         device=device, speculative=spec_k)
     for kernel, ctx in engine_contexts(engine):
         tuner.best_config(kernel, ctx)
@@ -201,6 +218,7 @@ def serve(engine: ServingEngine, reqs: List[Request]) -> dict:
     assert engine.pool.num_allocated == 0, "page leak after drain"
     lat = res["latency"]
     report = {
+        "quant": engine.opts.quant or "none",
         "requests": res["requests"],
         "generated_tokens": res["generated_tokens"],
         "steps": res["steps"],
@@ -335,9 +353,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "needs the card")
     ap.add_argument("--quant", choices=("none", "w8a8", "w8a16", "kv8"),
                     default="none",
-                    help="kv8 = int8 dense caches with per-token scales "
-                         "(--decode-impl pallas|full); w8a8, w8a16 and kv8 "
-                         "on the paged path are not ported and raise")
+                    help="kv8 = int8 caches with per-token scales (dense "
+                         "caches, or page pools under --decode-impl paged); "
+                         "w8a8, w8a16 and kv8 with --speculative are not "
+                         "ported and raise")
     ap.add_argument("--tp", type=int, default=1,
                     help="not ported: anything but 1 raises")
     return ap
@@ -349,11 +368,10 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"--quant {args.quant}: the weight policies (QTensor, "
             "matmul_w8a8) are not ported yet")
-    if args.quant == "kv8" and args.decode_impl == "paged":
+    if args.quant == "kv8" and args.speculative is not None:
         raise NotImplementedError(
-            "--quant kv8 --decode-impl paged: int8 page pools come with the "
-            "int8 branch of paged_decode, a later slice of the port; kv8 "
-            "serves dense caches (--decode-impl pallas|full)")
+            "--quant kv8 --speculative: draft and verify over int8 pools "
+            "waits for the int8 branch of paged_verify, not ported yet")
     if args.tp != 1:
         raise NotImplementedError(f"--tp {args.tp}: tensor-parallel serving "
                                   "is not ported")

@@ -11,11 +11,13 @@ cache or pool in place (``attn_prefill``, ``attn_decode``,
 ``_scatter_pages``): the cache is the largest buffer in serving, and the
 previous version is dead after every step.
 
-The dense path covers window-free GQA, with float caches or int8 caches
-(the kv8 policy: per-token-per-head int8 entries with f32 scales in
-parallel ``k_scale``/``v_scale`` buffers, the wire format of
-``repro_torch.quant.quantize_kv``). SWA ring caches, MLA, int8 page pools
-and tensor parallelism are not ported and raise ``NotImplementedError``.
+Both paths cover window-free GQA, with float caches or int8 ones (the
+kv8 policy: per-token-per-head int8 entries with f32 scales, the wire
+format of ``repro_torch.quant.quantize_kv``, in parallel
+``k_scale``/``v_scale`` buffers of a dense cache or
+``k_scales``/``v_scales`` pools of a paged one). SWA ring caches, MLA,
+the speculative verify over int8 pools and tensor parallelism are not
+ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -242,29 +244,54 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 # --- paged KV cache ------------------------------------------------------------
 
-def paged_cache_spec(cfg: ModelConfig, num_pages: int, page_size: int):
-    """(shape, dtype) of this layer's two page pools, layout
-    (Hkv, P, page_size, D)."""
+def paged_cache_spec(cfg: ModelConfig, num_pages: int, page_size: int,
+                     kv_dtype: Optional[str] = None):
+    """(shape, dtype) of this layer's page pools, layout
+    (Hkv, P, page_size, D). ``kv_dtype="int8"`` (the kv8 policy) makes the
+    pools int8 and adds per-token f32 scale pools (Hkv, P, page_size)
+    ``k_scales``/``v_scales``, chased through the same block tables."""
     shape = (cfg.n_kv_heads, num_pages, page_size, cfg.head_dim)
-    dt = torch_dtype(cfg.dtype)
-    return {"k_pages": (shape, dt), "v_pages": (shape, dt)}
+    if kv_dtype is None:
+        dt = torch_dtype(cfg.dtype)
+        return {"k_pages": (shape, dt), "v_pages": (shape, dt)}
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype {kv_dtype!r} (None or 'int8')")
+    sshape = shape[:3]
+    return {"k_pages": (shape, torch.int8), "v_pages": (shape, torch.int8),
+            "k_scales": (sshape, torch.float32),
+            "v_scales": (sshape, torch.float32)}
 
 
 def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
                    block_tables: torch.Tensor, start: torch.Tensor) -> None:
     """Write vals (B, S, Hkv, D) at token positions start[b] + s into the
     pool (Hkv, P, page_size, D) through each sequence's block table
-    (B, max_pages), in place. Blocks past the table are clipped to its
-    last entry, as in the reference. Inactive rows must be routed to the
-    scratch page by the caller; only scratch-page or padded positions may
-    then receive two writes, and which one lands is unspecified."""
+    (B, max_pages), in place; per-token scales (B, S, Hkv) go into a scale
+    pool (Hkv, P, page_size) by the same index arithmetic. Blocks past the
+    table are clipped to its last entry, as in the reference. Inactive
+    rows must be routed to the scratch page by the caller; only
+    scratch-page or padded positions may then receive two writes, and
+    which one lands is unspecified."""
     B, S = vals.shape[:2]
     page_size = pages.shape[2]
     pos = start[:, None].long() + torch.arange(S, device=vals.device)[None]
     blocks = torch.clamp(pos // page_size, 0, block_tables.shape[1] - 1)
     page_ids = torch.gather(block_tables.long(), 1, blocks)      # (B, S)
     slots = pos % page_size
-    pages[:, page_ids, slots] = vals.permute(2, 0, 1, 3).to(pages.dtype)
+    pages[:, page_ids, slots] = vals.movedim(2, 0).to(pages.dtype)
+
+
+def _write_pages(cache: Dict[str, torch.Tensor], k, v,
+                 block_tables: torch.Tensor, start: torch.Tensor) -> None:
+    """Scatter k, v (B, S, Hkv, D) into the layer's pools from positions
+    ``start``; int8 pools (they come with ``k_scales``) take them
+    quantized, each token and head with its own absmax scale."""
+    if "k_scales" in cache:
+        k, ks, v, vs = quantize_kv(k, v)
+        _scatter_pages(cache["k_scales"], ks, block_tables, start)
+        _scatter_pages(cache["v_scales"], vs, block_tables, start)
+    _scatter_pages(cache["k_pages"], k, block_tables, start)
+    _scatter_pages(cache["v_pages"], v, block_tables, start)
 
 
 def _gather_pages_bthd(pages: torch.Tensor,
@@ -273,20 +300,35 @@ def _gather_pages_bthd(pages: torch.Tensor,
     return kref.gather_pages(pages, block_tables).transpose(1, 2)
 
 
+def _gather_scales_bth(scales: torch.Tensor,
+                       block_tables: torch.Tensor) -> torch.Tensor:
+    """Densify a per-token scale pool (Hkv, P, page_size) through the
+    block tables: (B, capacity, Hkv)."""
+    return _gather_pages_bthd(scales[..., None], block_tables)[..., 0]
+
+
 def attn_prefill_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                        cache: Dict[str, torch.Tensor],
                        block_tables: torch.Tensor, start: torch.Tensor):
     """One chunked-prefill step: write the chunk's KV into the pool, then
     attend the chunk's queries over each sequence's gathered prefix,
     causally from position ``start[b]``. Plain PyTorch ops, as the
-    reference computes this step in jnp. x (B, S, d); start (B,) int."""
+    reference computes this step in jnp. x (B, S, d); start (B,) int.
+    Int8 pools (kv8) are dequantized in f32 after the gather, so the
+    chunk attends the quantized cache, its own keys included, with f32
+    probabilities, as the reference's paged prefill does (the dense kv8
+    prefill attends in full precision instead)."""
     B, S, _ = x.shape
     positions = start[:, None].long() + torch.arange(S, device=x.device)[None]
     q, k, v = _qkv(p, x, cfg, positions)
-    _scatter_pages(cache["k_pages"], k, block_tables, start)
-    _scatter_pages(cache["v_pages"], v, block_tables, start)
+    _write_pages(cache, k, v, block_tables, start)
     kd = _gather_pages_bthd(cache["k_pages"], block_tables)
     vd = _gather_pages_bthd(cache["v_pages"], block_tables)
+    if "k_scales" in cache:
+        kd = kd.float() * _gather_scales_bth(cache["k_scales"],
+                                             block_tables)[..., None]
+        vd = vd.float() * _gather_scales_bth(cache["v_scales"],
+                                             block_tables)[..., None]
     T = kd.shape[1]
     k_pos = torch.arange(T, device=x.device)[None, None, :]
     valid = k_pos <= positions[:, :, None]                     # (B, S, T)
@@ -307,19 +349,23 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                       impl: str = "kernel"):
     """One-token paged decode. x (B, 1, d); lens (B,) tokens already
     resident (the new token lands at position lens[b]; inactive slots have
-    lens 0 and a scratch-only table). ``impl="kernel"`` dispatches the
-    autotuned ``paged_decode`` kernel, ``"plain"`` its PyTorch version."""
+    lens 0 and a scratch-only table). The new token's K/V are written
+    first (quantized with their scales into int8 pools); then
+    ``impl="kernel"`` dispatches the autotuned ``paged_decode`` kernel
+    (its int8 branch for int8 pools, handed the scale pools),
+    ``"plain"`` its PyTorch version."""
     positions = lens[:, None].long()
     q, k, v = _qkv(p, x, cfg, positions)
-    _scatter_pages(cache["k_pages"], k, block_tables, lens)
-    _scatter_pages(cache["v_pages"], v, block_tables, lens)
+    _write_pages(cache, k, v, block_tables, lens)
     args = (q[:, 0], cache["k_pages"], cache["v_pages"], block_tables,
             lens + 1)
+    scales = ({"k_scales": cache["k_scales"], "v_scales": cache["v_scales"]}
+              if "k_scales" in cache else {})
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
-        o = kops.paged_decode(*args)
+        o = kops.paged_decode(*args, **scales)
     elif impl == "plain":
-        o = kref.paged_decode(*args)
+        o = kref.paged_decode(*args, **scales)
     else:
         raise ValueError(f"decode impl {impl!r}")
     return _proj_out(p, o[:, None], cfg), cache
@@ -340,12 +386,16 @@ def attn_verify_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     K, causal tails in the kernel), so each accepted output is what
     sequential ``attn_decode_paged`` calls would give. ``impl="kernel"``
     dispatches the autotuned ``paged_verify`` kernel, ``"plain"`` its
-    PyTorch version."""
+    PyTorch version. Int8 pools (kv8) raise: they wait for the int8
+    branch of ``paged_verify``."""
+    if "k_scales" in cache:
+        raise NotImplementedError(
+            "speculative verify over int8 pools (kv8) waits for the int8 "
+            "branch of paged_verify, not ported yet")
     K = x.shape[1]
     positions = lens[:, None].long() + torch.arange(K, device=x.device)[None]
     q, k, v = _qkv(p, x, cfg, positions)
-    _scatter_pages(cache["k_pages"], k, block_tables, lens)
-    _scatter_pages(cache["v_pages"], v, block_tables, lens)
+    _write_pages(cache, k, v, block_tables, lens)
     args = (q, cache["k_pages"], cache["v_pages"], block_tables, lens + K)
     if impl == "kernel":
         from repro_torch.kernels import ops as kops

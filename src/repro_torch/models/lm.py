@@ -11,15 +11,17 @@ static batch):
     prefill              — the prompt, returns last-position logits + caches
     decode_step          — one token at position ``pos`` for the batch
 and paged pools (continuous batching):
-    init_paged_cache     — zero-filled page pools, one pair per layer
+    init_paged_cache     — zero-filled page pools per layer (and scale
+                           pools under kv8)
     prefill_paged        — one chunked-prefill step through block tables
     decode_step_paged    — one-token decode across the continuous batch
     verify_step_paged    — K positions per sequence (speculative verify)
 The steps write the caches in place and return them with f32 logits. The
-dense caches are int8 with f32 scales under ``ForwardOpts(quant="kv8")``;
-the paged pools are float only. Both
-paths serve ``attn_mlp`` dense archs with RoPE and no window, MLA, learned
-positions or prefix embeddings (``_check_supported``).
+dense caches and the paged pools are int8 with f32 scales under
+``ForwardOpts(quant="kv8")``, except for the speculative verify, which
+takes float pools only (the int8 branch of ``paged_verify`` is not ported
+yet). Both paths serve ``attn_mlp`` dense archs with RoPE and no window,
+MLA, learned positions or prefix embeddings (``_check_supported``).
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ class ForwardOpts:
     attn_chunk: int = 512            # KV chunk of chunked prefill
     norm_impl: str = "plain"         # plain | kernel (rms_norm)
     # Quantization policy (repro_torch.quant): None | kv8 (w8a8 and w8a16
-    # are later slices). kv8 makes the dense caches int8 with per-token
-    # f32 scales.
+    # are later slices). kv8 makes the dense caches and the page pools
+    # int8 with per-token f32 scales.
     quant: Optional[str] = None
 
     def kv_dtype(self) -> Optional[str]:
@@ -98,10 +100,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
-    if opts.kv_dtype() is not None:
-        raise NotImplementedError(
-            "int8 page pools (kv8 on the paged path) come with the int8 "
-            "branch of paged_decode, a later slice of the port")
+    if ("k_scales" in cache[0]) != (opts.kv_dtype() == "int8"):
+        raise ValueError(f"the page pools do not hold opts.quant="
+                         f"{opts.quant!r}'s kv dtype (init_paged_cache with "
+                         f"kv_dtype=opts.kv_dtype())")
     for block, layer_cache in zip(model.layers, cache):
         hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
         if mode == "prefill":
@@ -179,7 +181,8 @@ def prefill_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Cache, block_tables: torch.Tensor,
                   start: torch.Tensor, opts: ForwardOpts = ForwardOpts()):
     """One chunked-prefill step: tokens (B, S) land at positions
-    start[b]..start[b]+S-1, KV written through the block tables. Returns
+    start[b]..start[b]+S-1, KV written through the block tables into
+    pools of ``opts``' kv dtype (``init_paged_cache``). Returns
     (all-position logits (B, S, vocab) f32, cache) — chunks are padded to
     a fixed width by the scheduler, so the caller picks the logit at its
     last valid position."""
@@ -196,7 +199,8 @@ def decode_step_paged(model: LM, cfg: ModelConfig, token: torch.Tensor,
                       cache: Cache, block_tables: torch.Tensor,
                       lens: torch.Tensor, opts: ForwardOpts = ForwardOpts()):
     """One-token paged decode across the continuous batch. token (B, 1);
-    lens (B,) resident lengths (0 = inactive slot). Returns
+    lens (B,) resident lengths (0 = inactive slot); the pools must be of
+    ``opts``' kv dtype (int8 under kv8). Returns
     (logits (B, vocab) f32, cache)."""
     _check_supported(cfg)
     h = embed_tokens(model.embed, token, cfg)
@@ -226,10 +230,11 @@ def verify_step_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device="cuda") -> Cache:
-    """Zero-filled page pools for every layer."""
+                     device="cuda", kv_dtype: Optional[str] = None) -> Cache:
+    """Zero-filled page pools for every layer; ``kv_dtype="int8"`` (kv8)
+    makes them int8 and adds the (Hkv, P, page_size) f32 scale pools."""
     _check_supported(cfg)
-    specs = ATT.paged_cache_spec(cfg, num_pages, page_size)
+    specs = ATT.paged_cache_spec(cfg, num_pages, page_size, kv_dtype)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in specs.items()}
             for _ in range(cfg.n_layers)]

@@ -4,7 +4,8 @@ named policies and the int8 wire format of the KV cache.
     policy.py    — named dtype policies (w8a8 / w8a16 / kv8)
     calibrate.py — absmax scales, quantize / dequantize, ``quantize_kv``
 
-The kernel that reads the kv8 cache, ``gqa_decode_kv8``, lives with its
+The kernels that read the kv8 cache, ``gqa_decode_kv8`` (dense caches)
+and the int8 branch of ``paged_decode`` (page pools), live with their
 peers in ``repro_torch.kernels``. The weight policies (``QTensor``,
 ``quantize_params``, ``matmul_w8a8``) are a later slice of the port.
 """

@@ -8,10 +8,12 @@ own tuning family: the kernels it runs tune under their own context dtype
     w8a8   — int8 weights and int8 activations for the MLP projections;
     w8a16  — int8 weights dequantized into the activation dtype;
     kv8    — int8 KV cache with per-token-per-head f32 scales, dequantized
-             inside the decode kernel (``gqa_decode_kv8`` on dense caches).
+             inside the decode kernel (``gqa_decode_kv8`` on dense caches,
+             the int8 branch of ``paged_decode`` on page pools).
 
-The port serves ``kv8`` on the dense path; the weight policies and int8
-page pools are later slices of the port (the launcher refuses them).
+The port serves ``kv8`` on the dense and the plain paged path; the weight
+policies and kv8 under speculation are later slices of the port (the
+launcher refuses them).
 """
 
 from __future__ import annotations

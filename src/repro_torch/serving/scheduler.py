@@ -47,6 +47,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.quant import get_policy
 from repro_torch.serving.drafter import NgramDrafter
 from repro_torch.serving.page_pool import SCRATCH_PAGE, PagePool
 
@@ -554,14 +555,21 @@ class ServingEngine:
     nothing and switches the engine to plain decode for the rest of the
     run, so the same positions are scored again by decode.
 
+    ``quant="kv8"`` (or ``opts.quant``) serves int8 page pools with
+    per-token f32 scale pools through the int8 branch of ``paged_decode``;
+    a ``quant`` other than ``opts.quant`` raises ``ValueError``, and kv8
+    under speculation raises ``NotImplementedError`` (the int8 branch of
+    ``paged_verify`` is not ported yet). A preempted request frees its
+    pages and re-prefills, so its re-quantized bytes are the ones it had.
+
     ``record_logits`` keeps, per request, the logits row each generated
     token was taken from (host copies; for parity tests at small sizes).
     """
 
     def __init__(self, cfg, model, *, num_pages: int, page_size: int,
                  max_batch: int, max_seq_len: int, prefill_chunk: int = 8,
-                 opts=None, device=None, speculative: int = 0,
-                 record_logits: bool = False):
+                 opts=None, quant: Optional[str] = None, device=None,
+                 speculative: int = 0, record_logits: bool = False):
         from repro_torch.models import lm
 
         self.cfg = cfg
@@ -575,9 +583,24 @@ class ServingEngine:
             max_pages=self.pool.pages_for(max_seq_len),
             prefill_chunk=prefill_chunk, spec_k=self.spec_k)
         self.max_seq_len = int(max_seq_len)
-        self.opts = opts if opts is not None else lm.ForwardOpts()
+        if opts is None:
+            opts = lm.ForwardOpts(quant=quant)
+        elif quant is not None and opts.quant != quant:
+            raise ValueError(
+                f"quant={quant!r} conflicts with opts.quant={opts.quant!r}")
+        self.opts = opts
+        policy = get_policy(opts.quant)
+        if policy is not None and policy.quantizes_weights:
+            raise NotImplementedError(
+                f"quant={opts.quant!r}: the weight policies are not ported")
+        kv_dtype = opts.kv_dtype()
+        if kv_dtype is not None and self.spec_k > 1:
+            raise NotImplementedError(
+                "speculative decoding over int8 pools (kv8) waits for the "
+                "int8 branch of paged_verify, not ported yet")
         self.cache = lm.init_paged_cache(cfg, num_pages, page_size,
-                                         device=self.device)
+                                         device=self.device,
+                                         kv_dtype=kv_dtype)
         self._lm = lm
         self._dev_tables_key = None
         self._dev_tables = None

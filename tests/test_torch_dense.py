@@ -371,7 +371,8 @@ def test_serve_dense_full_runs_on_the_cpu():
 @pytest.mark.parametrize("argv,exc", [
     (["--decode-impl", "pallas", "--speculative"], SystemExit),
     (["--decode-impl", "full", "--speculative", "3"], SystemExit),
-    (["--decode-impl", "paged", "--quant", "kv8"], NotImplementedError),
+    (["--decode-impl", "paged", "--quant", "kv8", "--speculative"],
+     NotImplementedError),
     (["--decode-impl", "full", "--tp", "2"], NotImplementedError),
     (["--decode-impl", "full", "--quant", "w8a8"], NotImplementedError),
     (["--decode-impl", "pallas", "--quant", "w8a16"], NotImplementedError),

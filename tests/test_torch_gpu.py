@@ -102,6 +102,105 @@ def test_paged_decode_rejects_what_it_does_not_take(cuda):
         pd_kernel.paged_decode(args[0].bfloat16(), *args[1:])
 
 
+def kv8_pools(args, device):
+    """The float pools of ``paged_operands`` (rebuilt in f32) quantized by
+    the kv8 wire format: (k_pages, v_pages, k_scales, v_scales)."""
+    kq, ks, vq, vs = quantize_kv(args[1].float(), args[2].float())
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[3]}-{s[6]}")
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32],
+                         ids=["q-bf16", "q-f32"])
+def test_paged_decode_kv8_every_valid_config_matches_plain(cuda, shape,
+                                                           q_dtype):
+    """The int8 branch: every valid config of the int8 context, ragged
+    lengths with kv_len == 0 and past the capacity, against the plain
+    version (dequantize, gather, decode)."""
+    B, Hq, Hkv, D, ps, max_pages, _ = shape
+    cap = ps * max_pages
+    kv_len = ([0, cap + 1, 1, cap] + [int(x) for x in
+                                      np.linspace(2, cap - 1, B)])[:B]
+    q, kp, vp, tables, lens = paged_operands(D + 1, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len,
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((q, kp, vp), cuda)
+    args = (q.to(q_dtype), kq, vq, tables, lens)
+    scales = {"k_scales": ks, "v_scales": vs}
+    want = ref.paged_decode(*args, **scales).float()
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.paged_decode_context(chip, B, Hq, Hkv, D, cap, "int8", ps,
+                                   ops.dtype_name(q_dtype))
+    configs = ops.PAGED_DECODE.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = pd_kernel.paged_decode.launches
+        out = ops.paged_decode(*args, **scales, config=cfg)
+        torch.cuda.synchronize()
+        assert pd_kernel.paged_decode.launches == before + 1
+        assert out.dtype == q_dtype
+        torch.testing.assert_close(out.float(), want, atol=KV8_TOL[q_dtype],
+                                   rtol=KV8_TOL[q_dtype],
+                                   msg=lambda m: f"{cfg}: {m}")
+        assert not out[0].any(), "kv_len == 0 must give exact zeros"
+
+
+@pytest.mark.parametrize("ps", [4, 256])
+def test_paged_decode_kv8_off_space_pages_dispatch_a_fixed_config(cuda, ps):
+    """An int8 pool with an off-space page size launches the fixed config
+    sized by the pool's own rows (pages of 256 stage whole), with no
+    tuning, and matches the plain version for q in bf16 and f32."""
+    tuner = Autotuner(on_miss="error")
+    B, Hq, Hkv, D = 4, 24, 8, 128
+    max_pages = max(1, 320 // ps)
+    cap = ps * max_pages
+    q, kp, vp, tables, lens = paged_operands(ps, B, Hq, Hkv, D, ps,
+                                             max_pages, [0, cap, 3,
+                                                         cap // 2 + 1],
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((q, kp, vp), cuda)
+    assert ops.paged_decode_config(q.bfloat16(), kq, tables)["block_kv"] \
+        == min(ps, 256)
+    for q_dtype in (torch.bfloat16, torch.float32):
+        args = (q.to(q_dtype), kq, vq, tables, lens)
+        out = ops.paged_decode(*args, k_scales=ks, v_scales=vs, tuner=tuner)
+        torch.testing.assert_close(
+            out.float(), ref.paged_decode(*args, k_scales=ks,
+                                          v_scales=vs).float(),
+            atol=KV8_TOL[q_dtype], rtol=KV8_TOL[q_dtype])
+    assert tuner.stats()["misses"] == 0
+
+
+def test_paged_decode_kv8_rejects_what_it_does_not_take(cuda):
+    q, kp, vp, tables, lens = paged_operands(0, 2, 4, 2, 16, 8, 2, [3, 4],
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((q, kp, vp), cuda)
+    with pytest.raises(ValueError, match="int8 pools"):
+        pd_kernel.paged_decode(q, kq, vq, tables, lens)
+    with pytest.raises(ValueError, match="int8 pools"):
+        pd_kernel.paged_decode(q, kp, vp, tables, lens, k_scales=ks,
+                               v_scales=vs)
+    with pytest.raises(ValueError, match="float32"):
+        pd_kernel.paged_decode(q, kq, vq, tables, lens,
+                               k_scales=ks.bfloat16(), v_scales=vs)
+    with pytest.raises(ValueError, match="float32"):
+        pd_kernel.paged_decode(q, kq, vq, tables, lens,
+                               k_scales=ks[:, :1], v_scales=vs[:, :1])
+    with pytest.raises(ValueError, match="16-byte"):
+        pd_kernel.paged_decode(q[..., :8].contiguous(),
+                               kq[..., :8].contiguous(),
+                               vq[..., :8].contiguous(), tables, lens,
+                               k_scales=ks, v_scales=vs)
+    lib = pd_kernel.LIB.load()
+    for D, item, block_kv, g, pack, warps in (
+            (128, 1, 128, 3, 1, 4), (128, 1, 16, 3, 1, 8),
+            (96, 1, 64, 1, 0, 2), (160, 1, 32, 4, 1, 8),
+            (128, 2, 64, 3, 1, 4), (64, 4, 32, 4, 0, 8)):
+        assert lib.paged_decode_smem_bytes(D, item, block_kv, g, pack,
+                                           warps) == \
+            pd_kernel.smem_bytes(D, item, block_kv, g, bool(pack), warps)
+
+
 @pytest.mark.parametrize("draft_k", [2, 4, 8])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[3]}-{s[6]}")
 def test_paged_verify_every_valid_config_matches_plain(cuda, shape, draft_k):
@@ -466,5 +565,44 @@ def test_engine_on_card_matches_cpu(cuda, speculative):
         for rid, rows in cpu_logits.items():
             for a, b in zip(gpu_logits[rid], rows):
                 np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        set_default_tuner(None)
+
+
+def test_kv8_engine_on_card_matches_cpu(cuda):
+    """Smoke phi4-mini in f32 with int8 page pools (kv8): the engine on the
+    card through the int8 branch of paged_decode (and rms_norm) gives the
+    CPU engine's tokens, and its logits at the int8 tolerance."""
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        cfg = get_config("phi4-mini-3.8b", smoke=True)
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(42)
+        spec = [(rng.integers(1, cfg.vocab_size, int(p)).astype(np.int32),
+                 int(g)) for p, g in zip(rng.integers(2, 10, 5),
+                                         rng.integers(1, 5, 5))]
+
+        def run(m, device, opts):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                    for i, (p, n) in enumerate(spec)]
+            eng = ServingEngine(cfg, m, num_pages=24, page_size=8,
+                                max_batch=3, max_seq_len=24, prefill_chunk=4,
+                                opts=opts, device=device, record_logits=True)
+            assert eng.cache[0]["k_pages"].dtype == torch.int8
+            eng.run(reqs)
+            assert eng.pool.num_allocated == 0
+            return [r.tokens for r in reqs], eng.logits_log
+
+        cpu_toks, cpu_logits = run(model, "cpu", lm.ForwardOpts(quant="kv8"))
+        before = pd_kernel.paged_decode.launches
+        gpu_toks, gpu_logits = run(
+            model.to(cuda), cuda,
+            lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel",
+                           quant="kv8"))
+        assert pd_kernel.paged_decode.launches > before
+        assert gpu_toks == cpu_toks
+        for rid, rows in cpu_logits.items():
+            for a, b in zip(gpu_logits[rid], rows):
+                np.testing.assert_allclose(a, b, atol=2e-3, rtol=2e-3)
     finally:
         set_default_tuner(None)

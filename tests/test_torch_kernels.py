@@ -89,16 +89,6 @@ def test_paged_decode_cpu_runs_plain_version_and_counts_nothing():
     torch.testing.assert_close(out, ref.paged_decode(*args), rtol=0, atol=0)
 
 
-def test_paged_decode_int8_pool_not_ported():
-    q = torch.zeros(1, 2, 16)
-    kp = torch.zeros(1, 3, 8, 16, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pd_kernel.paged_decode(q, kp, kp, torch.zeros(1, 2, dtype=torch.int32),
-                               torch.ones(1, dtype=torch.int32),
-                               k_scales=torch.ones(1, 3, 8),
-                               v_scales=torch.ones(1, 3, 8))
-
-
 # group, draft_k, page_size, pages per block_kv, pack_gqa (a group of one
 # packs to the unpacked kernel, so it runs once)
 VERIFY_CASES = [(g, k, ps, ppb, pack) for g in (1, 2, 4) for k in (2, 4)

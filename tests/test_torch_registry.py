@@ -1,7 +1,7 @@
 """The port's kernel registry held against the reference's: the six ported
 kernels under the same names, scenarios, precision and bench cases (the
-reference's int8 cases of paged_decode and paged_verify join with their
-int8 branches), and the registry's own rules."""
+reference's int8 cases of paged_verify join with its int8 branch), and
+the registry's own rules."""
 
 import pytest
 import torch
@@ -29,8 +29,7 @@ def test_ported_kernels_match_the_reference_registry(name):
     assert ours.precision == theirs.precision
     assert ours.precision == ("int8" if name == "gqa_decode_kv8" else "float")
     assert ours.description == theirs.description
-    assert _cases(ours, False) == _cases(theirs,
-                                         ours.precision == "float")
+    assert _cases(ours, False) == _cases(theirs, name == "paged_verify")
     assert ours.reference is not None and ours.entry_point is not None
     assert ours.operands is not None
 
@@ -96,3 +95,12 @@ def test_operands_feed_entry_point_and_reference(name):
             assert k.transpose(1, 2).is_contiguous()
             assert ks.transpose(1, 2).is_contiguous()
             assert q.dtype == torch.float32
+        elif case.dtype == "int8":
+            # paged_decode's int8 case: int8 pools with (Hkv, P, page_size)
+            # f32 scale pools quantized through the wire format, f32 q
+            q, kp, vp = args[:3]
+            assert kp.dtype == vp.dtype == torch.int8
+            assert q.dtype == torch.float32
+            for key in ("k_scales", "v_scales"):
+                assert kw[key].dtype == torch.float32
+                assert kw[key].shape == kp.shape[:3]

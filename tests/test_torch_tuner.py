@@ -520,3 +520,93 @@ def test_kv8_space_workload_and_operands():
     (qb, *_), _ = ops._kv8_operands(ops.gqa_decode_kv8_context(
         H100_SXM, 2, 4, 2, 16, 40, "bfloat16"), "cpu")
     assert qb.dtype == torch.bfloat16
+
+
+def test_paged_kv8_context_workload_smem_and_operands():
+    """The int8 scenario of paged_decode: a context of its own (dtype
+    int8, q's dtype in extra), a workload of int8 rows plus f32 scales
+    (q and o in q's dtype), the shared-memory formula of the int8 rows
+    with their staged scales (the one ``smem_fits`` filters on), and
+    operands quantized through the wire format."""
+    from repro_torch.quant import quantize_kv
+    B, Hq, Hkv, D, cap = 8, 24, 8, 128, 576
+    bf16 = ops.paged_decode_context(H100_SXM, B, Hq, Hkv, D, cap,
+                                    "bfloat16", 16)
+    kv8 = ops.paged_decode_context(H100_SXM, B, Hq, Hkv, D, cap, "int8", 16,
+                                   "bfloat16")
+    kv8_f32 = ops.paged_decode_context(H100_SXM, B, Hq, Hkv, D, cap, "int8",
+                                       16, "float32")
+    assert kv8.extra == {"page_size": 16, "q_dtype": "bfloat16"}
+    assert kv8_f32.extra == {"page_size": 16}
+    assert len({c.signature() for c in (bf16, kv8, kv8_f32)}) == 3
+    # bytes: 2·Σ min(kv_len, cap)·Hkv·(D + 4) + 2·B·Hq·D·q_item + 4·B·(pages+1)
+    assert ops.paged_decode_bytes(B, Hq, Hkv, D, 3000, 36, 1, q_itemsize=2,
+                                  scale_bytes=4) == \
+        2 * 3000 * Hkv * (D + 4) + 2 * B * Hq * D * 2 + 4 * B * 37
+    cfg = {"page_size": 16, "block_kv": 64, "pack_gqa": True, "num_warps": 4}
+    tokens = float(torch.clamp(ops._ragged_lens(kv8), max=cap).sum())
+    w8, w16 = (ops._paged_workload(cfg, c) for c in (kv8, bf16))
+    assert w8.hbm_bytes == ops.paged_decode_bytes(
+        B, Hq, Hkv, D, tokens, 36, 1, q_itemsize=2, scale_bytes=4)
+    assert w8.dtype == "bfloat16" and w8.flops == w16.flops
+    assert 0.5 < w8.hbm_bytes / w16.hbm_bytes < 0.55
+    assert ops._paged_workload(cfg, kv8_f32).dtype == "float32"
+    # shared memory: int8 rows of D plus two f32 scales, double-buffered
+    for c in ops.PAGED_DECODE.space.valid_configs(kv8):
+        assert ops._paged_smem(c, kv8) == pd_kernel.smem_bytes(
+            D, 1, c["block_kv"], 3, c["pack_gqa"], c["num_warps"])
+        assert ops._paged_smem(c, kv8) <= H100_SXM.smem_per_block
+    assert pd_kernel.smem_bytes(D, 1, 256, 3, True, 4) == 4 * 256 * (D + 4)
+    big = dict(cfg, block_kv=256)
+    assert ops.PAGED_DECODE.space.is_valid(big, kv8)
+    assert ops.PAGED_DECODE.space.why_invalid(big, bf16) == "smem"
+    # operands: the seeded f32 pools quantized by the wire format
+    small = ops.paged_decode_context(H100_SXM, 2, 8, 2, 16, 40, "int8", 8,
+                                     "bfloat16")
+    (q, kq, vq, tbl, lens), kw = ops._pool_operands(
+        small, 8, ops._ragged_lens(small), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(q, ops._randn((2, 8, 16), torch.bfloat16, gen))
+    kp = ops._randn(kq.shape, torch.float32, gen)
+    vp = ops._randn(vq.shape, torch.float32, gen)
+    want = quantize_kv(kp, vp)
+    for got, ref_ in zip((kq, kw["k_scales"], vq, kw["v_scales"]), want):
+        assert torch.equal(got, ref_)
+    assert kq.dtype == torch.int8 and kw["k_scales"].shape == (2, 11, 8)
+
+
+def test_paged_decode_dispatch_key_and_fixed_config_follow_the_pool(
+        monkeypatch):
+    """Under int8 pools the dispatch key holds q's dtype as well as the
+    pool's, so bf16 and f32 queries tune apart; an off-space int8 pool's
+    fixed config is sized by the pool's rows (1 byte and its scales),
+    not by q's, and fits in shared memory."""
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    seen = []
+
+    class Recording(Autotuner):
+        def dispatch_config(self, kernel, key, make_ctx):
+            seen.append((key, make_ctx().signature()))
+            return super().dispatch_config(kernel, key, make_ctx)
+
+    tuner = Recording(backend=_FakeBackend(lambda c: 1.0), on_miss="heuristic")
+    tables = torch.zeros(8, 7, dtype=torch.int32)
+    pool8 = torch.zeros(8, 3, 16, 128, dtype=torch.int8)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(8, 24, 128, dtype=dtype)
+        cfg = ops.paged_decode_config(q, pool8, tables, tuner)
+        assert cfg["page_size"] == 16
+    (kb, sb), (kf, sf) = seen
+    assert kb != kf and sb != sf
+    assert "int8" in kb and "bfloat16" in kb and "float32" in kf
+    assert '"q_dtype": "bfloat16"' in sb and "q_dtype" not in sf
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(8, 24, 128, dtype=dtype)
+        for ps in (4, 256):
+            pool = torch.zeros(8, 3, ps, 128, dtype=torch.int8)
+            cfg = ops.paged_decode_config(q, pool, tables, tuner)
+            # 256 int8 rows with their scales stage in 132 KB: a whole page
+            assert cfg == {"block_kv": ps, "pack_gqa": True, "num_warps": 4}
+            assert pd_kernel.smem_bytes(128, 1, ps, 3, True, 4) <= \
+                pd_kernel.MAX_SMEM_BYTES
+    assert tuner.stats()["misses"] == 2
