@@ -9,26 +9,28 @@ Phases, each failing loudly:
 
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
-     ``paged_decode`` (float and int8 pools), ``paged_verify``,
+     ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
      ``gqa_decode`` (which also serves ``decode_attention``) and
      ``gqa_decode_kv8`` (the same kernel template built for int8 caches)
      and the Triton compile of ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
-     ``gqa_decode_kv8`` and the int8 branch of ``paged_decode`` for q in
-     bf16 and in f32; the fixed configs of off-space layouts (float and
-     int8 pages of 4 and 256, a verify at depth 5); then the registry's
+     ``gqa_decode_kv8`` and the int8 branches of ``paged_decode`` and
+     ``paged_verify`` (depths 2, 4, 8) for q in bf16 and in f32; the fixed
+     configs of off-space layouts (float and int8 pages of 4 and 256, a
+     verify at depth 5 over float and int8 pools); then the registry's
      oracle sweep: every valid config of every registered kernel's host
      bench cases against its reference;
-  4. tuning: the serve entry point's deployment lookups (``paged_decode``,
-     float and, under ``--quant kv8``, int8; ``paged_verify`` with the
-     speculation depth free) and the contexts the plain, the speculative
-     and the kv8 engine will dispatch, tuned on the card; then every valid
-     ``paged_decode`` (float and int8) and ``paged_verify`` config at the
-     pool layouts the tuning chose (the tuned ones among them) against the
-     plain versions, and the tuned ones timed; the kv8 dense serving
-     context tuned and timed;
+  4. tuning: the serve entry point's deployment lookups (``paged_decode``
+     and ``paged_verify`` with the speculation depth free, float and,
+     under ``--quant kv8``, int8) and the contexts the plain, the
+     speculative, the kv8 and the kv8 speculative engine will dispatch,
+     tuned on the card; then every valid ``paged_decode`` (float and int8)
+     and ``paged_verify`` (float and int8) config at the pool layouts the
+     tuning chose (the tuned ones among them) against the plain versions,
+     and the tuned ones timed; the kv8 dense serving context tuned and
+     timed;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -37,7 +39,10 @@ Phases, each failing loudly:
      run; the two runs' tokens must agree; the same requests with
      ``--quant kv8`` (int8 page pools) through the int8 branch of
      ``paged_decode`` and through the plain versions, streams equal 8/8;
-     then the launcher at the smoke
+     then ``--quant kv8 --speculative`` through the int8 branch of
+     ``paged_verify`` (depth from the int8 deployment entry), its streams
+     equal to the kv8 plain run's up to a tie and its numbers beside the
+     bf16 speculative run's; then the launcher at the smoke
      widths with ``--speculative 5`` (off the tuned depths); then the
      static batch over dense caches (``--decode-impl pallas`` through
      ``gqa_decode_ragged``, then ``--decode-impl full``): 8 prompts of 512
@@ -45,7 +50,7 @@ Phases, each failing loudly:
      with ``--quant kv8`` (int8 caches, ``gqa_decode_kv8``), and how many
      of its streams equal the bf16 run's;
   6. one full-width decode step (float pools and int8 pools) and one
-     full-width verify step through the
+     full-width verify step (float pools and int8 pools) through the
      kernels against the same step through the plain versions on the same
      cache, and one full-width dense decode step through ``gqa_decode``
      and one through ``gqa_decode_kv8`` (int8 caches) against the plain
@@ -54,8 +59,8 @@ Phases, each failing loudly:
      then a small f32 model whose drafts are often rejected,
      served speculatively on the CPU (plain versions) and on the card
      (kernels), and by plain decode on the card: the same tokens and
-     counts, at depth 4 on pages of 8 and at depth 5 on pages of 4 (both
-     off the tuned layouts);
+     counts, at depth 4 on pages of 8, at depth 5 on pages of 4 (both
+     off the tuned layouts) and at depth 4 over int8 pools (kv8);
   7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 """
 
@@ -185,13 +190,14 @@ def paged_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, dtype, K=None):
             torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
 
 
-def paged_kv8_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, q_dtype):
+def paged_kv8_case(seed, B, Hq, Hkv, D, ps, max_pages, kv_len, q_dtype,
+                   K=None):
     """``paged_case``'s pool in f32 quantized by the kv8 wire format, q in
-    ``q_dtype``: (args (q, k_pages, v_pages, tables, kv_len), scales
-    {"k_scales", "v_scales"})."""
+    ``q_dtype`` ((B, K, Hq, D) for a verify of depth K): (args (q, k_pages,
+    v_pages, tables, kv_len), scales {"k_scales", "v_scales"})."""
     from repro_torch.quant import quantize_kv
     q, kp, vp, tables, lens = paged_case(seed, B, Hq, Hkv, D, ps, max_pages,
-                                         kv_len, torch.float32)
+                                         kv_len, torch.float32, K)
     kq, ks, vq, vs = quantize_kv(kp, vp)
     return ((q.to(q_dtype), kq, vq, tables, lens),
             {"k_scales": ks, "v_scales": vs})
@@ -212,27 +218,23 @@ def time_paged(chip, args, cfg, ps, max_pages, scales=None) -> dict:
     B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
     cap = ps * max_pages
     kv_tokens = int(torch.clamp(lens, 0, cap).sum())
-    yard = args
-    if scales:
+    rows = dict(q_itemsize=q.element_size(), scale_bytes=4 if scales else 0)
+    if q.dim() == 3:
         flops = ops.paged_decode_flops(Hq, D, kv_tokens)
         nbytes = ops.paged_decode_bytes(B, Hq, kp.shape[0], D, kv_tokens,
-                                        max_pages, 1,
-                                        q_itemsize=q.element_size(),
-                                        scale_bytes=4)
-        yard = (q, *(
-            (pool.float() * sc[..., None]).to(q.dtype)
-            for pool, sc in ((args[1], scales["k_scales"]),
-                             (args[2], scales["v_scales"]))), *args[3:])
-    elif q.dim() == 3:
-        flops = ops.paged_decode_flops(Hq, D, kv_tokens)
-        nbytes = ops.paged_decode_bytes(B, Hq, kp.shape[0], D, kv_tokens,
-                                        max_pages, q.element_size())
+                                        max_pages, kp.element_size(), **rows)
     else:
         K = q.shape[1]
         flops = ops.paged_verify_flops(Hq, D,
                                        ops.verify_attended(lens, K, cap))
         nbytes = ops.paged_verify_bytes(B, K, Hq, kp.shape[0], D, kv_tokens,
-                                        max_pages, q.element_size())
+                                        max_pages, kp.element_size(), **rows)
+    yard = args
+    if scales:
+        yard = (q, *(
+            (pool.float() * sc[..., None]).to(q.dtype)
+            for pool, sc in ((args[1], scales["k_scales"]),
+                             (args[2], scales["v_scales"]))), *args[3:])
     bound_ms, by = bound(KernelWorkload(flops, nbytes,
                                         ops.dtype_name(q.dtype)), chip)
     return {"kernel_ms": timer().time_runner(
@@ -277,23 +279,25 @@ def ragged_lens(cap: int, group: int) -> list:
 
 def paged_kernel(args, ps, max_pages, chip):
     """(kernel name, tunable, entry point, plain version, context) of the
-    paged attention kernel these inputs are for: a 3-d q is a decode (of
-    int8 pools: the int8 context, q's dtype beside it), a 4-d q a verify
-    of depth q.shape[1]."""
+    paged attention kernel these inputs are for: a 3-d q is a decode, a
+    4-d q a verify of depth q.shape[1]; int8 pools give the int8 context,
+    q's dtype beside it."""
     from repro_torch.kernels import ops, ref
     q, kp = args[0], args[1]
     Hkv, cap, dt = kp.shape[0], ps * max_pages, ops.dtype_name(q.dtype)
+    int8 = kp.dtype == torch.int8
+    pool_dt, suffix = ("int8", " int8") if int8 else (dt, "")
     if q.dim() == 3:
         B, Hq, D = q.shape
-        int8 = kp.dtype == torch.int8
-        return ("paged_decode" + (" int8" if int8 else ""), ops.PAGED_DECODE,
+        return ("paged_decode" + suffix, ops.PAGED_DECODE,
                 ops.paged_decode, ref.paged_decode,
-                ops.paged_decode_context(chip, B, Hq, Hkv, D, cap,
-                                         "int8" if int8 else dt, ps, dt))
+                ops.paged_decode_context(chip, B, Hq, Hkv, D, cap, pool_dt,
+                                         ps, dt))
     B, K, Hq, D = q.shape
-    return ("paged_verify", ops.PAGED_VERIFY, ops.paged_verify,
+    return ("paged_verify" + suffix, ops.PAGED_VERIFY, ops.paged_verify,
             ref.paged_verify,
-            ops.paged_verify_context(chip, B, Hq, Hkv, D, cap, dt, ps, K))
+            ops.paged_verify_context(chip, B, Hq, Hkv, D, cap, pool_dt, ps,
+                                     K, dt))
 
 
 def check_paged_layout(chip, name, args, ps, max_pages, scales=None):
@@ -328,6 +332,18 @@ def check_paged_layout(chip, name, args, ps, max_pages, scales=None):
     return ctx, configs, worst
 
 
+def time_heuristic(chip, tunable, ctx, args, ps, max_pages,
+                   scales=None) -> None:
+    """Time the context's heuristic config on these inputs and print it
+    beside the plain version, the yardstick and the bound."""
+    heur = tunable.default_config(ctx)
+    tm = time_paged(chip, args, heur, ps, max_pages, scales)
+    print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} plain_ms "
+          f"{tm['plain_ms']:.4f} library_ms {tm['library_ms']:.4f} "
+          f"bound_ms {tm['bound_ms']:.5f} ({tm['bound_by']}, "
+          f"{tm['kv_tokens']} resident tokens)")
+
+
 def check_paged_decode(chip) -> dict:
     """Every valid config against the plain version at pages of 16, on
     phi4-mini's heads (bf16 and f32 pools) and on phi3-mini's (group 1,
@@ -343,12 +359,7 @@ def check_paged_decode(chip) -> dict:
                           ragged_lens(ps * max_pages, Hq // Hkv), dtype)
         ctx, _, worst = check_paged_layout(chip, name, args, ps, max_pages)
         out["max_abs_err"] = max(out["max_abs_err"], worst)
-        heur = ops.PAGED_DECODE.default_config(ctx)
-        tm = time_paged(chip, args, heur, ps, max_pages)
-        print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} plain_ms "
-              f"{tm['plain_ms']:.4f} library_ms {tm['library_ms']:.4f} "
-              f"bound_ms {tm['bound_ms']:.5f} ({tm['bound_by']}, "
-              f"{tm['kv_tokens']} resident tokens)")
+        time_heuristic(chip, ops.PAGED_DECODE, ctx, args, ps, max_pages)
     return out
 
 
@@ -369,12 +380,8 @@ def check_paged_decode_kv8(chip) -> dict:
                                            scales)
         out["max_abs_err"] = max(out["max_abs_err"], worst)
         if q_dtype == torch.bfloat16:
-            heur = ops.PAGED_DECODE.default_config(ctx)
-            tm = time_paged(chip, args, heur, ps, max_pages, scales)
-            print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} "
-                  f"plain_ms {tm['plain_ms']:.4f} library_ms "
-                  f"{tm['library_ms']:.4f} bound_ms {tm['bound_ms']:.5f} "
-                  f"({tm['bound_by']}, {tm['kv_tokens']} resident tokens)")
+            time_heuristic(chip, ops.PAGED_DECODE, ctx, args, ps, max_pages,
+                           scales)
     return out
 
 
@@ -402,12 +409,33 @@ def check_paged_verify(chip) -> dict:
             ctx, _, worst = check_paged_layout(chip, name, args, ps,
                                                max_pages)
             out["max_abs_err"] = max(out["max_abs_err"], worst)
-            heur = ops.PAGED_VERIFY.default_config(ctx)
-            tm = time_paged(chip, args, heur, ps, max_pages)
-            print(f"  heuristic {heur}: kernel_ms {tm['kernel_ms']:.4f} "
-                  f"plain_ms {tm['plain_ms']:.4f} library_ms "
-                  f"{tm['library_ms']:.4f} bound_ms {tm['bound_ms']:.5f} "
-                  f"({tm['bound_by']}, {tm['kv_tokens']} resident tokens)")
+            time_heuristic(chip, ops.PAGED_VERIFY, ctx, args, ps, max_pages)
+    return out
+
+
+def check_paged_verify_kv8(chip) -> dict:
+    """The int8 branch of the verify: every valid config of the int8
+    context against the plain version (gather, dequantize, verify) at
+    pages of 16 on phi4-mini's heads, depths 2, 4 and 8, q in bf16
+    (BF16_TOL) and in f32 (INT8_TOL), lengths with 0, a tail shorter than
+    K and one past the capacity; the heuristic config timed for the bf16
+    q. The kv8 speculative serving layout is checked in phase 4."""
+    from repro_torch.kernels import ops
+    ps, max_pages = 16, 36
+    out = {"max_abs_err": 0.0}
+    for q_dtype in (torch.bfloat16, torch.float32):
+        name = f"phi4-mini int8 pools, q {ops.dtype_name(q_dtype)}"
+        for K in (2, 4, 8):
+            args, scales = paged_kv8_case(140 + K, 8, 24, 8, 128, ps,
+                                          max_pages,
+                                          verify_lens(ps * max_pages, K),
+                                          q_dtype, K)
+            ctx, _, worst = check_paged_layout(chip, name, args, ps,
+                                               max_pages, scales)
+            out["max_abs_err"] = max(out["max_abs_err"], worst)
+            if q_dtype == torch.bfloat16:
+                time_heuristic(chip, ops.PAGED_VERIFY, ctx, args, ps,
+                               max_pages, scales)
     return out
 
 
@@ -453,9 +481,10 @@ def check_rms_norm(chip) -> dict:
 
 def off_space_layouts(chip) -> dict:
     """Pools with page sizes outside the space (4 and 256; float and int8)
-    and a verify at depth 5 (outside the tuned depths) through ``ops``:
-    the fixed config, no tuning (a tuner that errors on a miss), against
-    the plain versions; returns the worst max abs error by kernel."""
+    and a verify at depth 5 (outside the tuned depths; over float and
+    int8 pools) through ``ops``: the fixed config, no tuning (a tuner that
+    errors on a miss), against the plain versions; returns the worst max
+    abs error by kernel."""
     from repro_torch.core import Autotuner
     from repro_torch.kernels import ops, ref
     tuner = Autotuner(on_miss="error")
@@ -467,8 +496,14 @@ def off_space_layouts(chip) -> dict:
                           torch.bfloat16)
         vargs = paged_case(ps + K, 8, 24, 8, 128, ps, max_pages,
                            verify_lens(cap, K), torch.bfloat16, K)
+        v8, vsc = paged_kv8_case(ps + K + 2, 8, 24, 8, 128, ps, max_pages,
+                                 verify_lens(cap, K), torch.bfloat16, K)
         runs = [("paged_verify", ops.paged_verify, ref.paged_verify, vargs,
-                 ops.paged_verify_config(vargs[0], vargs[1], vargs[3]))]
+                 ops.paged_verify_config(vargs[0], vargs[1], vargs[3])),
+                ("paged_verify int8", functools.partial(
+                    ops.paged_verify, **vsc), functools.partial(
+                    ref.paged_verify, **vsc), v8, ops.paged_verify_config(
+                    v8[0], v8[1], v8[3]))]
         if ps not in ops.PAGE_SIZES:
             runs.append(("paged_decode", ops.paged_decode, ref.paged_decode,
                          args, ops.paged_decode_config(args[0], args[1],
@@ -483,7 +518,7 @@ def off_space_layouts(chip) -> dict:
         for name, entry, plain, a, cfg in runs:
             got = entry(*a, tuner=tuner).float()
             err = float((got - plain(*a).float()).abs().max())
-            depth = f", K {K}" if name == "paged_verify" else ""
+            depth = f", K {K}" if name.startswith("paged_verify") else ""
             print(f"{name} off-space (pages of {ps}{depth}) under the fixed "
                   f"config {cfg}: max_abs_err {err:.3g} (tol {BF16_TOL})")
             if err > BF16_TOL:
@@ -802,6 +837,54 @@ def kv8_paged_serving(engine, reqs, bf16_reqs, counters) -> dict:
     return {"report": kernel, "launches": kl}
 
 
+def kv8_spec_serving(engine, reqs, plain_engine, plain_reqs, bf16_spec,
+                     counters) -> dict:
+    """The launcher's kv8 speculative run at full width (``--quant kv8
+    --speculative``: int8 page pools, every verify pass through the int8
+    branch of paged_verify) on the kv8 plain run's requests: no failed
+    request, paged_verify launched once a layer and verify pass and
+    paged_decode never, the streams equal the kv8 plain run's up to the
+    tie rule (``first_divergences`` over int8 pools); tokens/s, TTFT, ITL
+    and launches printed beside the bf16 speculative run's
+    (``bf16_spec``: its report and launches). Returns the run's report
+    and launch counts."""
+    from repro_torch.launch import serve
+    assert engine.cache[0]["k_pages"].dtype == torch.int8
+    for fn in counters.values():
+        fn.launches = 0
+    report = serve.serve(engine, reqs)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    K, n_layers = engine.spec_k, engine.cfg.n_layers
+    print(f"run report (--quant kv8 --speculative {K}): "
+          + json.dumps(report, sort_keys=True))
+    print(f"launches in the run (--quant kv8 --speculative {K}): "
+          + json.dumps(launches))
+    assert report["quant"] == "kv8"
+    assert report["lifecycle"]["terminal"] == len(reqs) == 8
+    assert report["lifecycle"]["failed"] == 0
+    assert all(len(r.tokens) == 32 for r in reqs)
+    sp = report["speculative"]
+    assert sp["draft_k"] == K and not sp["degraded"], sp
+    assert report["decode_steps"] == 0 == launches["paged_decode"], launches
+    assert launches["paged_verify"] == \
+        report["verify_passes"] * n_layers > 0, launches
+    assert launches["rms_norm"] > 0, launches
+    first_divergences(plain_engine, plain_reqs, reqs, K)
+    bf16, bf16_launches = bf16_spec
+    for label, rep_, la in (("kv8", report, launches),
+                            ("bf16", bf16, bf16_launches)):
+        print(f"  --speculative {rep_['speculative']['draft_k']} {label}: "
+              f"tokens/s {rep_['tokens_per_s']:.1f}, TTFT p50 "
+              f"{rep_['ttft_p50_ms']:.1f} ms p99 {rep_['ttft_p99_ms']:.1f} "
+              f"ms, ITL p50 {rep_['itl_p50_ms']:.2f} ms p99 "
+              f"{rep_['itl_p99_ms']:.2f} ms, accepted_per_step "
+              f"{rep_['speculative']['accepted_per_step']:.4f}, "
+              f"{rep_['verify_passes']} verify passes, launches "
+              f"{json.dumps(la)}, peak memory "
+              f"{rep_['peak_memory_bytes'] / 2**30:.2f} GiB")
+    return {"report": report, "launches": launches}
+
+
 def dense_step_check(model, cfg, steps: int = 8, quant=None) -> None:
     """One full-width dense decode step (8 requests at position 512 after a
     plain prefill of 512 tokens; int8 caches under ``quant="kv8"``)
@@ -973,12 +1056,13 @@ def full_width_check(engine, steps: int = 16) -> None:
 def verify_check(engine) -> None:
     """One verify step (the engine's depth K, random drafts) through the
     kernels against the same verify step through the plain versions on
-    clones of one cache: the same GEMMs of B·K rows on both paths, so only
-    attention and the norms differ. Logits and greedy tokens of all B·K
-    rows held by ``hold_logits``; residual stream compared layer by
-    layer."""
+    clones of one cache (int8 pools under the engine's kv8): the same
+    GEMMs of B·K rows on both paths, so only attention and the norms
+    differ. Logits and greedy tokens of all B·K rows held by
+    ``hold_logits``; residual stream compared layer by layer."""
     from repro_torch.models import lm
     cfg, model, K = engine.cfg, engine.model, engine.spec_k
+    quant = engine.opts.quant
     cache, tables_d, lens_d, tok = decode_state(engine, K)
     B = tok.shape[0]
     rng = np.random.default_rng(6)
@@ -992,14 +1076,16 @@ def verify_check(engine) -> None:
         with residual_streams(model, streams[path]):
             logits[path], _ = lm.verify_step_paged(
                 model, cfg, toks, caches[path], tables_d, lens_d,
-                lm.ForwardOpts(**PATH_OPTS[path]))
+                lm.ForwardOpts(**PATH_OPTS[path], quant=quant))
     assert logits["kernel"].shape == (B, K, cfg.vocab_size)
     lens = lens_d.cpu().numpy()
-    hold_logits(f"verify step (K {K}), kernels vs plain, {B} sequences of "
-                f"{lens.min()}-{lens.max()} tokens, every position",
-                logits["kernel"], logits["plain"])
-    print(f"  residual stream, relative L2 after layer "
-          f"{stream_errors(streams['kernel'], streams['plain'])}")
+    pools = " over int8 pools (kv8)" if quant else ""
+    # the residual streams first: printed whether or not the logits hold
+    print(f"verify step (K {K}){pools}: residual stream, relative L2 after "
+          f"layer {stream_errors(streams['kernel'], streams['plain'])}")
+    hold_logits(f"verify step (K {K}){pools}, kernels vs plain, {B} "
+                f"sequences of {lens.min()}-{lens.max()} tokens, every "
+                f"position", logits["kernel"], logits["plain"])
 
 
 def profile_steps(label: str, step, steps: int = 8) -> None:
@@ -1055,17 +1141,19 @@ def profile_decode(engine, steps: int = 8) -> None:
                                        lens_d + i, opts), steps)
 
 
-def profile_decode_and_verify(engine, spec_engine, steps: int = 8) -> None:
+def profile_verify(spec_engine, steps: int = 8) -> None:
+    """A profiled window of verify steps through the kernels on a cache of
+    the engine's kv dtype."""
     from repro_torch.models import lm
-    cfg = engine.cfg
-    opts = lm.ForwardOpts(**PATH_OPTS["kernel"])
-    profile_decode(engine, steps)
+    cfg, quant = spec_engine.cfg, spec_engine.opts.quant
+    opts = lm.ForwardOpts(**PATH_OPTS["kernel"], quant=quant)
     K = spec_engine.spec_k
     cache, tables_d, lens_d, tok = decode_state(spec_engine,
                                                 (2 * steps + 1) * K)
     toks = tok.repeat(1, K)
+    pools = ", int8 pools" if quant else ""
     profile_steps(
-        f"verify step (K {K}, {tok.shape[0]} rows, full width)",
+        f"verify step (K {K}, {tok.shape[0]} rows, full width{pools})",
         lambda i: lm.verify_step_paged(spec_engine.model, cfg, toks, cache,
                                        tables_d, lens_d + i * K, opts),
         steps)
@@ -1074,11 +1162,12 @@ def profile_decode_and_verify(engine, spec_engine, steps: int = 8) -> None:
 def first_divergences(engine, plain_reqs, spec_reqs, K: int) -> None:
     """The plain and the speculative run's token streams agree, or at the
     first token where one differs the plain path's logits (recomputed by
-    one kernel-path prefill of the context before it) score the two
-    tokens within 2% of the logits' std: a tie, as ``hold_logits``
-    allows."""
+    one kernel-path prefill of the context before it, over pools of the
+    plain engine's kv dtype: int8 under kv8) score the two tokens within
+    2% of the logits' std: a tie, as ``hold_logits`` allows."""
     from repro_torch.models import lm
     cfg, model, ps = engine.cfg, engine.model, engine.pool.page_size
+    quant = engine.opts.quant
     equal, found = 0, []
     for a, b in zip(plain_reqs, spec_reqs):
         i = next((j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
@@ -1089,13 +1178,14 @@ def first_divergences(engine, plain_reqs, spec_reqs, K: int) -> None:
         assert i is not None, (a.tokens, b.tokens)
         ctx = np.concatenate([a.prompt, np.asarray(a.tokens[:i], np.int32)])
         n_pages = -(-len(ctx) // ps)
-        cache = lm.init_paged_cache(cfg, 1 + n_pages, ps, device="cuda")
+        cache = lm.init_paged_cache(cfg, 1 + n_pages, ps, device="cuda",
+                                    kv_dtype=engine.opts.kv_dtype())
         tables = torch.arange(1, 1 + n_pages, dtype=torch.int32,
                               device="cuda")[None]
         logits, _ = lm.prefill_paged(
             model, cfg, torch.from_numpy(ctx[None].astype(np.int64)).cuda(),
             cache, tables, torch.zeros(1, dtype=torch.int32, device="cuda"),
-            lm.ForwardOpts(**PATH_OPTS["kernel"]))
+            lm.ForwardOpts(**PATH_OPTS["kernel"], quant=quant))
         row = logits[0, -1]
         gap = float(row[a.tokens[i]] - row[b.tokens[i]])
         std = float(row.std())
@@ -1106,20 +1196,22 @@ def first_divergences(engine, plain_reqs, spec_reqs, K: int) -> None:
             raise AssertionError(f"request {a.rid} diverges at token {i} "
                                  f"where the plain logits differ by {gap}, "
                                  f"over {BF16_TOL} of their std {std}")
-    print(f"plain vs --speculative (K {K}) at full width: {equal}/"
+    kv8 = " --quant kv8" if quant else ""
+    print(f"plain vs --speculative (K {K}){kv8} at full width: {equal}/"
           f"{len(plain_reqs)} token streams equal; first divergences: "
           f"{json.dumps(found)}")
 
 
-def rejection_run(K: int = 4, page_size: int = 8) -> None:
+def rejection_run(K: int = 4, page_size: int = 8, quant=None) -> None:
     """A small f32 model whose drafts are often rejected: phi4-mini's smoke
     widths with 4 layers, a vocabulary of 64 and untied embeddings (tied
     ones make a random model repeat its input, so drafts always match),
     weights from seed 1. Six requests served speculatively at depth K on
-    pages of ``page_size`` on the CPU (plain versions), then on the card
-    (kernels), then by plain decode on the card: the same tokens, the same
-    verify steps and committed tokens, and an acceptance strictly between
-    1 and K."""
+    pages of ``page_size`` (int8 pools under ``quant="kv8"``, so the
+    rollback leaves int8 entries and scales for the next write) on the
+    CPU (plain versions), then on the card (kernels), then by plain
+    decode on the card: the same tokens, the same verify steps and
+    committed tokens, and an acceptance strictly between 1 and K."""
     from repro_torch.configs import get_config
     from repro_torch.core import default_tuner
     from repro_torch.kernels import paged_decode as pd_kernel
@@ -1141,8 +1233,10 @@ def rejection_run(K: int = 4, page_size: int = 8) -> None:
         eng = ServingEngine(cfg, model, num_pages=1 + 6 * 64 // page_size,
                             page_size=page_size,
                             max_batch=4, max_seq_len=64, prefill_chunk=8,
-                            opts=lm.ForwardOpts(**PATH_OPTS["kernel"]),
+                            opts=lm.ForwardOpts(**PATH_OPTS["kernel"],
+                                                quant=quant),
                             device=device, speculative=speculative)
+        assert (eng.cache[0]["k_pages"].dtype == torch.int8) == bool(quant)
         if device == "cuda":            # tuned before the launches count
             for kernel, ctx in serve.engine_contexts(eng):
                 default_tuner().best_config(kernel, ctx)
@@ -1161,7 +1255,9 @@ def rejection_run(K: int = 4, page_size: int = 8) -> None:
     card_toks, card = run("cuda", K)
     plain_toks, plain = run("cuda", 0)
     sp, csp = card["speculative"], cpu["speculative"]
-    print(f"rejection run (f32, 4 layers, K {K}, pages of {page_size}): "
+    pools = ", int8 pools (kv8)" if quant else ""
+    print(f"rejection run (f32{pools}, 4 layers, K {K}, pages of "
+          f"{page_size}): "
           f"CPU {json.dumps(csp)}; "
           f"card {json.dumps(sp)}, {card['verify_passes']} verify passes, "
           f"launches (paged_decode, paged_verify) {card['launches']}; card "
@@ -1219,9 +1315,10 @@ def main(argv=None) -> int:
     dense_err = check_dense_decode(chip)
     kv8_err = check_kv8_decode(chip)
     pd8 = check_paged_decode_kv8(chip)
+    pv8 = check_paged_verify_kv8(chip)
     off_space_err = off_space_layouts(chip)
     for out, name in ((pdk, "paged_decode"), (pvk, "paged_verify"),
-                      (pd8, "paged_decode int8")):
+                      (pd8, "paged_decode int8"), (pv8, "paged_verify int8")):
         out["max_abs_err"] = max(out["max_abs_err"], off_space_err[name])
     registry_sweep(chip)
 
@@ -1250,6 +1347,16 @@ def main(argv=None) -> int:
         serve.build_parser().parse_args(argv + ["--quant", "kv8"]), tuner)
     print(f"prepare --quant kv8: {time.perf_counter() - t:.1f} s; "
           f"{json.dumps(kv8_info)}")
+    t = time.perf_counter()
+    kv8_spec_engine, kv8_spec_reqs, kv8_spec_info = serve.prepare(
+        serve.build_parser().parse_args(
+            argv + ["--quant", "kv8", "--speculative"]), tuner)
+    K8 = kv8_spec_engine.spec_k
+    print(f"prepare --quant kv8 --speculative: {time.perf_counter() - t:.1f} "
+          f"s; {json.dumps(kv8_spec_info)}")
+    print(f"the int8 paged_verify deployment entry "
+          f"{kv8_spec_info['verify_deployment_config']} recommends draft_k "
+          f"{K8}")
     for k, entry in tuner.cache.items():
         ctx = json.loads(k["ctx"])
         print(f"tuned {k['kernel']} shapes {ctx['shapes']} extra "
@@ -1314,6 +1421,33 @@ def main(argv=None) -> int:
     print(f"paged_decode int8 at the kv8 serving layout (page {ps8}, {mp8} "
           f"pages a table) under {kv8_tuned}: " + json.dumps(
               {k: v for k, v in pd8.items() if k != "max_abs_err"}))
+    # The kv8 speculative engine's layout: the int8 verify context (q bf16)
+    # at its pool and depth
+    ((pv8_tunable, pv8_ctx),) = [(k, c) for k, c in
+                                 serve.engine_contexts(kv8_spec_engine)
+                                 if k.name == "paged_verify"]
+    pv8_tuned = tuner.best_config(pv8_tunable, pv8_ctx)
+    ps8 = kv8_spec_engine.pool.page_size
+    mp8 = kv8_spec_engine.scheduler.max_pages
+    args, scales = paged_kv8_case(
+        10, kv8_spec_engine.scheduler.max_batch, cfg.n_heads, cfg.n_kv_heads,
+        cfg.head_dim, ps8, mp8, verify_lens(ps8 * mp8, K8), torch.bfloat16,
+        K8)
+    ctx, configs, worst = check_paged_layout(
+        chip, "phi4-mini int8 pools, q bfloat16, at the kv8 speculative "
+        "serving layout", args, ps8, mp8, scales)
+    if ctx.signature() != pv8_ctx.signature() or pv8_tuned not in configs:
+        raise AssertionError(f"kv8 speculative serving config {pv8_tuned} "
+                             f"under {pv8_ctx} is not among the configs "
+                             f"checked under {ctx}")
+    pv8["max_abs_err"] = max(pv8["max_abs_err"], worst)
+    pv8.update(time_paged(chip, args, pv8_tuned, ps8, mp8, scales),
+               library="SDPA with a causal-tail mask over the pools "
+                       "pre-gathered and dequantized to bf16 (dequant not "
+                       "timed)")
+    print(f"paged_verify int8 at the kv8 speculative serving layout (page "
+          f"{ps8}, {mp8} pages a table, K {K8}) under {pv8_tuned}: "
+          + json.dumps({k: v for k, v in pv8.items() if k != "max_abs_err"}))
     rms_cfg = tuner.best_config(
         ops.RMS_NORM, ops.rmsnorm_context(chip, (8, 1, 3072), "bfloat16"))
     x, w = rms["args"]
@@ -1371,6 +1505,9 @@ def main(argv=None) -> int:
         spec_report["verify_passes"] * n_layers > 0, spec_launches
     first_divergences(engine, reqs, spec_reqs, K)
     kv8_paged = kv8_paged_serving(kv8_engine, kv8_reqs, reqs, counters)
+    kv8_spec = kv8_spec_serving(kv8_spec_engine, kv8_spec_reqs, kv8_engine,
+                                kv8_reqs, runs[f"--speculative {K}"],
+                                counters)
     for fn in counters.values():
         fn.launches = 0
     off = serve.main(["--requests", "4", "--prompt-len", "48", "--gen",
@@ -1398,12 +1535,16 @@ def main(argv=None) -> int:
     full_width_check(engine)
     full_width_check(kv8_engine)
     verify_check(spec_engine)
+    verify_check(kv8_spec_engine)
     dense_step_check(engine.model, engine.cfg)
     dense_step_check(engine.model, engine.cfg, quant="kv8")
-    profile_decode_and_verify(engine, spec_engine)
+    profile_decode(engine)
+    profile_verify(spec_engine)
     profile_decode(kv8_engine)
+    profile_verify(kv8_spec_engine)
     rejection_run()
     rejection_run(K=5, page_size=4)
+    rejection_run(quant="kv8")
 
     phase(f"7. summary {elapsed()}")
 
@@ -1426,6 +1567,10 @@ def main(argv=None) -> int:
         entry("paged_verify", "cuda", "src/repro_torch/csrc/paged_verify.cu",
               "src/repro/kernels/paged_verify.py:52",
               spec_launches["paged_verify"], pvk),
+        entry("paged_verify_int8", "cuda",
+              "src/repro_torch/csrc/paged_verify.cu",
+              "src/repro/kernels/paged_verify.py:52",
+              kv8_spec["launches"]["paged_verify"], pv8),
         entry("rms_norm", "triton", "src/repro_torch/kernels/rms_norm.py",
               "src/repro/kernels/rms_norm.py:24", launches["rms_norm"], rms),
         entry("gqa_decode_ragged", "cuda", "src/repro_torch/csrc/gqa_decode.cu",

@@ -359,8 +359,11 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
 # ===========================================================================
 
 def _verify_smem(cfg: Config, ctx: TuningContext) -> int:
+    """The kernel's shared memory: query rows in q's dtype, staging in the
+    pool's (an int8 context's rows with their scales)."""
     D = ctx.shape("q")[2]
-    return pv_kernel.smem_bytes(D, dtype_bytes(ctx.dtype), cfg["block_kv"],
+    return pv_kernel.smem_bytes(D, dtype_bytes(_q_dtype(ctx)),
+                                dtype_bytes(ctx.dtype), cfg["block_kv"],
                                 cfg["draft_k"], _group(ctx), cfg["pack_gqa"],
                                 cfg["num_warps"])
 
@@ -410,15 +413,18 @@ def verify_attended(kv_len: torch.Tensor, K: int, capacity: int) -> float:
 
 
 def paged_verify_bytes(B: int, K: int, Hq: int, Hkv: int, D: int,
-                       kv_tokens: float, max_pages: int,
-                       itemsize: int) -> float:
-    """HBM bytes of one call reading each K/V row once: the K and V rows
-    of ``kv_tokens`` resident tokens (drafts included) over Hkv heads, the
-    K query rows in, the K output rows out, the block tables and
-    lengths — paged_decode's bytes with K query positions."""
-    return (2.0 * kv_tokens * Hkv * D * itemsize
-            + 2.0 * B * K * Hq * D * itemsize + 4.0 * B * max_pages
-            + 4.0 * B)
+                       kv_tokens: float, max_pages: int, itemsize: int, *,
+                       q_itemsize: Optional[int] = None,
+                       scale_bytes: int = 0) -> float:
+    """HBM bytes of one call reading each K/V row once: paged_decode's
+    bytes with K query positions — the K and V rows of ``kv_tokens``
+    resident tokens (drafts included) over Hkv heads (int8 ones with their
+    f32 scales), the K query rows in and the K output rows out (in
+    ``q_itemsize``, by default the pool's), the block tables and
+    lengths."""
+    return paged_decode_bytes(B, K * Hq, Hkv, D, kv_tokens, max_pages,
+                              itemsize, q_itemsize=q_itemsize,
+                              scale_bytes=scale_bytes)
 
 
 def paged_verify_flops(Hq: int, D: int, attended: float) -> float:
@@ -439,7 +445,9 @@ def _verify_lens(ctx: TuningContext, K: int) -> torch.Tensor:
 
 def _paged_verify_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
     """What the timed call moves under ``cfg``: unpacked heads each read
-    their KV head's rows, so the group re-reads them."""
+    their KV head's rows, so the group re-reads them. An int8 context
+    (kv8) reads int8 rows with their f32 scales, q and o in q's dtype,
+    and counts operations at q's dtype's peak, as ``_paged_workload``."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     ps, K = cfg["page_size"], cfg["draft_k"]
@@ -447,11 +455,14 @@ def _paged_verify_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
     lens = _verify_lens(ctx, K)
     kv_tokens = float(torch.clamp(lens, max=cap).sum())
     reads = 1 if cfg["pack_gqa"] else _group(ctx)
+    q_dtype = _q_dtype(ctx)
     return KernelWorkload(
         flops=paged_verify_flops(Hq, D, verify_attended(lens, K, cap)),
-        hbm_bytes=paged_verify_bytes(B, K, Hq, Hkv, D, kv_tokens * reads,
-                                     _cdiv(T, ps), dtype_bytes(ctx.dtype)),
-        dtype=ctx.dtype)
+        hbm_bytes=paged_verify_bytes(
+            B, K, Hq, Hkv, D, kv_tokens * reads, _cdiv(T, ps),
+            dtype_bytes(ctx.dtype), q_itemsize=dtype_bytes(q_dtype),
+            scale_bytes=4 if ctx.dtype == "int8" else 0),
+        dtype=q_dtype)
 
 
 def _paged_verify_heuristic(ctx: TuningContext) -> Config:
@@ -496,32 +507,39 @@ PAGED_VERIFY = TunableKernel(
 def paged_verify_context(chip, B: int, Hq: int, Hkv: int, D: int,
                          capacity: int, dtype: str,
                          page_size: Optional[int] = None,
-                         draft_k: Optional[int] = None) -> TuningContext:
+                         draft_k: Optional[int] = None,
+                         q_dtype: Optional[str] = None) -> TuningContext:
     """Tuning scenario of a verify over B sequences of ``capacity`` token
     slots. ``page_size`` pins the pool's layout and ``draft_k`` the
     engine's speculation depth, so each depth is its own scenario; omit
     both for deployment tuning, whose winner sizes the pool and
-    recommends the depth."""
+    recommends the depth. ``dtype`` is the pool's: an int8 pool (kv8)
+    keys apart from the float pools, with q's dtype in ``extra`` unless it
+    is the reference's float32 (as ``paged_decode_context``)."""
     extra = {}
     if page_size is not None:
         extra["page_size"] = int(page_size)
     if draft_k is not None:
         extra["draft_k"] = int(draft_k)
+    if dtype == "int8" and q_dtype not in (None, "float32"):
+        extra["q_dtype"] = q_dtype
     return TuningContext(chip=chip, shapes={"q": (B, Hq, D),
                                             "k": (B, Hkv, capacity, D)},
                          dtype=dtype, extra=extra)
 
 
 def paged_verify_fixed_config(K: int, group: int, D: int, page_size: int,
-                              itemsize: int) -> Config:
+                              itemsize: int, q_itemsize: int) -> Config:
     """What a verify at an off-space depth or page size dispatches,
     untuned: the reference's one page per step with packed heads
     (``src/repro/kernels/ops.py:1056-1060``), the block halved until it
-    fits in shared memory."""
+    fits in shared memory. ``itemsize`` is the pool's (1 for int8, whose
+    rows stage their scales too), ``q_itemsize`` q's (its rows stage
+    beside them)."""
     pack = group > 1
     block_kv = _fixed_block_kv(
-        page_size, lambda bkv: pv_kernel.smem_bytes(D, itemsize, bkv, K,
-                                                    group, pack, 4),
+        page_size, lambda bkv: pv_kernel.smem_bytes(D, q_itemsize, itemsize,
+                                                    bkv, K, group, pack, 4),
         pv_kernel.MAX_SMEM_BYTES)
     return {"block_kv": block_kv, "pack_gqa": pack, "num_warps": 4}
 
@@ -535,32 +553,39 @@ def paged_verify_config(q, k_pages, block_tables,
     Hkv, _, ps, _ = k_pages.shape
     if ps not in PAGE_SIZES or K not in pv_kernel.DRAFT_KS:
         return paged_verify_fixed_config(K, Hq // Hkv, D, ps,
+                                         k_pages.element_size(),
                                          q.element_size())
     tuner = tuner or default_tuner()
     max_pages = block_tables.shape[1]
-    dt = dtype_name(k_pages.dtype)
-    key = (B, K, Hq, Hkv, D, ps, max_pages, dt, q.device.index)
+    dt, qt = dtype_name(k_pages.dtype), dtype_name(q.dtype)
+    # an int8 pool's scenario also depends on q's dtype (its bytes, its
+    # shared memory and its peak); a float pool's dtype is q's
+    key = (B, K, Hq, Hkv, D, ps, max_pages, dt, qt, q.device.index)
     return tuner.dispatch_config(
         PAGED_VERIFY, key,
         lambda: paged_verify_context(device_chip(q.device.index), B, Hq, Hkv,
-                                     D, max_pages * ps, dt, ps, K))
+                                     D, max_pages * ps, dt, ps, K, qt))
 
 
 def paged_verify(q, k_pages, v_pages, block_tables, kv_len, *,
+                 k_scales=None, v_scales=None,
                  scale: Optional[float] = None,
                  config: Optional[Config] = None,
                  tuner: Optional[Autotuner] = None):
     """Autotuned speculative verify. q (B, K, Hq, D), K consecutive query
-    positions per sequence; k/v_pages (Hkv, P, page_size, D);
-    block_tables (B, max_pages); kv_len (B,) valid tokens *including*
-    the K scattered draft positions. The pool pins ``page_size`` and q
-    pins ``draft_k``, so the lookup context carries both and the
-    remaining tunables dispatch to the kernel."""
+    positions per sequence; k/v_pages (Hkv, P, page_size, D) in q's
+    dtype, or int8 with ``k_scales``/``v_scales`` (Hkv, P, page_size) f32
+    (the kv8 policy: an "int8" context, so int8 and float pools tune
+    apart); block_tables (B, max_pages); kv_len (B,) valid tokens
+    *including* the K scattered draft positions. The pool pins
+    ``page_size`` and q pins ``draft_k``, so the lookup context carries
+    both and the remaining tunables dispatch to the kernel."""
     if config is None and q.is_cuda:
         config = paged_verify_config(q, k_pages, block_tables, tuner)
     cfg = {k: v for k, v in (config or {}).items()
            if k not in ("page_size", "draft_k")}
     return pv_kernel.paged_verify(q, k_pages, v_pages, block_tables, kv_len,
+                                  k_scales=k_scales, v_scales=v_scales,
                                   scale=scale, **cfg)
 
 
@@ -926,7 +951,6 @@ def rmsnorm(x, weight, *, eps: float = 1e-6,
 
 # ===========================================================================
 # Registry: the reference's names, scenarios, descriptions and bench cases
-# (the int8 cases of paged_verify join with its int8 branch)
 # ===========================================================================
 
 def _register_builtin_kernels() -> None:
@@ -1016,6 +1040,9 @@ def _register_builtin_kernels() -> None:
         bench_cases=(
             BenchCase("v1024", {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
                       extra={"fill": 0.5, "draft_k": 4}),
+            BenchCase("v1024_kv8",
+                      {"q": (2, 8, 128), "k": (2, 2, 1024, 128)},
+                      dtype="int8", extra={"fill": 0.5, "draft_k": 4}),
             BenchCase("vpool32k",
                       {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
                       dtype="bfloat16", extra={"fill": 0.5, "draft_k": 4},

@@ -104,6 +104,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, block_tables: torch.Tensor,
                  kv_len: torch.Tensor, *,
+                 k_scales: Optional[torch.Tensor] = None,
+                 v_scales: Optional[torch.Tensor] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
     """Speculative verify: gather each sequence's pages dense, then score
     K consecutive query positions with a per-sequence causal tail.
@@ -113,11 +115,16 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     query t (absolute position ``kv_len - K + t``) attends
     ``k_pos <= kv_len - K + t``. Probabilities outside that window are
     zeroed, so query rows with an empty window (inactive slots,
-    ``kv_len < K`` tails) return exact zeros. Returns (B, K, Hq, D) in q's
-    dtype."""
+    ``kv_len < K`` tails) return exact zeros. Int8 pools (the kv8 policy)
+    come with per-token ``k_scales``/``v_scales`` (Hkv, P, page_size) and
+    are dequantized in f32 after the gather, as ``paged_decode``'s. Returns
+    (B, K, Hq, D) in q's dtype."""
     B, K, Hq, D = q.shape
     k = gather_pages(k_pages, block_tables)     # (B, Hkv, T, D)
     v = gather_pages(v_pages, block_tables)
+    if k_scales is not None:
+        k = k.float() * gather_pages(k_scales[..., None], block_tables)
+        v = v.float() * gather_pages(v_scales[..., None], block_tables)
     Hkv, T = k.shape[1], k.shape[2]
     group = Hq // Hkv
     if scale is None:

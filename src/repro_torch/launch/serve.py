@@ -3,7 +3,7 @@ batch over dense caches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --max-batch 8 \\
-      [--speculative [K] | --quant kv8]
+      [--speculative [K]] [--quant kv8]
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full \\
       [--quant kv8]
@@ -28,11 +28,11 @@ through ``gqa_decode_kv8`` (``pallas``) or the einsum over the cache
 dequantized in f32 (``full``). On the paged path the page pools are int8
 with f32 scale pools: each prefill chunk and decode token is quantized as
 it is written, the chunked prefill attends the pool dequantized in f32,
-and decode runs the int8 branch of the ``paged_decode`` CUDA kernel; the
-deployment lookup is the canonical scenario at dtype ``int8`` (q in
-bfloat16), a key of its own. The weight policies (``w8a8``, ``w8a16``)
-and kv8 under ``--speculative`` (the int8 branch of ``paged_verify``) are
-not ported and raise ``NotImplementedError``.
+and decode runs the int8 branch of the ``paged_decode`` CUDA kernel (under
+``--speculative``, verify the int8 branch of ``paged_verify``); the
+deployment lookups are the canonical scenarios at dtype ``int8`` (q in
+bfloat16), keys of their own. The weight policies (``w8a8``, ``w8a16``)
+are not ported and raise ``NotImplementedError``.
 
 The dense path (``serve_dense``) follows the reference's: B uniform prompts
 of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill with
@@ -89,22 +89,32 @@ DEPLOY_TOKENS = 32768
 DEPLOY_DTYPE = "bfloat16"
 
 
+def _deploy_dtype(quant: Optional[str]) -> str:
+    """The pools' dtype of a deployment lookup: ``int8`` under kv8 (q stays
+    in the shipped dtype), else the shipped dtype."""
+    return lm.ForwardOpts(quant=quant).kv_dtype() or DEPLOY_DTYPE
+
+
 def deployment_context(full_cfg: ModelConfig, chip,
                        quant: Optional[str] = None):
     """The canonical ``paged_decode`` deployment scenario; under kv8 the
     same shapes at dtype ``int8`` with q in the shipped dtype, so int8
     pools size by their own winner."""
-    kv8 = lm.ForwardOpts(quant=quant).kv_dtype() == "int8"
     return ops.paged_decode_context(
         chip, DEPLOY_BATCH, full_cfg.n_heads, full_cfg.n_kv_heads,
-        full_cfg.head_dim, DEPLOY_TOKENS, "int8" if kv8 else DEPLOY_DTYPE,
+        full_cfg.head_dim, DEPLOY_TOKENS, _deploy_dtype(quant),
         q_dtype=DEPLOY_DTYPE)
 
 
-def verify_deployment_context(full_cfg: ModelConfig, chip):
+def verify_deployment_context(full_cfg: ModelConfig, chip,
+                              quant: Optional[str] = None):
+    """The canonical ``paged_verify`` deployment scenario (depth and page
+    size free); under kv8 at dtype ``int8`` with q in the shipped dtype,
+    as the reference looks both kernels up in one int8 context."""
     return ops.paged_verify_context(
         chip, DEPLOY_BATCH, full_cfg.n_heads, full_cfg.n_kv_heads,
-        full_cfg.head_dim, DEPLOY_TOKENS, DEPLOY_DTYPE)
+        full_cfg.head_dim, DEPLOY_TOKENS, _deploy_dtype(quant),
+        q_dtype=DEPLOY_DTYPE)
 
 
 def pool_page_size(deploy_page_size: int, max_seq_len: int) -> int:
@@ -132,8 +142,9 @@ def engine_contexts(engine: ServingEngine):
     pool layout (an int8 context, q in the model's dtype, for kv8 pools),
     rms_norm on prefill chunks and on decode rows, and under speculation
     paged_verify at the pool layout and the engine's depth, with rms_norm
-    on its K rows a slot. A page size or depth outside the spaces
-    dispatches a fixed config and has no context to tune."""
+    on its K rows a slot (an int8 context too, for kv8 pools). A page
+    size or depth outside the spaces dispatches a fixed config and has no
+    context to tune."""
     cfg, sched, pool = engine.cfg, engine.scheduler, engine.pool
     chip = ops.device_chip(engine.device.index or 0)
     dt = cfg.dtype
@@ -151,7 +162,8 @@ def engine_contexts(engine: ServingEngine):
         if in_space and engine.spec_k in pv_kernel.DRAFT_KS:
             out.append((ops.PAGED_VERIFY, ops.paged_verify_context(
                 chip, sched.max_batch, cfg.n_heads, cfg.n_kv_heads,
-                cfg.head_dim, cap, dt, pool.page_size, engine.spec_k)))
+                cfg.head_dim, cap, engine.opts.kv_dtype() or dt,
+                pool.page_size, engine.spec_k, q_dtype=dt)))
         norm_shapes.append((sched.max_batch, engine.spec_k, cfg.d_model))
     if engine.opts.norm_impl == "kernel":
         out += [(ops.RMS_NORM, ops.rmsnorm_context(chip, shape, dt))
@@ -179,7 +191,8 @@ def prepare(args, tuner: Autotuner) -> Tuple[ServingEngine, List[Request],
     spec_k = 0
     if args.speculative is not None:
         verify_cfg = tuner.best_config(
-            ops.PAGED_VERIFY, verify_deployment_context(full_cfg, chip))
+            ops.PAGED_VERIFY, verify_deployment_context(full_cfg, chip,
+                                                        quant))
         spec_k = (args.speculative if args.speculative >= 2
                   else int(verify_cfg["draft_k"]))
         info.update(verify_deployment_config=verify_cfg, draft_k=spec_k)
@@ -354,9 +367,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quant", choices=("none", "w8a8", "w8a16", "kv8"),
                     default="none",
                     help="kv8 = int8 caches with per-token scales (dense "
-                         "caches, or page pools under --decode-impl paged); "
-                         "w8a8, w8a16 and kv8 with --speculative are not "
-                         "ported and raise")
+                         "caches, or page pools under --decode-impl paged, "
+                         "with or without --speculative); w8a8 and w8a16 "
+                         "are not ported and raise")
     ap.add_argument("--tp", type=int, default=1,
                     help="not ported: anything but 1 raises")
     return ap
@@ -368,10 +381,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"--quant {args.quant}: the weight policies (QTensor, "
             "matmul_w8a8) are not ported yet")
-    if args.quant == "kv8" and args.speculative is not None:
-        raise NotImplementedError(
-            "--quant kv8 --speculative: draft and verify over int8 pools "
-            "waits for the int8 branch of paged_verify, not ported yet")
     if args.tp != 1:
         raise NotImplementedError(f"--tp {args.tp}: tensor-parallel serving "
                                   "is not ported")

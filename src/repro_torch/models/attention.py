@@ -15,9 +15,8 @@ Both paths cover window-free GQA, with float caches or int8 ones (the
 kv8 policy: per-token-per-head int8 entries with f32 scales, the wire
 format of ``repro_torch.quant.quantize_kv``, in parallel
 ``k_scale``/``v_scale`` buffers of a dense cache or
-``k_scales``/``v_scales`` pools of a paged one). SWA ring caches, MLA,
-the speculative verify over int8 pools and tensor parallelism are not
-ported and raise ``NotImplementedError``.
+``k_scales``/``v_scales`` pools of a paged one). SWA ring caches, MLA
+and tensor parallelism are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -294,6 +293,14 @@ def _write_pages(cache: Dict[str, torch.Tensor], k, v,
     _scatter_pages(cache["v_pages"], v, block_tables, start)
 
 
+def _scale_pools(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The scale pools an int8 layer cache hands the paged kernels
+    (``k_scales``/``v_scales``); none for float pools."""
+    if "k_scales" not in cache:
+        return {}
+    return {"k_scales": cache["k_scales"], "v_scales": cache["v_scales"]}
+
+
 def _gather_pages_bthd(pages: torch.Tensor,
                        block_tables: torch.Tensor) -> torch.Tensor:
     """Densify the pool for the prefill path: (B, capacity, Hkv, D)."""
@@ -359,8 +366,7 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     _write_pages(cache, k, v, block_tables, lens)
     args = (q[:, 0], cache["k_pages"], cache["v_pages"], block_tables,
             lens + 1)
-    scales = ({"k_scales": cache["k_scales"], "v_scales": cache["v_scales"]}
-              if "k_scales" in cache else {})
+    scales = _scale_pools(cache)
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
         o = kops.paged_decode(*args, **scales)
@@ -385,23 +391,22 @@ def attn_verify_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     Query t attends the resident prefix plus drafts 0..t (kv_len = lens +
     K, causal tails in the kernel), so each accepted output is what
     sequential ``attn_decode_paged`` calls would give. ``impl="kernel"``
-    dispatches the autotuned ``paged_verify`` kernel, ``"plain"`` its
-    PyTorch version. Int8 pools (kv8) raise: they wait for the int8
-    branch of ``paged_verify``."""
-    if "k_scales" in cache:
-        raise NotImplementedError(
-            "speculative verify over int8 pools (kv8) waits for the int8 "
-            "branch of paged_verify, not ported yet")
+    dispatches the autotuned ``paged_verify`` kernel (its int8 branch for
+    int8 pools, handed the scale pools), ``"plain"`` its PyTorch version.
+    Under kv8 the K positions are quantized as they are written, with
+    their scales; rejected drafts leave int8 entries and scales past the
+    accepted prefix, which the next write overwrites."""
     K = x.shape[1]
     positions = lens[:, None].long() + torch.arange(K, device=x.device)[None]
     q, k, v = _qkv(p, x, cfg, positions)
     _write_pages(cache, k, v, block_tables, lens)
     args = (q, cache["k_pages"], cache["v_pages"], block_tables, lens + K)
+    scales = _scale_pools(cache)
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
-        o = kops.paged_verify(*args)
+        o = kops.paged_verify(*args, **scales)
     elif impl == "plain":
-        o = kref.paged_verify(*args)
+        o = kref.paged_verify(*args, **scales)
     else:
         raise ValueError(f"verify impl {impl!r}")
     return _proj_out(p, o, cfg), cache

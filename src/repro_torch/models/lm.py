@@ -17,11 +17,10 @@ and paged pools (continuous batching):
     decode_step_paged    — one-token decode across the continuous batch
     verify_step_paged    — K positions per sequence (speculative verify)
 The steps write the caches in place and return them with f32 logits. The
-dense caches and the paged pools are int8 with f32 scales under
-``ForwardOpts(quant="kv8")``, except for the speculative verify, which
-takes float pools only (the int8 branch of ``paged_verify`` is not ported
-yet). Both paths serve ``attn_mlp`` dense archs with RoPE and no window,
-MLA, learned positions or prefix embeddings (``_check_supported``).
+dense caches and the paged pools (the speculative verify's too) are int8
+with f32 scales under ``ForwardOpts(quant="kv8")``. Both paths serve
+``attn_mlp`` dense archs with RoPE and no window, MLA, learned positions
+or prefix embeddings (``_check_supported``).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ named policies and the int8 wire format of the KV cache.
     calibrate.py — absmax scales, quantize / dequantize, ``quantize_kv``
 
 The kernels that read the kv8 cache, ``gqa_decode_kv8`` (dense caches)
-and the int8 branch of ``paged_decode`` (page pools), live with their
-peers in ``repro_torch.kernels``. The weight policies (``QTensor``,
+and the int8 branches of ``paged_decode`` and ``paged_verify`` (page
+pools), live with their peers in ``repro_torch.kernels``. The weight policies (``QTensor``,
 ``quantize_params``, ``matmul_w8a8``) are a later slice of the port.
 """
 

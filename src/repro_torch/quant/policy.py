@@ -9,10 +9,11 @@ own tuning family: the kernels it runs tune under their own context dtype
     w8a16  — int8 weights dequantized into the activation dtype;
     kv8    — int8 KV cache with per-token-per-head f32 scales, dequantized
              inside the decode kernel (``gqa_decode_kv8`` on dense caches,
-             the int8 branch of ``paged_decode`` on page pools).
+             the int8 branches of ``paged_decode`` and ``paged_verify``
+             on page pools).
 
-The port serves ``kv8`` on the dense and the plain paged path; the weight
-policies and kv8 under speculation are later slices of the port (the
+The port serves ``kv8`` on the dense and the paged path, plain or
+speculative; the weight policies are a later slice of the port (the
 launcher refuses them).
 """
 

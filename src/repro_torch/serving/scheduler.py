@@ -556,11 +556,13 @@ class ServingEngine:
     run, so the same positions are scored again by decode.
 
     ``quant="kv8"`` (or ``opts.quant``) serves int8 page pools with
-    per-token f32 scale pools through the int8 branch of ``paged_decode``;
-    a ``quant`` other than ``opts.quant`` raises ``ValueError``, and kv8
-    under speculation raises ``NotImplementedError`` (the int8 branch of
-    ``paged_verify`` is not ported yet). A preempted request frees its
-    pages and re-prefills, so its re-quantized bytes are the ones it had.
+    per-token f32 scale pools through the int8 branches of
+    ``paged_decode`` and, under speculation, ``paged_verify`` (a degraded
+    engine decodes over the same pools); a ``quant`` other than
+    ``opts.quant`` raises ``ValueError``. A preempted request frees its
+    pages and re-prefills, so its re-quantized bytes are the ones it had;
+    a rolled-back verify burst leaves int8 entries and scales past the
+    accepted prefix, which the next write overwrites.
 
     ``record_logits`` keeps, per request, the logits row each generated
     token was taken from (host copies; for parity tests at small sizes).
@@ -594,10 +596,6 @@ class ServingEngine:
             raise NotImplementedError(
                 f"quant={opts.quant!r}: the weight policies are not ported")
         kv_dtype = opts.kv_dtype()
-        if kv_dtype is not None and self.spec_k > 1:
-            raise NotImplementedError(
-                "speculative decoding over int8 pools (kv8) waits for the "
-                "int8 branch of paged_verify, not ported yet")
         self.cache = lm.init_paged_cache(cfg, num_pages, page_size,
                                          device=self.device,
                                          kv_dtype=kv_dtype)

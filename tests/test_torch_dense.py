@@ -372,7 +372,7 @@ def test_serve_dense_full_runs_on_the_cpu():
     (["--decode-impl", "pallas", "--speculative"], SystemExit),
     (["--decode-impl", "full", "--speculative", "3"], SystemExit),
     (["--decode-impl", "paged", "--quant", "kv8", "--speculative"],
-     NotImplementedError),
+     RuntimeError),
     (["--decode-impl", "full", "--tp", "2"], NotImplementedError),
     (["--decode-impl", "full", "--quant", "w8a8"], NotImplementedError),
     (["--decode-impl", "pallas", "--quant", "w8a16"], NotImplementedError),

@@ -246,9 +246,129 @@ def test_paged_verify_rejects_what_it_does_not_take(cuda):
         pv_kernel.paged_verify(q[..., :8].contiguous(), kp, vp, tables, lens)
     with pytest.raises(ValueError, match="kv_len"):
         pv_kernel.paged_verify(q, kp, vp, tables, lens[:1])
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8 pools"):
         pv_kernel.paged_verify(q, kp.to(torch.int8), vp.to(torch.int8),
                                tables, lens)
+
+
+# (page_size, block_kv) of the int8 verify: blocks smaller than a page and
+# not dividing it
+BLOCKS_OFF_PAGE_KV8 = [(16, 8), (8, 12), (32, 20)]
+
+
+@pytest.mark.parametrize("draft_k", [2, 4, 8])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[3]}-{s[6]}")
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32],
+                         ids=["q-bf16", "q-f32"])
+def test_paged_verify_kv8_every_valid_config_matches_plain(cuda, shape,
+                                                           draft_k, q_dtype):
+    """The int8 branch of the verify: every valid config of the int8
+    context at depths 2, 4 and 8, lengths with kv_len 0, a tail shorter
+    than K and past the capacity, against the plain version (gather,
+    dequantize, verify); empty windows are exact zeros."""
+    B, Hq, Hkv, D, ps, max_pages, _ = shape
+    cap = ps * max_pages
+    kv_len = ([0, cap + 1, draft_k - 1, draft_k, cap]
+              + [int(x) for x in np.linspace(draft_k + 1, cap - 1, B)])[:B]
+    _, kp, vp, tables, lens = paged_operands(D + 2, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len,
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((None, kp, vp), cuda)
+    g = torch.Generator(device=cuda).manual_seed(draft_k)
+    q = torch.randn(B, draft_k, Hq, D, generator=g, device=cuda).to(q_dtype)
+    args = (q, kq, vq, tables, lens)
+    scales = {"k_scales": ks, "v_scales": vs}
+    want = ref.paged_verify(*args, **scales).float()
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.paged_verify_context(chip, B, Hq, Hkv, D, cap, "int8", ps,
+                                   draft_k, ops.dtype_name(q_dtype))
+    configs = ops.PAGED_VERIFY.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = pv_kernel.paged_verify.launches
+        out = ops.paged_verify(*args, **scales, config=cfg)
+        torch.cuda.synchronize()
+        assert pv_kernel.paged_verify.launches == before + 1
+        assert out.dtype == q_dtype
+        torch.testing.assert_close(out.float(), want, atol=KV8_TOL[q_dtype],
+                                   rtol=KV8_TOL[q_dtype],
+                                   msg=lambda m: f"{cfg}: {m}")
+        assert not out[0].any(), "kv_len == 0 must give exact zeros"
+        assert not out[2, 0].any(), "an empty causal window gives zeros"
+
+
+@pytest.mark.parametrize("ps,block_kv", BLOCKS_OFF_PAGE_KV8)
+def test_paged_verify_kv8_blocks_and_depths_off_the_grid(cuda, ps, block_kv):
+    """The int8 branch takes any block size (smaller than a page, not
+    dividing it, spanning pages) at depths in and out of the tuned set
+    (K 5 among them), packed and unpacked, for q in bf16 and f32; then
+    the depth-5 verify through ``ops`` launches the fixed config sized by
+    the int8 rows, with no tuning."""
+    B, Hq, Hkv, D, max_pages = 8, 24, 8, 128, 96 // ps
+    cap = ps * max_pages
+    kv_len = [0, cap + 1, 1, 5, cap, 17, cap // 2 + 3, cap - 1]
+    _, kp, vp, tables, lens = paged_operands(ps + 3, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len,
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((None, kp, vp), cuda)
+    scales = {"k_scales": ks, "v_scales": vs}
+    g = torch.Generator(device=cuda).manual_seed(ps)
+    for K in (2, 5, 9):
+        q = torch.randn(B, K, Hq, D, generator=g, device=cuda)
+        for q_dtype in (torch.bfloat16, torch.float32):
+            args = (q.to(q_dtype), kq, vq, tables, lens)
+            want = ref.paged_verify(*args, **scales).float()
+            for pack in (True, False):
+                out = pv_kernel.paged_verify(*args, **scales,
+                                             block_kv=block_kv,
+                                             pack_gqa=pack)
+                torch.testing.assert_close(
+                    out.float(), want, atol=KV8_TOL[q_dtype],
+                    rtol=KV8_TOL[q_dtype],
+                    msg=lambda m: f"K {K} {q_dtype} pack {pack}: {m}")
+                assert not out[0].any()
+    tuner = Autotuner(on_miss="error")
+    q = torch.randn(B, 5, Hq, D, generator=g, device=cuda).bfloat16()
+    args = (q, kq, vq, tables, lens)
+    before = pv_kernel.paged_verify.launches
+    out = ops.paged_verify(*args, **scales, tuner=tuner)
+    assert pv_kernel.paged_verify.launches == before + 1
+    torch.testing.assert_close(out.float(),
+                               ref.paged_verify(*args, **scales).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert tuner.stats()["misses"] == 0
+
+
+def test_paged_verify_kv8_rejects_what_it_does_not_take(cuda):
+    _, kp, vp, tables, lens = paged_operands(0, 2, 4, 2, 16, 8, 2, [5, 6],
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((None, kp, vp), cuda)
+    q = torch.zeros(2, 4, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="int8 pools"):
+        pv_kernel.paged_verify(q, kq, vq, tables, lens)
+    with pytest.raises(ValueError, match="int8 pools"):
+        pv_kernel.paged_verify(q, kp, vp, tables, lens, k_scales=ks,
+                               v_scales=vs)
+    with pytest.raises(ValueError, match="float32"):
+        pv_kernel.paged_verify(q, kq, vq, tables, lens,
+                               k_scales=ks.bfloat16(), v_scales=vs)
+    with pytest.raises(ValueError, match="float32"):
+        pv_kernel.paged_verify(q, kq, vq, tables, lens,
+                               k_scales=ks[:, :1], v_scales=vs[:, :1])
+    with pytest.raises(ValueError, match="16-byte"):
+        pv_kernel.paged_verify(q[..., :8].contiguous(),
+                               kq[..., :8].contiguous(),
+                               vq[..., :8].contiguous(), tables, lens,
+                               k_scales=ks, v_scales=vs)
+    lib = pv_kernel.LIB.load()
+    for D, q_item, kv_item, block_kv, K, g, pack, warps in (
+            (128, 2, 1, 128, 4, 3, 1, 4), (128, 4, 1, 16, 8, 3, 1, 16),
+            (96, 2, 1, 64, 2, 1, 0, 2), (160, 2, 1, 32, 4, 4, 1, 8),
+            (128, 2, 2, 64, 4, 3, 1, 4), (64, 4, 4, 32, 2, 4, 0, 8)):
+        assert lib.paged_verify_smem_bytes(D, q_item, kv_item, block_kv, K,
+                                           g, pack, warps) == \
+            pv_kernel.smem_bytes(D, q_item, kv_item, block_kv, K, g,
+                                 bool(pack), warps)
 
 
 # (page_size, block_kv): blocks smaller than a page, not dividing it, and
@@ -569,10 +689,11 @@ def test_engine_on_card_matches_cpu(cuda, speculative):
         set_default_tuner(None)
 
 
-def test_kv8_engine_on_card_matches_cpu(cuda):
-    """Smoke phi4-mini in f32 with int8 page pools (kv8): the engine on the
-    card through the int8 branch of paged_decode (and rms_norm) gives the
-    CPU engine's tokens, and its logits at the int8 tolerance."""
+def _kv8_engine_card_vs_cpu(cuda, speculative):
+    """Smoke phi4-mini in f32 with int8 page pools (kv8), by plain or
+    speculative decode: the engine on the card through the kernels' int8
+    branches gives the CPU engine's tokens, and its logits at the int8
+    tolerance. Returns the launches of the path's attention kernel."""
     set_default_tuner(Autotuner(on_miss="heuristic"))
     try:
         cfg = get_config("phi4-mini-3.8b", smoke=True)
@@ -587,22 +708,36 @@ def test_kv8_engine_on_card_matches_cpu(cuda):
                     for i, (p, n) in enumerate(spec)]
             eng = ServingEngine(cfg, m, num_pages=24, page_size=8,
                                 max_batch=3, max_seq_len=24, prefill_chunk=4,
-                                opts=opts, device=device, record_logits=True)
+                                opts=opts, device=device,
+                                speculative=speculative, record_logits=True)
             assert eng.cache[0]["k_pages"].dtype == torch.int8
             eng.run(reqs)
             assert eng.pool.num_allocated == 0
             return [r.tokens for r in reqs], eng.logits_log
 
         cpu_toks, cpu_logits = run(model, "cpu", lm.ForwardOpts(quant="kv8"))
-        before = pd_kernel.paged_decode.launches
+        attn = pv_kernel.paged_verify if speculative else \
+            pd_kernel.paged_decode
+        before = attn.launches
         gpu_toks, gpu_logits = run(
             model.to(cuda), cuda,
             lm.ForwardOpts(decode_impl="kernel", norm_impl="kernel",
                            quant="kv8"))
-        assert pd_kernel.paged_decode.launches > before
+        assert attn.launches > before
         assert gpu_toks == cpu_toks
         for rid, rows in cpu_logits.items():
             for a, b in zip(gpu_logits[rid], rows):
                 np.testing.assert_allclose(a, b, atol=2e-3, rtol=2e-3)
     finally:
         set_default_tuner(None)
+
+
+def test_kv8_engine_on_card_matches_cpu(cuda):
+    """kv8 plain decode through the int8 branch of paged_decode."""
+    _kv8_engine_card_vs_cpu(cuda, 0)
+
+
+def test_kv8_spec_engine_on_card_matches_cpu(cuda):
+    """kv8 speculative decode (K 4) through the int8 branch of
+    paged_verify: drafts rejected and accepted over int8 pools."""
+    _kv8_engine_card_vs_cpu(cuda, 4)

@@ -147,16 +147,6 @@ def test_paged_verify_position_zero_of_k1_is_decode():
     torch.testing.assert_close(verify, ref.paged_decode(*args), **F32_TOL)
 
 
-def test_paged_verify_int8_pool_not_ported():
-    q = torch.zeros(1, 2, 2, 16)
-    kp = torch.zeros(1, 3, 8, 16, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pv_kernel.paged_verify(q, kp, kp, torch.zeros(1, 2, dtype=torch.int32),
-                               torch.ones(1, dtype=torch.int32),
-                               k_scales=torch.ones(1, 3, 8),
-                               v_scales=torch.ones(1, 3, 8))
-
-
 @pytest.mark.parametrize("n,d,block_rows", [(5, 64, 8), (16, 3072, 8),
                                             (3, 96, 16)])
 def test_rms_norm_matches_pallas(n, d, block_rows):

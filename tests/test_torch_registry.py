@@ -1,6 +1,5 @@
 """The port's kernel registry held against the reference's: the six ported
-kernels under the same names, scenarios, precision and bench cases (the
-reference's int8 cases of paged_verify join with its int8 branch), and
+kernels under the same names, scenarios, precision and bench cases, and
 the registry's own rules."""
 
 import pytest
@@ -15,10 +14,9 @@ PORTED = ("decode_attention", "gqa_decode_kv8", "gqa_decode_ragged",
           "paged_decode", "paged_verify", "rms_norm")
 
 
-def _cases(spec, float_only):
+def _cases(spec):
     return [(c.label, {k: tuple(v) for k, v in c.shapes.items()}, c.dtype,
-             dict(c.extra), c.scale) for c in spec.bench_cases
-            if not (float_only and c.dtype == "int8")]
+             dict(c.extra), c.scale) for c in spec.bench_cases]
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -29,7 +27,7 @@ def test_ported_kernels_match_the_reference_registry(name):
     assert ours.precision == theirs.precision
     assert ours.precision == ("int8" if name == "gqa_decode_kv8" else "float")
     assert ours.description == theirs.description
-    assert _cases(ours, False) == _cases(theirs, name == "paged_verify")
+    assert _cases(ours) == _cases(theirs)
     assert ours.reference is not None and ours.entry_point is not None
     assert ours.operands is not None
 
@@ -96,11 +94,16 @@ def test_operands_feed_entry_point_and_reference(name):
             assert ks.transpose(1, 2).is_contiguous()
             assert q.dtype == torch.float32
         elif case.dtype == "int8":
-            # paged_decode's int8 case: int8 pools with (Hkv, P, page_size)
-            # f32 scale pools quantized through the wire format, f32 q
-            q, kp, vp = args[:3]
+            # the int8 cases of paged_decode and paged_verify: int8 pools
+            # with (Hkv, P, page_size) f32 scale pools quantized through
+            # the wire format, f32 q ((B, K, Hq, D) for a verify of depth
+            # K, with every length at least K)
+            q, kp, vp, _, lens = args
             assert kp.dtype == vp.dtype == torch.int8
             assert q.dtype == torch.float32
             for key in ("k_scales", "v_scales"):
                 assert kw[key].dtype == torch.float32
                 assert kw[key].shape == kp.shape[:3]
+            if name == "paged_verify":
+                K = case.extra["draft_k"]
+                assert q.shape[1] == K and (lens >= K).all()

@@ -112,12 +112,12 @@ def test_valid_configs_of_the_verify_space():
 def test_verify_smem_bytes_and_workload():
     # staging of 64 bf16 rows of 128, then 12 query rows (K 4, group 3)
     # in bf16 and their f32 accumulators and (m, l): one warp a row
-    assert pv_kernel.smem_bytes(128, 2, 64, 4, 3, True, 8) == (
+    assert pv_kernel.smem_bytes(128, 2, 2, 64, 4, 3, True, 8) == (
         4 * 64 * 128 * 2 + 12 * 128 * 2 + 12 * (128 + 2) * 4)
     # 4 rows (unpacked) and 8 warps: two warps split each row's keys, so
     # each row keeps two running states
     assert pv_kernel.key_splits(4, 8) == 2 and pv_kernel.key_splits(4, 4) == 1
-    assert pv_kernel.smem_bytes(128, 2, 64, 4, 3, False, 8) == (
+    assert pv_kernel.smem_bytes(128, 2, 2, 64, 4, 3, False, 8) == (
         4 * 64 * 128 * 2 + 4 * 128 * 2 + 8 * (128 + 2) * 4)
     B, K, Hq, Hkv, D, max_pages = 8, 4, 24, 8, 128, 36
     # the verify call moves decode's K/V bytes with K query rows
@@ -353,7 +353,7 @@ def test_off_space_layouts_dispatch_a_fixed_config(monkeypatch):
         qk = torch.zeros(8, K, 24, 128, dtype=bf16)
         cfg = ops.paged_verify_config(qk, pool(ps), tables, tuner)
         assert cfg["pack_gqa"] and cfg["block_kv"] <= ps
-        assert pv_kernel.smem_bytes(128, 2, cfg["block_kv"], K, 3, True,
+        assert pv_kernel.smem_bytes(128, 2, 2, cfg["block_kv"], K, 3, True,
                                     4) <= pv_kernel.MAX_SMEM_BYTES
     assert backend.calls == 0 and tuner.stats()["misses"] == 0
     tuned = ops.paged_verify_config(torch.zeros(8, 4, 24, 128, dtype=bf16),
@@ -609,4 +609,122 @@ def test_paged_decode_dispatch_key_and_fixed_config_follow_the_pool(
             assert cfg == {"block_kv": ps, "pack_gqa": True, "num_warps": 4}
             assert pd_kernel.smem_bytes(128, 1, ps, 3, True, 4) <= \
                 pd_kernel.MAX_SMEM_BYTES
+    assert tuner.stats()["misses"] == 2
+
+
+def test_paged_verify_kv8_context_workload_smem_and_operands():
+    """The int8 scenario of paged_verify: a context of its own (dtype
+    int8, q's dtype in extra), a workload of int8 rows plus f32 scales
+    with K query rows in and out in q's dtype, the shared-memory formula
+    with two itemsizes (int8 staging rows with their scales, query rows
+    in q's dtype: the one ``smem_fits`` filters on), and K-position
+    operands quantized through the wire format."""
+    from repro_torch.quant import quantize_kv
+    B, Hq, Hkv, D, cap, K = 8, 24, 8, 128, 576, 4
+    bf16 = ops.paged_verify_context(H100_SXM, B, Hq, Hkv, D, cap,
+                                    "bfloat16", 16, K)
+    kv8 = ops.paged_verify_context(H100_SXM, B, Hq, Hkv, D, cap, "int8", 16,
+                                   K, "bfloat16")
+    kv8_f32 = ops.paged_verify_context(H100_SXM, B, Hq, Hkv, D, cap, "int8",
+                                       16, K, "float32")
+    assert kv8.extra == {"page_size": 16, "draft_k": K, "q_dtype": "bfloat16"}
+    assert kv8_f32.extra == {"page_size": 16, "draft_k": K}
+    assert len({c.signature() for c in (bf16, kv8, kv8_f32)}) == 3
+    # bytes: 2·Σ L·Hkv·(D + 4) + 2·B·K·Hq·D·q_item + 4·B·(pages + 1)
+    assert ops.paged_verify_bytes(B, K, Hq, Hkv, D, 3000, 36, 1,
+                                  q_itemsize=2, scale_bytes=4) == \
+        2 * 3000 * Hkv * (D + 4) + 2 * B * K * Hq * D * 2 + 4 * B * 37
+    cfg = {"draft_k": K, "page_size": 16, "block_kv": 64, "pack_gqa": True,
+           "num_warps": 4}
+    lens = ops._verify_lens(kv8, K)
+    tokens = float(torch.clamp(lens, max=cap).sum())
+    w8, w16 = (ops._paged_verify_workload(cfg, c) for c in (kv8, bf16))
+    assert w8.hbm_bytes == ops.paged_verify_bytes(
+        B, K, Hq, Hkv, D, tokens, 36, 1, q_itemsize=2, scale_bytes=4)
+    assert w8.dtype == "bfloat16" and w8.flops == w16.flops
+    assert w8.hbm_bytes < w16.hbm_bytes
+    assert ops._paged_verify_workload(cfg, kv8_f32).dtype == "float32"
+    # shared memory: int8 staging rows of D plus two f32 scales, the K·g
+    # query rows in q's dtype, then the f32 states of the key splits
+    assert pv_kernel.smem_bytes(D, 2, 1, 64, K, 3, True, 4) == (
+        4 * 64 * (D + 4) + 12 * D * 2 + 12 * (D + 2) * 4)
+    assert pv_kernel.smem_bytes(D, 4, 1, 64, K, 3, True, 4) - \
+        pv_kernel.smem_bytes(D, 2, 1, 64, K, 3, True, 4) == 12 * D * 2
+    for ctx, q_item in ((kv8, 2), (kv8_f32, 4)):
+        valid = ops.PAGED_VERIFY.space.valid_configs(ctx)
+        assert valid
+        for c in valid:
+            assert ops._verify_smem(c, ctx) == pv_kernel.smem_bytes(
+                D, q_item, 1, c["block_kv"], K, 3, c["pack_gqa"],
+                c["num_warps"])
+            assert ops._verify_smem(c, ctx) <= H100_SXM.smem_per_block
+    big = dict(cfg, block_kv=256)
+    assert ops.PAGED_VERIFY.space.is_valid(big, kv8)
+    assert ops.PAGED_VERIFY.space.why_invalid(big, bf16) == "smem"
+    # operands: the seeded f32 pools quantized by the wire format, a
+    # (B, K, Hq, D) q in q's dtype, lengths >= K
+    small = ops.paged_verify_context(H100_SXM, 2, 8, 2, 16, 40, "int8", 8,
+                                     3, "bfloat16")
+    (q, kq, vq, tbl, lens), kw = ops._paged_verify_operands(small,
+                                                            device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(q, ops._randn((2, 3, 8, 16), torch.bfloat16, gen))
+    kp = ops._randn(kq.shape, torch.float32, gen)
+    vp = ops._randn(vq.shape, torch.float32, gen)
+    want = quantize_kv(kp, vp)
+    for got, ref_ in zip((kq, kw["k_scales"], vq, kw["v_scales"]), want):
+        assert torch.equal(got, ref_)
+    assert kq.dtype == torch.int8 and kw["k_scales"].shape == (2, 11, 8)
+    assert (lens >= 3).all()
+
+
+def test_paged_verify_dispatch_key_and_fixed_config_follow_the_pool(
+        monkeypatch):
+    """Under int8 pools the verify's dispatch key holds q's dtype as well
+    as the pool's, so bf16 and f32 queries tune apart; a verify at an
+    off-space depth or page size over int8 pools dispatches the fixed
+    config sized by the pool's rows (1 byte and their scales) beside q's
+    rows, which fits in shared memory where q's itemsize for the staging
+    would not have given the same block."""
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    seen = []
+
+    class Recording(Autotuner):
+        def dispatch_config(self, kernel, key, make_ctx):
+            seen.append((key, make_ctx().signature()))
+            return super().dispatch_config(kernel, key, make_ctx)
+
+    tuner = Recording(backend=_FakeBackend(lambda c: 1.0), on_miss="heuristic")
+    tables = torch.zeros(8, 7, dtype=torch.int32)
+    pool8 = torch.zeros(8, 3, 16, 128, dtype=torch.int8)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(8, 4, 24, 128, dtype=dtype)
+        cfg = ops.paged_verify_config(q, pool8, tables, tuner)
+        assert cfg["page_size"] == 16 and cfg["draft_k"] == 4
+    (kb, sb), (kf, sf) = seen
+    assert kb != kf and sb != sf
+    assert "int8" in kb and "bfloat16" in kb and "float32" in kf
+    assert '"q_dtype": "bfloat16"' in sb and "q_dtype" not in sf
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, ps in ((5, 16), (5, 4), (4, 256), (12, 128)):
+            q = torch.zeros(8, K, 24, 128, dtype=dtype)
+            pool = torch.zeros(8, 3, ps, 128, dtype=torch.int8)
+            cfg = ops.paged_verify_config(q, pool, tables, tuner)
+            assert cfg["pack_gqa"] and cfg["num_warps"] == 4
+            assert cfg == ops.paged_verify_fixed_config(
+                K, 3, 128, ps, 1, dtype.itemsize)
+            smem = pv_kernel.smem_bytes(128, dtype.itemsize, 1,
+                                        cfg["block_kv"], K, 3, True, 4)
+            assert smem <= pv_kernel.MAX_SMEM_BYTES
+            # halved only while the int8 rows do not fit
+            if cfg["block_kv"] < ps:
+                assert pv_kernel.smem_bytes(
+                    128, dtype.itemsize, 1, 2 * cfg["block_kv"], K, 3, True,
+                    4) > pv_kernel.MAX_SMEM_BYTES
+    # pages of 256 at K 4: a whole page of int8 rows fits, where staging
+    # bf16 rows would have halved the block
+    assert ops.paged_verify_fixed_config(4, 3, 128, 256, 1, 2)[
+        "block_kv"] == 256
+    assert ops.paged_verify_fixed_config(4, 3, 128, 256, 2, 2)[
+        "block_kv"] == 128
     assert tuner.stats()["misses"] == 2
