@@ -10,18 +10,21 @@ Phases, each failing loudly:
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
      ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
-     ``gqa_decode`` (which also serves ``decode_attention``) and
+     ``gqa_decode`` (which also serves ``decode_attention``),
      ``gqa_decode_kv8`` (the same kernel template built for int8 caches)
-     and the Triton compile of ``rms_norm``;
+     and ``matmul_w8a8``, and the Triton compile of ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
      ``gqa_decode_kv8`` and the int8 branches of ``paged_decode`` and
      ``paged_verify`` (depths 2, 4, 8) for q in bf16 and in f32; the fixed
      configs of off-space layouts (float and int8 pages of 4 and 256, a
-     verify at depth 5 over float and int8 pools); then the registry's
-     oracle sweep: every valid config of every registered kernel's host
-     bench cases against its reference;
+     verify at depth 5 over float and int8 pools); every valid
+     ``matmul_w8a8`` config of each scale granularity on ragged shapes
+     and the four w8a8 serving shapes (its epilogue configs also equal to
+     the exact integer-grid product) and its refusals; then the
+     registry's oracle sweep: every valid config of every registered
+     kernel's host bench cases against its reference;
   4. tuning: the serve entry point's deployment lookups (``paged_decode``
      and ``paged_verify`` with the speculation depth free, float and,
      under ``--quant kv8``, int8) and the contexts the plain, the
@@ -30,7 +33,9 @@ Phases, each failing loudly:
      and ``paged_verify`` (float and int8) config at the pool layouts the
      tuning chose (the tuned ones among them) against the plain versions,
      and the tuned ones timed; the kv8 dense serving context tuned and
-     timed;
+     timed; the four ``matmul_w8a8`` contexts of a w8a8 dense run
+     (prefill and decode rows, ``wi`` and ``wo``) tuned and timed beside
+     the plain version, ``torch._int_mm`` and a bf16 ``torch.matmul``;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -48,13 +53,17 @@ Phases, each failing loudly:
      ``gqa_decode_ragged``, then ``--decode-impl full``): 8 prompts of 512
      tokens, 32 new tokens each, the token streams equal 8 of 8; the same
      with ``--quant kv8`` (int8 caches, ``gqa_decode_kv8``), and how many
-     of its streams equal the bf16 run's;
+     of its streams equal the bf16 run's; then ``--quant w8a8`` (int8 MLP
+     weights, per-token int8 activations) with ``--quant-impl pallas``
+     (every MLP GEMM through ``matmul_w8a8``) and ``sim``, streams equal
+     8/8 up to a tie, and by ``--decode-impl full``;
   6. one full-width decode step (float pools and int8 pools) and one
      full-width verify step (float pools and int8 pools) through the
      kernels against the same step through the plain versions on the same
      cache, and one full-width dense decode step through ``gqa_decode``
      and one through ``gqa_decode_kv8`` (int8 caches) against the plain
-     einsum, with the residual stream compared layer by layer, and a
+     einsum, and one w8a8 dense step through ``matmul_w8a8`` against the
+     sim GEMMs, with the residual stream compared layer by layer, and a
      profiled window of each (wall time, device time, device busy share);
      then a small f32 model whose drafts are often rejected,
      served speculatively on the CPU (plain versions) and on the card
@@ -122,12 +131,14 @@ def build_kernels() -> dict:
     rms_norm (on its first launch), started together; returns seconds per
     build."""
     from repro_torch.kernels import gqa_decode as gqa_kernel
+    from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.kernels import paged_decode as pd_kernel
     from repro_torch.kernels import paged_verify as pv_kernel
     from repro_torch.kernels import rms_norm as rms_kernel
     secs, errors = {}, []
     libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
-            "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8}
+            "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8,
+            "matmul_w8a8": mm8_kernel.LIB}
 
     def nvcc(name):
         t = time.perf_counter()
@@ -723,6 +734,290 @@ def time_dense(chip, name: str, cfg) -> dict:
         "config": cfg}
 
 
+# phi4-mini's four w8a8 serving GEMMs, (M, K, N): the MLP's wi (d_model x
+# 2 d_ff) and wo (d_ff x d_model) at decode's 8 rows and at the prefill's
+# 8 x 512 rows, in the order ``serve.w8a8_contexts`` gives them
+W8A8_SERVING = {"prefill wi": (4096, 3072, 16384),
+                "prefill wo": (4096, 8192, 3072),
+                "decode wi": (8, 3072, 16384), "decode wo": (8, 8192, 3072)}
+# ragged shapes: rows inside one 16-row tile, past one and past two; a K
+# that is not a multiple of 16 bytes; a column count off the 64-column grid
+W8A8_RAGGED = [(M, K, N) for M in (8, 100, 257) for K in (200, 3072)
+               for N in (96, 3072)]
+
+
+def w8a8_case(seed, M, K, N, gran):
+    """x (M, K) and w (K, N) drawn in f32 and quantized per row and per
+    column (or per tensor) through ``quant.calibrate``, w K-major as
+    ``QTensor`` stores it: (x, w, x_scale, w_scale)."""
+    from repro_torch.quant import absmax_scale, quantize
+    from repro_torch.quant.qtensor import k_major
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device="cuda")
+    w = torch.randn(K, N, generator=g, device="cuda")
+    per_tensor = gran == "per_tensor"
+    xs = absmax_scale(x, axis=None if per_tensor else -1)
+    ws = absmax_scale(w, axis=None if per_tensor else 0)
+    return quantize(x, xs), k_major(quantize(w, ws)), xs, ws
+
+
+def check_matmul_w8a8(chip) -> float:
+    """Every valid matmul_w8a8 config (epilogue and inline dequant) of each
+    granularity against the plain version (dequantize, then an f32
+    product) at INT8_TOL, atol and rtol, on the ragged shapes and the four
+    serving shapes; the epilogue configs also equal the exact
+    integer-grid product bit for bit (the sim path's arithmetic). Then the
+    refusals, with the C/Python shared-memory parity. Returns the worst
+    error."""
+    from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+    from repro_torch.kernels import ops, ref
+    worst_all = 0.0
+    shapes = [(f"ragged {M}x{K}x{N}", (M, K, N)) for M, K, N in W8A8_RAGGED]
+    shapes += [(f"serving {k}", v) for k, v in W8A8_SERVING.items()]
+    for label, (M, K, N) in shapes:
+        for gran in ("per_channel", "per_tensor"):
+            args = w8a8_case(M + K + N, M, K, N, gran)
+            xq, wq, xs, ws = args
+            want = ref.matmul_w8a8(*args)
+            acc = xq.float() @ wq.float()
+            exact = acc * (xs * ws) if gran == "per_tensor" else \
+                acc * xs * ws
+            ctx = ops.matmul_w8a8_context(chip, M, K, N, gran)
+            configs = ops.MATMUL_W8A8.space.valid_configs(ctx)
+            worst, n_exact = 0.0, 0
+            for cfg in configs:
+                got = ops.matmul_w8a8(*args, config=cfg)
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=INT8_TOL,
+                                      rtol=INT8_TOL):
+                    raise AssertionError(f"matmul_w8a8 {label} {gran} {cfg}: "
+                                         f"max abs err {err} over "
+                                         f"tolerance {INT8_TOL}")
+                if cfg["dequant"] == "epilogue":
+                    if not torch.equal(got, exact):
+                        raise AssertionError(
+                            f"matmul_w8a8 {label} {gran} {cfg}: the "
+                            f"epilogue differs from the exact integer-grid "
+                            f"product")
+                    n_exact += 1
+                worst = max(worst, err)
+            worst_all = max(worst_all, worst)
+            print(f"matmul_w8a8 {label} {gran}: {len(configs)} configs ok, "
+                  f"max_abs_err {worst:.3g} (tol {INT8_TOL}); {n_exact} "
+                  f"epilogue configs equal the exact product")
+            del args, xq, wq, want, acc, exact
+    x, w, xs, ws = w8a8_case(0, 16, 64, 64, "per_channel")
+    for bad, match in (((x, w.contiguous(), xs, ws), "K-major"),
+                       ((x.float(), w, xs, ws), "int8"),
+                       ((x, w, xs[:8], ws), "per_channel scales")):
+        try:
+            mm8_kernel.matmul_w8a8(*bad)
+        except ValueError as e:
+            assert match in str(e), e
+        else:
+            raise AssertionError(f"matmul_w8a8 took what it refuses "
+                                 f"({match})")
+    lib = mm8_kernel.LIB.load()
+    for bm, bn, bk in ((16, 64, 64), (128, 256, 128), (64, 128, 64)):
+        assert lib.matmul_w8a8_smem_bytes(bm, bn, bk) == \
+            mm8_kernel.smem_bytes(bm, bn, bk)
+    print("matmul_w8a8 refusals ok (a row-major w, float x, scales of the "
+          "wrong size); C and Python shared memory agree")
+    return worst_all
+
+
+def time_w8a8(chip, M, K, N, cfg) -> dict:
+    """Kernel (under ``cfg``), plain version, the library yardsticks and the
+    roofline bound at one serving GEMM, per channel. Yardsticks only, the
+    port calls neither: ``torch._int_mm`` with the same scale epilogue
+    (it refuses fewer than 17 rows: decode's 8 are timed padded to 32),
+    and ``torch.matmul`` of the unquantized bf16 operands, which is what
+    w8a8 replaces."""
+    from repro_torch.kernels import ops, ref
+    args = w8a8_case(M * 7 + N, M, K, N, "per_channel")
+    xq, wq, xs, ws = args
+    bound_ms, by = bound(ops._w8a8_workload(
+        {"scale_gran": "per_channel"},
+        ops.matmul_w8a8_context(chip, M, K, N)), chip)
+    m_lib = max(M, 32)
+    xl = torch.zeros(m_lib, K, dtype=torch.int8, device="cuda")
+    xl[:M] = xq
+    xsl = torch.ones(m_lib, 1, device="cuda")
+    xsl[:M] = xs
+    xb = (xq.float() * xs).bfloat16()
+    wb = (wq.float() * ws).bfloat16().contiguous()
+    out = {
+        "kernel_ms": timer().time_runner(
+            lambda: ops.matmul_w8a8(*args, config=cfg)) * 1e3,
+        "plain_ms": timer().time_runner(
+            lambda: ref.matmul_w8a8(*args)) * 1e3,
+        "library_ms": timer().time_runner(
+            lambda: torch._int_mm(xl, wq).float() * xsl * ws) * 1e3,
+        "library": f"torch._int_mm plus the scale epilogue at M {m_lib}",
+        "bf16_matmul_ms": timer().time_runner(lambda: xb @ wb) * 1e3,
+        "bound_ms": bound_ms, "bound_by": by, "config": cfg}
+    return out
+
+
+def w8a8_dense_serving(tuner, n_layers: int, bf16_tokens) -> dict:
+    """The launcher's w8a8 static batch at full width (``--quant w8a8``: 8
+    prompts of 512, 32 new tokens), three times: ``--decode-impl pallas``
+    with ``--quant-impl pallas`` (every MLP GEMM through matmul_w8a8) and
+    with ``--quant-impl sim``, then ``--decode-impl full`` (sim). The
+    kernel run's streams equal the sim run's 8/8 up to the tie rule
+    (``dense_divergences``), with matmul_w8a8 launched 64 times a forward
+    pass (2 GEMMs x 32 layers) x 32 passes and never on the sim runs;
+    equality with the full run and with the bf16 run is printed, not held.
+    Returns the kernel run's report and launch counts."""
+    from repro_torch.kernels import gqa_decode as gqa_kernel
+    from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+    from repro_torch.launch import serve
+    argv = ["--full-config", "--requests", "8", "--prompt-len", "512",
+            "--gen", "32", "--quant", "w8a8"]
+    counters = {"matmul_w8a8": mm8_kernel.matmul_w8a8,
+                "gqa_decode_ragged": gqa_kernel.gqa_decode}
+    cfg, cuda = serve.get_config("phi4-mini-3.8b"), torch.device("cuda")
+    # every context the runs dispatch, tuned before the counts start
+    for tunable, ctx in [serve.dense_context(cfg, 8, DENSE_T, cuda)] + \
+            serve.w8a8_contexts(cfg, 8, 512, cuda):
+        tuner.best_config(tunable, ctx)
+    runs = {}
+    for label, extra in (("kernel", ["--decode-impl", "pallas",
+                                     "--quant-impl", "pallas"]),
+                         ("sim", ["--decode-impl", "pallas",
+                                  "--quant-impl", "sim"]),
+                         ("full", ["--decode-impl", "full"])):
+        args = serve.build_parser().parse_args(argv + extra)
+        for fn in counters.values():
+            fn.launches = 0
+        report = serve.serve_dense(args, tuner)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[label] = (report, launches)
+        torch.cuda.empty_cache()
+        print(f"w8a8 dense run report ({' '.join(extra)}): "
+              + json.dumps({k: v for k, v in report.items() if k != "tokens"},
+                           sort_keys=True))
+        print(f"launches in the run ({' '.join(extra)}): "
+              f"{json.dumps(launches)}")
+        assert report["quant"] == "w8a8"
+        assert np.asarray(report["tokens"]).shape == (8, 32)
+    (kernel, kl), (sim, sl), (full, fl) = (runs[k] for k in
+                                           ("kernel", "sim", "full"))
+    assert kernel["quant_impl"] == "pallas" and sim["quant_impl"] == "sim"
+    assert kl["matmul_w8a8"] == 2 * n_layers * 32 == 2048, kl
+    assert kl["gqa_decode_ragged"] == sl["gqa_decode_ragged"] == \
+        31 * n_layers, (kl, sl)
+    assert sl["matmul_w8a8"] == 0 and sum(fl.values()) == 0, (sl, fl)
+    dense_divergences(kernel["tokens"], sim["tokens"])
+    eq = {name: sum(a == b for a, b in zip(kernel["tokens"], other))
+          for name, other in (("full", full["tokens"]),
+                              ("bf16", bf16_tokens))}
+    eq["sim-full"] = sum(a == b for a, b in zip(sim["tokens"],
+                                                full["tokens"]))
+    print(f"--quant w8a8 at full width, --quant-impl pallas vs sim vs "
+          f"--decode-impl full: prefill {kernel['prefill_ms']:.1f} / "
+          f"{sim['prefill_ms']:.1f} / {full['prefill_ms']:.1f} ms, decode "
+          f"{kernel['decode_ms']:.1f} / {sim['decode_ms']:.1f} / "
+          f"{full['decode_ms']:.1f} ms, tokens/s "
+          f"{kernel['tokens_per_s']:.1f} / {sim['tokens_per_s']:.1f} / "
+          f"{full['tokens_per_s']:.1f}, peak memory "
+          f"{kernel['peak_memory_bytes'] / 2**30:.2f} / "
+          f"{sim['peak_memory_bytes'] / 2**30:.2f} GiB; the full run's "
+          f"streams equal the kernel run's {eq['full']}/8 and the sim "
+          f"run's {eq['sim-full']}/8, the kernel run's equal the bf16 "
+          f"dense run's {eq['bf16']}/8 (reported, not held)")
+    return {"report": kernel, "launches": kl}
+
+
+@functools.lru_cache(maxsize=1)
+def w8a8_model():
+    """phi4-mini at full width from the launcher's seed (0) with its MLP
+    weights quantized (w8a8): the weights the w8a8 serving runs had."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import init_params
+    from repro_torch.quant import quantize_params
+    cfg = get_config("phi4-mini-3.8b")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    return quantize_params(model, "w8a8"), cfg
+
+
+def dense_divergences(kernel_tokens, sim_tokens) -> None:
+    """The w8a8 kernel run's streams equal the sim run's, or at the first
+    token where one differs the sim path's logits (one prefill of the
+    request's context through the sim GEMMs) score the two tokens within
+    2% of the logits' std: a tie, as ``hold_logits`` allows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    rng = np.random.default_rng(0)                 # the launcher's prompts
+    prompts = rng.integers(1, get_config("phi4-mini-3.8b").vocab_size,
+                           (8, 512), dtype=np.int64)
+    equal, found = 0, []
+    for r, (a, b) in enumerate(zip(kernel_tokens, sim_tokens)):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            equal += 1
+            continue
+        model, cfg = w8a8_model()
+        ctx = np.concatenate([prompts[r], np.asarray(b[:i], np.int64)])
+        logits, _ = lm.prefill(model, cfg, torch.from_numpy(ctx[None]).cuda(),
+                               max_len=len(ctx) + 1, opts=lm.ForwardOpts(
+                                   attn_chunk=64, quant="w8a8"))
+        row = logits[0]
+        gap = float(row[b[i]] - row[a[i]])
+        std = float(row.std())
+        found.append({"request": r, "token": i, "kernel": a[i], "sim": b[i],
+                      "sim_logit_gap": gap, "tol": BF16_TOL * std})
+        if abs(gap) > BF16_TOL * std:
+            raise AssertionError(f"w8a8 request {r} diverges at token {i} "
+                                 f"where the sim logits differ by {gap}, "
+                                 f"over {BF16_TOL} of their std {std}")
+    print(f"w8a8 --quant-impl pallas vs sim at full width: {equal}/8 token "
+          f"streams equal; first divergences: {json.dumps(found)}")
+
+
+def w8a8_step_check(steps: int = 8) -> None:
+    """One full-width w8a8 dense decode step (8 requests at position 512
+    after a sim prefill of 512 tokens) with every MLP GEMM through
+    matmul_w8a8 against the same step through the sim GEMMs, on clones of
+    one cache (attention through gqa_decode on both): logits held by
+    ``hold_logits``, the residual stream compared layer by layer; then a
+    profiled window of kernel steps."""
+    from repro_torch.models import lm
+    model, cfg = w8a8_model()
+    rng = np.random.default_rng(9)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 512))).cuda()
+    _, cache = lm.prefill(model, cfg, prompts, max_len=512 + 2 * steps + 2,
+                          opts=lm.ForwardOpts(attn_chunk=64, quant="w8a8"))
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 1))).cuda()
+    caches = {"pallas": [{k: v.clone() for k, v in layer.items()}
+                         for layer in cache], "sim": cache}
+    logits, streams = {}, {"pallas": {}, "sim": {}}
+    for impl in ("pallas", "sim"):
+        with residual_streams(model, streams[impl]):
+            logits[impl], _ = lm.decode_step(
+                model, cfg, tok, caches[impl], 512,
+                lm.ForwardOpts(decode_impl="kernel", quant="w8a8",
+                               quant_impl=impl))
+    print(f"  residual stream (w8a8 step), relative L2 after layer "
+          f"{stream_errors(streams['pallas'], streams['sim'])}")
+    hold_logits("dense decode step --quant w8a8, matmul_w8a8 vs the sim "
+                "GEMMs, 8 requests at position 512", logits["pallas"],
+                logits["sim"])
+    opts = lm.ForwardOpts(decode_impl="kernel", quant="w8a8",
+                          quant_impl="pallas")
+    profile_steps(
+        "dense decode step (8 rows, full width, --quant w8a8, matmul_w8a8 "
+        "and gqa_decode)",
+        lambda i: lm.decode_step(model, cfg, tok, caches["pallas"], 513 + i,
+                                 opts), steps)
+    sim = lm.ForwardOpts(decode_impl="kernel", quant="w8a8")
+    profile_steps(
+        "dense decode step (8 rows, full width, --quant w8a8, sim GEMMs)",
+        lambda i: lm.decode_step(model, cfg, tok, caches["sim"], 513 + i,
+                                 sim), steps)
+
+
 def dense_serving(tuner, n_layers: int, quant: str = "none") -> dict:
     """The launcher's static batch over dense caches at full width (int8
     caches under ``--quant kv8``), by the decode kernel (gqa_decode_ragged,
@@ -1316,6 +1611,7 @@ def main(argv=None) -> int:
     kv8_err = check_kv8_decode(chip)
     pd8 = check_paged_decode_kv8(chip)
     pv8 = check_paged_verify_kv8(chip)
+    w8_err = check_matmul_w8a8(chip)
     off_space_err = off_space_layouts(chip)
     for out, name in ((pdk, "paged_decode"), (pvk, "paged_verify"),
                       (pd8, "paged_decode int8"), (pv8, "paged_verify int8")):
@@ -1467,6 +1763,21 @@ def main(argv=None) -> int:
     kvk["max_abs_err"] = kv8_err
     print("gqa_decode_kv8 at the serving shape under the serving config "
           f"(tuned on {kv8_ctx.signature()}): " + json.dumps(kvk))
+    # The four matmul_w8a8 contexts a w8a8 dense run dispatches: tuned,
+    # then the tuned configs timed beside the plain version, the
+    # yardsticks and the bound
+    w8 = {}
+    for label, (tunable, ctx) in zip(W8A8_SERVING, serve.w8a8_contexts(
+            engine.cfg, 8, 512, torch.device("cuda"))):
+        shape = W8A8_SERVING[label]       # (M, K, N)
+        assert ctx.shape("x") + ctx.shape("y")[1:] == shape, label
+        t = time.perf_counter()
+        tuned = tuner.best_config(tunable, ctx)
+        tune_s = time.perf_counter() - t
+        w8[label] = time_w8a8(chip, *shape, tuned)
+        print(f"matmul_w8a8 {label} ({'x'.join(map(str, shape))}, per "
+              f"channel; tuned in {tune_s:.1f} s): " + json.dumps(w8[label]))
+    ops.release_tuning_operands()
 
     phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
     counters = {"paged_decode": pd_kernel.paged_decode,
@@ -1524,6 +1835,7 @@ def main(argv=None) -> int:
                                       dense["report"]["tokens"]))
     print(f"--quant kv8 vs bf16 caches (--decode-impl pallas): {same}/8 "
           f"token streams equal (reported, not held)")
+    w8a8 = w8a8_dense_serving(tuner, n_layers, dense["report"]["tokens"])
     gqk = time_dense(chip, "gqa_decode_ragged", tuner.best_config(
         *serve.dense_context(engine.cfg, 8, DENSE_T, torch.device("cuda"))))
     gqk["max_abs_err"] = dense_err["gqa_decode_ragged"]
@@ -1538,6 +1850,7 @@ def main(argv=None) -> int:
     verify_check(kv8_spec_engine)
     dense_step_check(engine.model, engine.cfg)
     dense_step_check(engine.model, engine.cfg, quant="kv8")
+    w8a8_step_check()
     profile_decode(engine)
     profile_verify(spec_engine)
     profile_decode(kv8_engine)
@@ -1583,6 +1896,10 @@ def main(argv=None) -> int:
               "src/repro_torch/csrc/gqa_decode_kv8.cu",
               "src/repro/kernels/gqa_decode_kv8.py:44",
               dense_kv8["launches"]["gqa_decode_kv8"], kvk),
+        entry("matmul_w8a8", "cuda", "src/repro_torch/csrc/matmul_w8a8.cu",
+              "src/repro/kernels/matmul_int8.py:48",
+              w8a8["launches"]["matmul_w8a8"],
+              dict(w8["decode wi"], max_abs_err=w8_err)),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

@@ -29,22 +29,26 @@ class ChipSpec:
     hbm_bandwidth: float        # B/s, data sheet
     peak_bf16_flops: float      # dense tensor-core FLOP/s, data sheet
     peak_fp32_flops: float      # CUDA-core FLOP/s, data sheet
+    peak_int8_ops: float        # dense tensor-core int8 OP/s, data sheet
 
     def flops_for_dtype(self, dtype_name: str) -> float:
-        """Peak rate for work on operands of ``dtype_name``."""
+        """Peak rate for work on operands of ``dtype_name``: int8 operands
+        (the w8a8 GEMM) at the int8 tensor-core rate, twice bf16's."""
         if dtype_name in ("bfloat16", "float16"):
             return self.peak_bf16_flops
         if dtype_name == "float32":
             return self.peak_fp32_flops
+        if dtype_name == "int8":
+            return self.peak_int8_ops
         raise KeyError(f"no peak rate for dtype {dtype_name!r}")
 
 
 # NVIDIA H100 data sheet (dense rates, no sparsity), keyed by SM count.
 _H100_PEAKS = {
     132: dict(part="SXM", hbm_bandwidth=3.35e12, peak_bf16_flops=989e12,
-              peak_fp32_flops=67e12),
+              peak_fp32_flops=67e12, peak_int8_ops=1979e12),
     114: dict(part="PCIe", hbm_bandwidth=2.0e12, peak_bf16_flops=756e12,
-              peak_fp32_flops=51e12),
+              peak_fp32_flops=51e12, peak_int8_ops=1513e12),
 }
 
 
@@ -76,4 +80,4 @@ def cpu_host() -> ChipSpec:
     return ChipSpec(name="cpu_host", sm_count=1, smem_per_block=232448,
                     l2_bytes=50 * 2**20, hbm_bytes=32 * 2**30,
                     hbm_bandwidth=20e9, peak_bf16_flops=5e10,
-                    peak_fp32_flops=5e10)
+                    peak_fp32_flops=5e10, peak_int8_ops=1e11)

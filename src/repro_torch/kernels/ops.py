@@ -10,16 +10,16 @@ For each of the port's kernels this module declares
   * a heuristic default;
 
 and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
-``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)`` and
-``rmsnorm(...)`` that resolve
-their config through the tuner and dispatch. Every entry point accepts
+``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)``,
+``matmul_w8a8(...)`` and ``rmsnorm(...)`` that resolve their config
+through the tuner and dispatch. Every entry point accepts
 ``config=`` to bypass tuning. Tensors on the CPU need no config: the
 kernel wrappers run their plain versions there. A pool laid out with a
 page size outside the space, or a verify deeper or shallower than the
 tuned depths, dispatches a fixed config with no tuning, as the reference
 does.
 
-Importing this module registers the six kernels in ``kernels.registry``
+Importing this module registers the seven kernels in ``kernels.registry``
 under the reference's names, scenarios and bench cases.
 """
 
@@ -39,11 +39,13 @@ from repro_torch.core.config_space import dtype_bytes, smem_fits
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
+from repro_torch.kernels import matmul_w8a8 as mm8_kernel
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import rms_norm as rms_kernel
-from repro_torch.quant import quantize_kv
+from repro_torch.quant import absmax_scale, quantize, quantize_kv
+from repro_torch.quant.qtensor import k_major
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -872,6 +874,149 @@ def ragged_decode_kv8(q, k, v, k_scale, v_scale, *, kv_len=None,
 
 
 # ===========================================================================
+# w8a8 GEMM: int8 x int8 -> int32 on the tensor cores, fused dequant
+# ===========================================================================
+
+def _w8a8_smem(cfg: Config, ctx: TuningContext) -> int:
+    return mm8_kernel.smem_bytes(cfg["block_m"], cfg["block_n"],
+                                 cfg["block_k"])
+
+
+def matmul_w8a8_space() -> ConfigSpace:
+    """The reference's tunables (``block_m/n/k``, ``dequant``,
+    ``scale_gran``) cut to what ``mma.sync`` tiles (16-row, 8-column,
+    32-deep) and one block's shared memory and registers take, with
+    ``num_warps`` beside them."""
+    sp = ConfigSpace(
+        "matmul_w8a8",
+        [
+            Param("block_m", mm8_kernel.BLOCK_M),
+            Param("block_n", mm8_kernel.BLOCK_N),
+            Param("block_k", (64, 128)),
+            Param("num_warps", mm8_kernel.NUM_WARPS),
+            Param("dequant", ("epilogue", "inline")),
+            Param("scale_gran", ("per_channel", "per_tensor")),
+        ],
+        version=1,
+    )
+    sp.constrain("smem", smem_fits(_w8a8_smem))
+    sp.constrain("registers",
+                 lambda c, x: mm8_kernel.regs_fit(c["block_m"], c["block_n"],
+                                                  c["num_warps"],
+                                                  c["dequant"]))
+    # Runtime operands arrive calibrated at a fixed granularity (their
+    # scale shapes), pinning the tunable, as a deployed pool pins
+    # paged_decode's page_size; offline sweeps (no extra) leave it free.
+    sp.constrain("scale_gran==operands",
+                 lambda c, x: ("scale_gran" not in x.extra
+                               or c["scale_gran"] == x.extra["scale_gran"]))
+    return sp
+
+
+def matmul_w8a8_bytes(M: int, K: int, N: int, scale_gran: str) -> float:
+    """HBM bytes of one call: x and w read once (int8), the f32 output
+    written once, and the scales (M + N f32 per channel, two per
+    tensor)."""
+    scales = 4.0 * (M + N) if scale_gran == "per_channel" else 8.0
+    return float(M * K + K * N + 4 * M * N) + scales
+
+
+def _w8a8_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
+    """2·M·K·N operations at the int8 tensor-core rate, over the bytes
+    each operand needs once (``matmul_w8a8_bytes``)."""
+    M, K = ctx.shape("x")
+    N = ctx.shape("y")[1]
+    return KernelWorkload(flops=2.0 * M * K * N,
+                          hbm_bytes=matmul_w8a8_bytes(M, K, N,
+                                                      cfg["scale_gran"]),
+                          dtype="int8")
+
+
+def _w8a8_heuristic(ctx: TuningContext) -> Config:
+    """What a port of the reference's default would hard-code: a mid-size
+    tile, epilogue dequant, the operands' granularity."""
+    return {"block_m": 64, "block_n": 128, "block_k": 64, "num_warps": 4,
+            "dequant": "epilogue",
+            "scale_gran": ctx.extra.get("scale_gran", "per_channel")}
+
+
+def _w8a8_canonical(cfg: Config, ctx: TuningContext) -> Config:
+    """The tile the kernel launches (``matmul_w8a8.clamp_blocks``);
+    dequant stays (int32 or f32 accumulators are distinct programs)."""
+    M, K = ctx.shape("x")
+    N = ctx.shape("y")[1]
+    c = dict(cfg)
+    c["block_m"], c["block_n"], c["block_k"] = mm8_kernel.clamp_blocks(
+        cfg["block_m"], cfg["block_n"], cfg["block_k"], M, N, K)
+    return c
+
+
+def _w8a8_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                   device="cuda"):
+    """Quantized GEMM operands at the granularity the config (or the
+    context's pin, or per channel) asks for: x (M, K) and w (K, N) drawn
+    in f32 and quantized through ``quant.calibrate`` (per row and per
+    column, or per tensor), w stored K-major as ``QTensor`` stores it.
+    Returns ((x, w, x_scale, w_scale), {})."""
+    gran = ((cfg or {}).get("scale_gran")
+            or ctx.extra.get("scale_gran", "per_channel"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = _randn(ctx.shape("x"), torch.float32, gen)
+    w = _randn(ctx.shape("y"), torch.float32, gen)
+    per_tensor = gran == "per_tensor"
+    xs = absmax_scale(x, axis=None if per_tensor else -1)
+    ws = absmax_scale(w, axis=None if per_tensor else 0)
+    return (quantize(x, xs), k_major(quantize(w, ws)), xs, ws), {}
+
+
+def _w8a8_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    args, _ = _memo_operands(("matmul_w8a8", ctx.signature(),
+                              cfg["scale_gran"]),
+                             lambda: _w8a8_operands(ctx, cfg))
+    return KernelRunner(mm8_kernel.matmul_w8a8, *args, **cfg)
+
+
+MATMUL_W8A8 = TunableKernel(
+    name="matmul_w8a8",
+    space=matmul_w8a8_space(),
+    version=1,
+    workload_fn=_w8a8_workload,
+    make_runner=_w8a8_runner,
+    heuristic=_w8a8_heuristic,
+    canonicalize=_w8a8_canonical,
+)
+
+
+def matmul_w8a8_context(chip, M: int, K: int, N: int,
+                        scale_gran: str = "per_channel") -> TuningContext:
+    """Tuning scenario of x (M, K) @ w (K, N) at dtype int8, the
+    operands' scale granularity pinned (the reference's context)."""
+    return TuningContext(chip=chip, shapes={"x": (M, K), "y": (K, N)},
+                         dtype="int8", extra={"scale_gran": scale_gran})
+
+
+def matmul_w8a8(x, w, x_scale, w_scale, *, config: Optional[Config] = None,
+                tuner: Optional[Autotuner] = None):
+    """Autotuned w8a8 GEMM. x (M, K) int8; w (K, N) int8 (K-major on the
+    card); x_scale (M, 1) or one value; w_scale (1, N) or one value.
+    Returns (M, N) float32 with the scales fused into the kernel. The
+    granularity is the weight scale's size, as the reference decides it
+    (a per-token activation scale of one row is one value too)."""
+    gran = "per_tensor" if w_scale.numel() == 1 else "per_channel"
+    if config is None and x.is_cuda:
+        tuner = tuner or default_tuner()
+        M, K = x.shape
+        N = w.shape[1]
+        config = tuner.dispatch_config(
+            MATMUL_W8A8, (M, K, N, gran, x.device.index),
+            lambda: matmul_w8a8_context(device_chip(x.device.index), M, K,
+                                        N, gran))
+    cfg = dict(config or {})
+    cfg.setdefault("scale_gran", gran)
+    return mm8_kernel.matmul_w8a8(x, w, x_scale, w_scale, **cfg)
+
+
+# ===========================================================================
 # RMS norm
 # ===========================================================================
 
@@ -1047,6 +1192,24 @@ def _register_builtin_kernels() -> None:
                       {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
                       dtype="bfloat16", extra={"fill": 0.5, "draft_k": 4},
                       scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=MATMUL_W8A8,
+        scenarios=("prefill", "training", "serving", "quant"),
+        precision="int8",
+        reference=ref.matmul_w8a8,
+        entry_point=matmul_w8a8,
+        operands=_w8a8_operands,
+        description="w8a8 GEMM: int8×int8→int32 MXU accumulate with "
+                    "fused per-channel/per-tensor dequant",
+        bench_cases=(
+            BenchCase("m256", {"x": (256, 256), "y": (256, 256)},
+                      dtype="int8"),
+            BenchCase("proj4k", {"x": (512, 4096), "y": (4096, 4096)},
+                      dtype="int8", scale="paper"),
+            BenchCase("mm8k", {"x": (8192, 8192), "y": (8192, 8192)},
+                      dtype="int8", scale="paper"),
         ),
     ))
     register(KernelSpec(

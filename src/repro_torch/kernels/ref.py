@@ -146,6 +146,16 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
+def matmul_w8a8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """w8a8 GEMM: dequantize both int8 operands, multiply in f32. x (M, K)
+    int8 with x_scale (M, 1) or one value; w (K, N) int8, any strides,
+    with w_scale (1, N) or one value. Returns (M, N) float32."""
+    xs = x_scale.float().reshape(-1, 1)
+    ws = w_scale.float().reshape(1, -1)
+    return (x.float() * xs) @ (w.float() * ws)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS layer norm over the last axis, f32 inside, cast back."""

@@ -6,7 +6,7 @@ batch over dense caches.
       [--speculative [K]] [--quant kv8]
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full \\
-      [--quant kv8]
+      [--quant kv8 | --quant w8a8 [--quant-impl sim|pallas]]
 
 The port of ``repro.launch.serve``. ``--decode-impl`` takes the reference's
 choices, so one command line runs on both launchers:
@@ -31,8 +31,18 @@ it is written, the chunked prefill attends the pool dequantized in f32,
 and decode runs the int8 branch of the ``paged_decode`` CUDA kernel (under
 ``--speculative``, verify the int8 branch of ``paged_verify``); the
 deployment lookups are the canonical scenarios at dtype ``int8`` (q in
-bfloat16), keys of their own. The weight policies (``w8a8``, ``w8a16``)
-are not ported and raise ``NotImplementedError``.
+bfloat16), keys of their own.
+
+``--quant w8a8`` (the dense path only, ``pallas`` or ``full``) makes the
+MLP projections int8 ``QTensor``s with one scale per output channel,
+quantized once after the weights are made (the bf16 originals are
+released), and quantizes their activations per token at run time. Their
+GEMMs run by ``--quant-impl``: ``sim`` (the reference's default) is the
+exact integer-grid float32 product, ``pallas`` the hand-written CUDA
+``matmul_w8a8``, tuned before the timed run at the four contexts the run
+dispatches (prefill and decode rows, for ``wi`` and ``wo``). ``w8a16``,
+and ``w8a8`` on the paged path, are not ported and raise
+``NotImplementedError``.
 
 The dense path (``serve_dense``) follows the reference's: B uniform prompts
 of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill with
@@ -80,6 +90,7 @@ from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import init_params
+from repro_torch.quant import quantize_params
 from repro_torch.serving import Request, ServingEngine
 
 # The canonical deployment scenario of the reference's shipped DB
@@ -270,12 +281,26 @@ def dense_context(cfg: ModelConfig, batch: int, max_len: int, device,
                                                          cfg.dtype)
 
 
+def w8a8_contexts(cfg: ModelConfig, batch: int, prompt_len: int, device):
+    """(kernel, context) of every ``matmul_w8a8`` GEMM a w8a8 dense run
+    dispatches: the MLP's ``wi`` (d_model x 2 d_ff) and ``wo`` (d_ff x
+    d_model) at the prefill's B·P rows and the decode steps' B rows, per
+    channel."""
+    chip = ops.device_chip(device.index or 0)
+    d, f = cfg.d_model, cfg.d_ff_dense or cfg.d_ff
+    return [(ops.MATMUL_W8A8, ops.matmul_w8a8_context(chip, M, K, N))
+            for M in (batch * prompt_len, batch)
+            for K, N in ((d, 2 * f), (f, d))]
+
+
 def serve_dense(args, tuner: Autotuner) -> dict:
     """Static batch with dense per-request caches (int8 under ``--quant
     kv8``): prefill, then G - 1 greedy decode steps through the
     ``gqa_decode_ragged`` or ``gqa_decode_kv8`` kernel (``--decode-impl
-    pallas``) or the plain einsum (``full``). Returns the run report, the
-    generated tokens (B, G) under ``"tokens"``."""
+    pallas``) or the plain einsum (``full``). Under ``--quant w8a8`` the
+    MLP weights are quantized once after they are made and their GEMMs
+    run by ``--quant-impl``. Returns the run report, the generated tokens
+    (B, G) under ``"tokens"``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
@@ -286,17 +311,23 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     quant = None if args.quant == "none" else args.quant
     opts = lm.ForwardOpts(attn_chunk=64,
                           decode_impl="kernel" if kernel else "plain",
-                          quant=quant)
+                          quant=quant, quant_impl=args.quant_impl)
     model = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
+    quantize_params(model, quant)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P),
                                             dtype=np.int64)).to(device)
-    if kernel and device.type == "cuda":
-        tunable, ctx = dense_context(cfg, B, P + G, device, quant)
-        tuned = tuner.best_config(tunable, ctx)
+    if device.type == "cuda":
+        contexts = [dense_context(cfg, B, P + G, device, quant)] if kernel \
+            else []
+        if quant == "w8a8" and args.quant_impl == "pallas":
+            contexts += w8a8_contexts(cfg, B, P, device)
+        for tunable, ctx in contexts:
+            tuned = tuner.best_config(tunable, ctx)
+            print(f"{tunable.name} at the serving context "
+                  f"{dict(ctx.shapes)}: {tuned}")
         ops.release_tuning_operands()
-        print(f"{tunable.name} at the serving context: {tuned}")
 
     def sync():
         if device.type == "cuda":
@@ -320,7 +351,7 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     tokens = torch.cat(outs, 1).cpu().tolist()
     return {
         "arch": cfg.name, "decode_impl": args.decode_impl,
-        "quant": args.quant,
+        "quant": args.quant, "quant_impl": args.quant_impl,
         "device": str(device), "requests": B, "prompt_len": P, "gen": G,
         "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3,
         "tokens_per_s": B * (G - 1) / decode_s if G > 1 else 0.0,
@@ -368,8 +399,15 @@ def build_parser() -> argparse.ArgumentParser:
                     default="none",
                     help="kv8 = int8 caches with per-token scales (dense "
                          "caches, or page pools under --decode-impl paged, "
-                         "with or without --speculative); w8a8 and w8a16 "
-                         "are not ported and raise")
+                         "with or without --speculative); w8a8 = int8 MLP "
+                         "weights and per-token int8 activations (dense "
+                         "path only); w8a16 is not ported and raises")
+    ap.add_argument("--quant-impl", choices=("sim", "pallas"),
+                    default="sim",
+                    help="the w8a8 GEMM: sim = the exact integer-grid "
+                         "float32 product (the reference's default); "
+                         "pallas = the hand-written matmul_w8a8 kernel "
+                         "(CUDA here)")
     ap.add_argument("--tp", type=int, default=1,
                     help="not ported: anything but 1 raises")
     return ap
@@ -377,10 +415,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.quant in ("w8a8", "w8a16"):
+    if args.quant == "w8a16":
+        raise NotImplementedError("--quant w8a16: w8a16 weights are not "
+                                  "ported yet")
+    if args.quant == "w8a8" and args.decode_impl == "paged":
         raise NotImplementedError(
-            f"--quant {args.quant}: the weight policies (QTensor, "
-            "matmul_w8a8) are not ported yet")
+            "--quant w8a8 on the paged path: the paged engine takes no "
+            "weight policy yet (w8a8 serves with --decode-impl pallas|full)")
     if args.tp != 1:
         raise NotImplementedError(f"--tp {args.tp}: tensor-parallel serving "
                                   "is not ported")

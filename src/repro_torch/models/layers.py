@@ -5,6 +5,8 @@ fp32. ``impl="kernel"`` routes the RMS norm through the autotuned Triton
 kernel (``kernels.ops.rmsnorm``) with the weight cast to ``x.dtype`` first,
 as the reference does on its Pallas path; ``impl="plain"`` is the PyTorch
 version, which is what the kernel's wrapper also runs on CPU tensors.
+The MLP's projections may be ``QTensor``s (the w8a8 policy,
+``quant.quantize_params``): ``_proj`` dispatches them to ``qmatmul``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec, empty_parameter, torch_dtype
+from repro_torch.quant.qtensor import QTensor, qmatmul
 
 
 class _Params(nn.Module):
@@ -80,10 +83,19 @@ class MLP(_Params):
                           "wo": ParamSpec((f, d), dt)}, device)
 
 
-def apply_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    g, u = torch.chunk(x @ p.wi, 2, dim=-1)
+def _proj(x: torch.Tensor, w, quant_impl: str = "sim") -> torch.Tensor:
+    """x @ w, where w may be a quantized ``QTensor``: dispatch keys off the
+    weight's type, so every MLP call site quantizes alike."""
+    if isinstance(w, QTensor):
+        return qmatmul(x, w, impl=quant_impl)
+    return x @ w
+
+
+def apply_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig, *,
+              quant_impl: str = "sim") -> torch.Tensor:
+    g, u = torch.chunk(_proj(x, p.wi, quant_impl), 2, dim=-1)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p.wo
+    return _proj(h, p.wo, quant_impl)
 
 
 # --- embeddings ----------------------------------------------------------------

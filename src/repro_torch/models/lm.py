@@ -18,7 +18,9 @@ and paged pools (continuous batching):
     verify_step_paged    — K positions per sequence (speculative verify)
 The steps write the caches in place and return them with f32 logits. The
 dense caches and the paged pools (the speculative verify's too) are int8
-with f32 scales under ``ForwardOpts(quant="kv8")``. Both paths serve
+with f32 scales under ``ForwardOpts(quant="kv8")``; a model whose MLP
+weights ``quant.quantize_params`` made QTensors (w8a8) runs their GEMMs by
+``ForwardOpts.quant_impl``. Both paths serve
 ``attn_mlp`` dense archs with RoPE and no window, MLA, learned positions
 or prefix embeddings (``_check_supported``).
 """
@@ -49,10 +51,15 @@ class ForwardOpts:
     decode_impl: str = "kernel"
     attn_chunk: int = 512            # KV chunk of chunked prefill
     norm_impl: str = "plain"         # plain | kernel (rms_norm)
-    # Quantization policy (repro_torch.quant): None | kv8 (w8a8 and w8a16
-    # are later slices). kv8 makes the dense caches and the page pools
-    # int8 with per-token f32 scales.
+    # Quantization policy (repro_torch.quant): None | w8a8 | kv8 (w8a16 is
+    # a later slice). kv8 makes the dense caches and the page pools int8
+    # with per-token f32 scales; w8a8 takes effect through
+    # quant.quantize_params (QTensor weights dispatch the quantized GEMM
+    # wherever they appear). quant_impl picks that GEMM: "sim" = the exact
+    # integer-grid float32 product, "pallas" = the autotuned matmul_w8a8
+    # kernel (CUDA on the card), the reference's names.
     quant: Optional[str] = None
+    quant_impl: str = "sim"          # sim | pallas
 
     def kv_dtype(self) -> Optional[str]:
         pol = get_policy(self.quant)
@@ -122,7 +129,8 @@ def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
 
 def _mlp_residual(block: Block, h, cfg, opts):
     return h + apply_mlp(block.ffn, apply_norm(block.ln2, h, cfg,
-                                               impl=opts.norm_impl), cfg)
+                                               impl=opts.norm_impl), cfg,
+                         quant_impl=opts.quant_impl)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",

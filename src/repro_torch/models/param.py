@@ -8,7 +8,9 @@ creates them with ``empty_parameter``. From that single source:
     device with the reference's rules (normal × 1/√fan_in, zeros, ones);
   * ``from_numpy_tree(params_np, cfg)`` — the reference's parameter tree,
     handed over as numpy arrays nested as ``lm_specs`` nests them, loaded
-    into the port's modules (stacked scan units are unstacked per layer).
+    into the port's modules (stacked scan units are unstacked per layer);
+    the reference's quantized weights (QTensor leaves: values and scale)
+    become the port's ``QTensor``s, sliced per layer as well.
 
 Parameters are created with ``requires_grad=False``: the port serves.
 """
@@ -84,9 +86,29 @@ def _to_tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _qtensor(leaf: Any, index: Optional[int]):
+    """The port's QTensor from a reference QTensor leaf (``values`` int8
+    or integer-grid float32, ``scale`` with kept dims), layer ``index`` of
+    a stacked unit: (reps, K, N) values and (reps, 1, N) scales."""
+    from repro_torch.quant.qtensor import QTensor, k_major
+    values, scale = (_to_tensor(a if index is None else a[index])
+                     for a in (leaf.values, leaf.scale))
+    return QTensor(k_major(values.to(torch.int8)), scale,
+                   bool(leaf.act_quant))
+
+
 def _load_module_(mod: nn.Module, tree: Dict[str, Any], index: Optional[int]):
     for name, spec in getattr(mod, "param_specs", {}).items():
-        src = _to_tensor(tree[name] if index is None else tree[name][index])
+        leaf = tree[name]
+        if hasattr(leaf, "values") and hasattr(leaf, "scale"):
+            qt = _qtensor(leaf, index)
+            if qt.shape != tuple(spec.shape):
+                raise ValueError(f"{type(mod).__name__}.{name}: reference "
+                                 f"shape {qt.shape} != {tuple(spec.shape)}")
+            delattr(mod, name)
+            setattr(mod, name, qt)
+            continue
+        src = _to_tensor(leaf if index is None else leaf[index])
         if tuple(src.shape) != tuple(spec.shape):
             raise ValueError(f"{type(mod).__name__}.{name}: reference shape "
                              f"{tuple(src.shape)} != {tuple(spec.shape)}")
@@ -99,7 +121,9 @@ def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
     ``repro.models.lm.lm_specs``: ``embed.tok``, ``final_ln.w``,
     ``u{i}.l{j}.{ln1,mix,ln2,ffn}``) into a new ``lm.LM``. A unit scanned
     ``reps > 1`` times carries a leading stack axis that is unstacked
-    into consecutive layers."""
+    into consecutive layers. Quantized MLP weights (the reference's
+    ``quantize_params``: QTensor leaves with numpy values and scale) load
+    as the port's ``QTensor``s."""
     from repro_torch.models.lm import LM
     model = LM(cfg, device=torch.device(device))
     with torch.no_grad():

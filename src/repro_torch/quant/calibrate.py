@@ -1,8 +1,10 @@
 """Symmetric int8 quantization and the kv8 cache wire format (the port of
-``repro.quant.calibrate``, the part the kv8 cache uses).
+``repro.quant.calibrate``).
 
 x -> round(x / scale) clipped to [-127, 127], with the scale the absmax of
-the reduced axes over 127. All math is float32 whatever the input dtype (a
+the reduced axes over 127 (``absmax_scale``), or for weights calibrated
+offline the P-th percentile of |x| over 127 (``percentile_scale``). All
+math is float32 whatever the input dtype (a
 bfloat16 input is cast first); ``round`` is half to even, as ``jnp.round``
 is, so the port writes the reference's bytes. Scales are clamped to a tiny
 positive floor so an all-zero row quantizes to zeros, not NaNs.
@@ -26,6 +28,50 @@ def absmax_scale(x: torch.Tensor, axis: Axis = None) -> torch.Tensor:
     a = a.amax(dim=axis, keepdim=True) if axis is not None else \
         a.amax().reshape((1,) * x.dim())
     return torch.clamp(a, min=_SCALE_FLOOR) / QMAX
+
+
+def _reduced_last(x: torch.Tensor, axis: Axis) -> Tuple[torch.Tensor,
+                                                        Tuple[int, ...]]:
+    """``x`` with the kept axes first and the reduced ones flattened into
+    the last, and the kept-dims shape of a reduction over ``axis``."""
+    if axis is None:
+        return x.reshape(-1), (1,) * x.dim()
+    axes = sorted({a % x.dim() for a in
+                   ((axis,) if isinstance(axis, int) else axis)})
+    keep = [d for d in range(x.dim()) if d not in axes]
+    moved = x.permute(*keep, *axes)
+    flat = moved.reshape(*[x.shape[d] for d in keep], -1)
+    return flat, tuple(1 if d in axes else x.shape[d]
+                       for d in range(x.dim()))
+
+
+def percentile_scale(x: torch.Tensor, pct: float = 99.9,
+                     axis: Axis = None) -> torch.Tensor:
+    """P-th percentile of |x| over ``axis`` (kept dims, float32), linearly
+    interpolated between the two nearest order statistics in float32 as
+    ``jnp.percentile`` computes it (low * (1 - w) + high * w)."""
+    if not 0.0 < pct <= 100.0:
+        raise ValueError(f"percentile must be in (0, 100], got {pct}")
+    flat, shape = _reduced_last(x.float().abs(), axis)
+    s = torch.sort(flat, dim=-1).values
+    n = s.shape[-1]
+    q = (torch.tensor(pct, dtype=torch.float32) / 100.0) * float(n - 1)
+    low = torch.floor(q)
+    high_w = q - low
+    lo, hi = (int(torch.clamp(v, 0, n - 1)) for v in (low, torch.ceil(q)))
+    a = s[..., lo] * (1.0 - high_w) + s[..., hi] * high_w
+    return torch.clamp(a.reshape(shape), min=_SCALE_FLOOR) / QMAX
+
+
+def compute_scale(x: torch.Tensor, *, method: str = "absmax",
+                  axis: Axis = None, percentile: float = 99.9
+                  ) -> torch.Tensor:
+    if method == "absmax":
+        return absmax_scale(x, axis=axis)
+    if method == "percentile":
+        return percentile_scale(x, percentile, axis=axis)
+    raise ValueError(f"unknown calibration method {method!r} "
+                     "(absmax | percentile)")
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -594,7 +594,8 @@ class ServingEngine:
         policy = get_policy(opts.quant)
         if policy is not None and policy.quantizes_weights:
             raise NotImplementedError(
-                f"quant={opts.quant!r}: the weight policies are not ported")
+                f"quant={opts.quant!r}: the weight policies are not ported "
+                f"to the paged engine (w8a8 serves on the dense path)")
         kv_dtype = opts.kv_dtype()
         self.cache = lm.init_paged_cache(cfg, num_pages, page_size,
                                          device=self.device,

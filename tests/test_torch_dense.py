@@ -374,7 +374,6 @@ def test_serve_dense_full_runs_on_the_cpu():
     (["--decode-impl", "paged", "--quant", "kv8", "--speculative"],
      RuntimeError),
     (["--decode-impl", "full", "--tp", "2"], NotImplementedError),
-    (["--decode-impl", "full", "--quant", "w8a8"], NotImplementedError),
     (["--decode-impl", "pallas", "--quant", "w8a16"], NotImplementedError),
 ])
 def test_serve_dense_refuses(argv, exc):

@@ -16,18 +16,25 @@ from repro_torch.core import Autotuner, set_default_tuner
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
+from repro_torch.kernels import matmul_w8a8 as mm8_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import rms_norm as rms_kernel
 from repro_torch.models import lm
 from repro_torch.models.param import init_params
-from repro_torch.quant import quantize_kv
+from repro_torch.quant import (
+    absmax_scale, quantize, quantize_kv, quantize_params,
+)
+from repro_torch.quant.qtensor import k_major
 from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the w8a8 GEMM against its plain version (dequantize, then an f32 product):
+# the reference's int8 tolerance, atol and rtol
+W8A8_TOL = 2e-3
 # int8 caches: the kernel scales the finished dot product and the
 # probability where the plain version dequantizes first, so an f32 q takes
 # the reference's int8 tolerance (tests/test_kernel_oracles.py); bf16 q
@@ -741,3 +748,137 @@ def test_kv8_spec_engine_on_card_matches_cpu(cuda):
     """kv8 speculative decode (K 4) through the int8 branch of
     paged_verify: drafts rejected and accepted over int8 pools."""
     _kv8_engine_card_vs_cpu(cuda, 4)
+
+
+def w8a8_operands(seed, M, K, N, gran, device):
+    """x (M, K) and w (K, N) drawn in f32 and quantized per row and per
+    column (or per tensor), w K-major as ``QTensor`` stores it: (x, w,
+    x_scale, w_scale)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=device)
+    w = torch.randn(K, N, generator=g, device=device)
+    per_tensor = gran == "per_tensor"
+    xs = absmax_scale(x, axis=None if per_tensor else -1)
+    ws = absmax_scale(w, axis=None if per_tensor else 0)
+    return quantize(x, xs), k_major(quantize(w, ws)), xs, ws
+
+
+# (M, K, N): decode's 8 rows with a ragged K and N, a ragged size past one
+# tile in each dimension, and phi4-mini's decode wo (K 8192)
+W8A8_SHAPES = [(8, 200, 96), (100, 3072, 200), (257, 8192, 3072)]
+
+
+@pytest.mark.parametrize("shape", W8A8_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_matmul_w8a8_every_valid_config_matches_plain(cuda, shape):
+    """Every valid config, both granularities, against the plain version;
+    the epilogue configs equal the exact integer-grid product bit for bit
+    (the sim path's arithmetic: float32 sums of integers stay exact here,
+    and the scales multiply in the same order)."""
+    M, K, N = shape
+    chip = ops.device_chip(cuda.index or 0)
+    for gran in ("per_channel", "per_tensor"):
+        args = w8a8_operands(M + K + N, M, K, N, gran, cuda)
+        xq, wq, xs, ws = args
+        want = ref.matmul_w8a8(*args)
+        acc = xq.float() @ wq.float()
+        exact = acc * (xs * ws) if gran == "per_tensor" else acc * xs * ws
+        ctx = ops.matmul_w8a8_context(chip, M, K, N, gran)
+        configs = ops.MATMUL_W8A8.space.valid_configs(ctx)
+        assert configs and all(c["scale_gran"] == gran for c in configs)
+        for cfg in configs:
+            before = mm8_kernel.matmul_w8a8.launches
+            out = ops.matmul_w8a8(*args, config=cfg)
+            torch.cuda.synchronize()
+            assert mm8_kernel.matmul_w8a8.launches == before + 1
+            assert out.shape == (M, N) and out.dtype == torch.float32
+            torch.testing.assert_close(out, want, atol=W8A8_TOL,
+                                       rtol=W8A8_TOL,
+                                       msg=lambda m: f"{cfg}: {m}")
+            if cfg["dequant"] == "epilogue":
+                assert torch.equal(out, exact), cfg
+
+
+def test_matmul_w8a8_rejects_what_it_does_not_take(cuda):
+    x, w, xs, ws = w8a8_operands(0, 16, 64, 64, "per_channel", cuda)
+    with pytest.raises(ValueError, match="K-major"):
+        mm8_kernel.matmul_w8a8(x, w.contiguous(), xs, ws)
+    with pytest.raises(ValueError, match="int8"):
+        mm8_kernel.matmul_w8a8(x.float(), w, xs, ws)
+    with pytest.raises(ValueError, match="per_channel scales"):
+        mm8_kernel.matmul_w8a8(x, w, xs[:8], ws)
+    with pytest.raises(ValueError, match="float32"):
+        mm8_kernel.matmul_w8a8(x, w, xs.double(), ws.double())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        mm8_kernel.matmul_w8a8(x[:, :6].contiguous(), k_major(w[:6]),
+                               xs, ws)
+    with pytest.raises(ValueError, match="block_m"):
+        mm8_kernel.matmul_w8a8(x, w, xs, ws, block_m=48)
+    with pytest.raises(ValueError, match="block_k"):
+        mm8_kernel.matmul_w8a8(x, w, xs, ws, block_k=48)
+    big = w8a8_operands(1, 128, 64, 256, "per_channel", cuda)
+    with pytest.raises(ValueError, match="registers"):
+        mm8_kernel.matmul_w8a8(*big, block_m=128, block_n=256, num_warps=4)
+    with pytest.raises(ValueError, match="registers"):
+        mm8_kernel.matmul_w8a8(*big, block_m=128, block_n=128, num_warps=4,
+                               dequant="inline")
+    lib = mm8_kernel.LIB.load()
+    for bm, bn, bk in ((16, 64, 64), (128, 256, 128), (64, 128, 32),
+                       (32, 256, 96)):
+        assert lib.matmul_w8a8_smem_bytes(bm, bn, bk) == \
+            mm8_kernel.smem_bytes(bm, bn, bk)
+    # the C entry refuses what its templates do not instantiate
+    out = torch.empty(16, 64, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.matmul_w8a8_launch(
+        x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), 16, 64, 64, 128, 256, 64, 4, 0, 16, 0, stream) != 0
+
+
+def test_w8a8_dense_serving_on_card_matches_cpu(cuda):
+    """Smoke phi4-mini in f32 with w8a8 MLP weights: dense prefill and
+    decode steps on the card through matmul_w8a8 (and gqa_decode) give the
+    CPU's tokens (its plain versions), logits at the int8 tolerance, with
+    two launches a layer and forward pass; the sim path on the card
+    launches none and gives the CPU sim path's tokens at f32."""
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        cfg = get_config("phi4-mini-3.8b", smoke=True)
+        model = quantize_params(init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"), "w8a8")
+        prompts = torch.from_numpy(np.random.default_rng(3).integers(
+            1, cfg.vocab_size, (3, 11)))
+        G = 6
+
+        def run(m, device, impl, quant_impl):
+            opts = lm.ForwardOpts(attn_chunk=4, decode_impl=impl,
+                                  quant="w8a8", quant_impl=quant_impl)
+            logits, cache = lm.prefill(m, cfg, prompts.to(device),
+                                       max_len=11 + G, opts=opts)
+            rows, tok = [logits.cpu()], torch.argmax(logits, -1,
+                                                     keepdim=True)
+            toks = [tok.cpu()]
+            for i in range(G - 1):
+                logits, cache = lm.decode_step(m, cfg, tok, cache, 11 + i,
+                                               opts)
+                tok = torch.argmax(logits, -1, keepdim=True)
+                rows.append(logits.cpu())
+                toks.append(tok.cpu())
+            return torch.cat(toks, 1), rows
+
+        results = {q: run(model, "cpu", "plain", q) for q in ("pallas",
+                                                              "sim")}
+        model.to(cuda)
+        assert model.layers[0].ffn.wi.values.stride() == (1, cfg.d_model)
+        for quant_impl, per_pass, tol in (("pallas", 2, W8A8_TOL),
+                                          ("sim", 0, 1e-4)):
+            before = mm8_kernel.matmul_w8a8.launches
+            toks, rows = run(model, cuda, "kernel", quant_impl)
+            assert mm8_kernel.matmul_w8a8.launches == \
+                before + per_pass * G * cfg.n_layers
+            cpu_toks, cpu_rows = results[quant_impl]
+            assert torch.equal(toks, cpu_toks), quant_impl
+            for a, b in zip(rows, cpu_rows):
+                torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    finally:
+        set_default_tuner(None)

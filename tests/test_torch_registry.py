@@ -1,6 +1,6 @@
-"""The port's kernel registry held against the reference's: the six ported
-kernels under the same names, scenarios, precision and bench cases, and
-the registry's own rules."""
+"""The port's kernel registry held against the reference's: the seven
+ported kernels under the same names, scenarios, precision and bench cases,
+and the registry's own rules."""
 
 import pytest
 import torch
@@ -11,7 +11,8 @@ from repro_torch.core import TunableKernel, cpu_host
 from repro_torch.kernels import registry
 
 PORTED = ("decode_attention", "gqa_decode_kv8", "gqa_decode_ragged",
-          "paged_decode", "paged_verify", "rms_norm")
+          "matmul_w8a8", "paged_decode", "paged_verify", "rms_norm")
+INT8 = ("gqa_decode_kv8", "matmul_w8a8")
 
 
 def _cases(spec):
@@ -25,7 +26,7 @@ def test_ported_kernels_match_the_reference_registry(name):
     assert ours.name == theirs.name == name
     assert ours.scenarios == theirs.scenarios
     assert ours.precision == theirs.precision
-    assert ours.precision == ("int8" if name == "gqa_decode_kv8" else "float")
+    assert ours.precision == ("int8" if name in INT8 else "float")
     assert ours.description == theirs.description
     assert _cases(ours) == _cases(theirs)
     assert ours.reference is not None and ours.entry_point is not None
@@ -40,10 +41,11 @@ def test_list_kernels_is_a_subset_of_the_reference():
                          "gqa_decode_ragged", "paged_decode", "paged_verify",
                          "rms_norm"}
     assert registry.kernel_names(scenario="speculative") == ["paged_verify"]
-    assert registry.kernel_names(precision="int8") == ["gqa_decode_kv8"]
+    assert registry.kernel_names(precision="int8") == list(INT8)
     assert registry.kernel_names(scenario="quant", precision="int8") == \
-        jreg.kernel_names(scenario="quant", precision="int8")[:1] == \
-        ["gqa_decode_kv8"]
+        jreg.kernel_names(scenario="quant", precision="int8") == list(INT8)
+    assert registry.kernel_names(scenario="prefill") == \
+        ["matmul_w8a8", "rms_norm"]
     assert set(registry.scenarios()) <= set(jreg.scenarios())
 
 
@@ -84,7 +86,19 @@ def test_operands_feed_entry_point_and_reference(name):
         got = spec.entry_point(*args, **kw, config=cfg)
         assert got.shape == want.shape and torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-        if spec.precision == "int8":
+        if name == "matmul_w8a8":
+            # int8 x (M, K) and w (K, N) stored K-major, as QTensor holds
+            # a weight, with the config's granularity of f32 scales
+            x, w, xs, ws = args
+            M, K = case.shapes["x"]
+            N = case.shapes["y"][1]
+            assert x.dtype == w.dtype == torch.int8 and not kw
+            assert w.shape == (K, N) and w.stride() == (1, K)
+            assert xs.dtype == ws.dtype == torch.float32
+            n = 1 if cfg["scale_gran"] == "per_tensor" else None
+            assert xs.numel() == (n or M) and ws.numel() == (n or N)
+            assert got.dtype == torch.float32 and got.shape == (M, N)
+        elif spec.precision == "int8":
             # the int8 operands are the serving layout: (B, Hkv, T, D) and
             # (B, Hkv, T) views of caches quantized through the wire format
             q, k, v, ks, vs = args

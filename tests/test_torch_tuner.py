@@ -728,3 +728,139 @@ def test_paged_verify_dispatch_key_and_fixed_config_follow_the_pool(
     assert ops.paged_verify_fixed_config(4, 3, 128, 256, 2, 2)[
         "block_kv"] == 128
     assert tuner.stats()["misses"] == 2
+
+
+def test_chip_spec_prices_int8_work():
+    """The int8 tensor-core peak from the data sheets: ``flops_for_dtype``
+    takes "int8", as the reference's does, so an int8 GEMM workload has a
+    bound."""
+    pcie = chip_from_properties("NVIDIA H100 PCIe", 114, 232448, 50 << 20,
+                                80 << 30)
+    assert H100_SXM.flops_for_dtype("int8") == H100_SXM.peak_int8_ops \
+        == 1979e12
+    assert pcie.flops_for_dtype("int8") == 1513e12
+    assert cpu_host().flops_for_dtype("int8") > 0
+    with pytest.raises(KeyError, match="int4"):
+        H100_SXM.flops_for_dtype("int4")
+
+
+# phi4-mini's four w8a8 serving GEMMs: (M, K, N) of decode wi and wo (8
+# rows) and prefill wi and wo (8 prompts of 512)
+W8A8_SERVING = [(8, 3072, 16384), (8, 8192, 3072), (4096, 3072, 16384),
+                (4096, 8192, 3072)]
+
+
+def test_matmul_w8a8_space_workload_and_canonical_dedupe():
+    """The w8a8 GEMM's Hopper space: tens of valid configs a granularity,
+    each within shared memory and the registers the source instantiates;
+    a workload of 2·M·K·N int8 operations over the bytes each operand
+    needs once; the roofline bounds of the serving GEMMs (decode by bytes,
+    prefill by operations); configs clamping to one tile timed once."""
+    from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+    space = ops.MATMUL_W8A8.space
+    ctx = ops.matmul_w8a8_context(H100_SXM, 8, 3072, 16384)
+    valid = space.valid_configs(ctx)
+    assert valid == _valid_by_brute_force(space, ctx)
+    assert len(valid) == 86
+    for c in valid:
+        assert c["scale_gran"] == "per_channel"
+        assert mm8_kernel.regs_fit(c["block_m"], c["block_n"],
+                                   c["num_warps"], c["dequant"])
+        assert ops._w8a8_smem(c, ctx) <= H100_SXM.smem_per_block
+    assert space.why_invalid(dict(valid[0], block_m=128, block_n=256,
+                                  num_warps=4), ctx) == "registers"
+    assert mm8_kernel.smem_bytes(128, 256, 128) == 2 * 384 * 144
+    heur = ops.MATMUL_W8A8.default_config(ctx)
+    assert heur in valid and heur["dequant"] == "epilogue"
+    # bytes and bounds of the serving GEMMs (PERF.md row 4)
+    want_bytes = [50946080, 25341984, 331431936, 109080576]
+    want_ms = [50946080 / 3.35e9, 25341984 / 3.35e9,
+               2 * 4096 * 3072 * 16384 / 1979e9,
+               2 * 4096 * 8192 * 3072 / 1979e9]
+    for (M, K, N), nbytes, ms in zip(W8A8_SERVING, want_bytes, want_ms):
+        assert ops.matmul_w8a8_bytes(M, K, N, "per_channel") == \
+            M * K + K * N + 4 * M * N + 4 * (M + N) == nbytes
+        w = ops.MATMUL_W8A8.workload_fn(
+            heur, ops.matmul_w8a8_context(H100_SXM, M, K, N))
+        assert w.flops == 2 * M * K * N and w.dtype == "int8"
+        t, by = roofline_seconds(w, H100_SXM)
+        assert by == ("bytes" if M == 8 else "operations")
+        assert t * 1e3 == pytest.approx(ms)
+    assert ops.matmul_w8a8_bytes(8, 64, 32, "per_tensor") == \
+        8 * 64 + 64 * 32 + 4 * 8 * 32 + 8
+    # decode's 8 rows clamp every block_m to 16: 24 programs of 86
+    canon = {tuple(sorted(ops._w8a8_canonical(c, ctx).items()))
+             for c in valid}
+    assert len(canon) == 24
+    assert {dict(c)["block_m"] for c in canon} == {16}
+    backend = _FakeBackend(lambda c: 1.0 + c["block_k"])
+    entry = Autotuner(backend=backend).tune(ops.MATMUL_W8A8, ctx)
+    assert backend.calls == len(canon) < entry.n_evaluated == 86
+    assert mm8_kernel.clamp_blocks(128, 256, 128, 100, 96, 200) == \
+        (128, 128, 128)
+    assert mm8_kernel.clamp_blocks(64, 256, 128, 8, 3072, 16) == \
+        (16, 256, 32)
+
+
+def test_matmul_w8a8_operands_and_the_scale_gran_pin(monkeypatch):
+    """Operands at the config's granularity, w K-major; the operands pin
+    scale_gran (a deployment sweep without the pin takes both); the
+    dispatch key and the context are the weight scale's granularity and
+    dtype "int8", so per-channel and per-tensor operands tune apart."""
+    free = TuningContext(chip=H100_SXM, shapes={"x": (64, 96), "y": (96, 32)},
+                         dtype="int8")
+    space = ops.MATMUL_W8A8.space
+    grans = {c["scale_gran"] for c in space.valid_configs(free)}
+    assert grans == {"per_channel", "per_tensor"}
+    pinned = ops.matmul_w8a8_context(H100_SXM, 64, 96, 32, "per_tensor")
+    valid = space.valid_configs(pinned)
+    assert {c["scale_gran"] for c in valid} == {"per_tensor"}
+    assert space.why_invalid(dict(valid[0], scale_gran="per_channel"),
+                             pinned) == "scale_gran==operands"
+    assert ops.MATMUL_W8A8.default_config(pinned)["scale_gran"] == \
+        "per_tensor"
+    for gran, n in (("per_channel", None), ("per_tensor", 1)):
+        (x, w, xs, ws), kw = ops._w8a8_operands(
+            free, {"scale_gran": gran}, "cpu")
+        assert not kw and x.dtype == w.dtype == torch.int8
+        assert x.shape == (64, 96) and w.shape == (96, 32)
+        assert w.stride() == (1, 96) and x.is_contiguous()
+        assert xs.numel() == (n or 64) and ws.numel() == (n or 32)
+        assert int(x.abs().max()) == int(w.abs().max()) == 127
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    seen = []
+
+    class Recording(Autotuner):
+        def dispatch_config(self, kernel, key, make_ctx):
+            seen.append((key, make_ctx()))
+            return super().dispatch_config(kernel, key, make_ctx)
+
+    class FakeCuda:
+        """Only what the config resolution reads off a tensor."""
+
+        def __init__(self, *shape):
+            self.shape = shape
+            self.is_cuda = True
+            self.device = torch.device("cuda", 0)
+
+    calls = []
+    monkeypatch.setattr(ops.mm8_kernel, "matmul_w8a8",
+                        lambda *a, **k: calls.append(k))
+    tuner = Recording(backend=_FakeBackend(lambda c: 1.0),
+                      on_miss="heuristic")
+    x, w = FakeCuda(8, 96), FakeCuda(96, 32)
+    for ws in (torch.ones(1, 32), torch.ones(1, 1)):
+        ops.matmul_w8a8(x, w, torch.ones(8, 1), ws, tuner=tuner)
+    (k_ch, c_ch), (k_t, c_t) = seen
+    assert k_ch != k_t and c_ch.signature() != c_t.signature()
+    assert c_ch.dtype == c_t.dtype == "int8"
+    assert c_ch.extra == {"scale_gran": "per_channel"}
+    assert c_t.extra == {"scale_gran": "per_tensor"}
+    assert [k["scale_gran"] for k in calls] == ["per_channel", "per_tensor"]
+    # a config handed in takes the operands' granularity where it names
+    # none, and no lookup is made
+    ops.matmul_w8a8(x, w, torch.ones(8, 1), torch.ones(1, 1),
+                    config={"block_m": 16, "block_n": 64, "block_k": 64,
+                            "num_warps": 4, "dequant": "inline"},
+                    tuner=tuner)
+    assert calls[-1]["scale_gran"] == "per_tensor" and len(seen) == 2
