@@ -11,8 +11,9 @@ Phases, each failing loudly:
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
      ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
      ``gqa_decode`` (which also serves ``decode_attention``),
-     ``gqa_decode_kv8`` (the same kernel template built for int8 caches)
-     and ``matmul_w8a8``, and the Triton compile of ``rms_norm``;
+     ``gqa_decode_kv8`` (the same kernel template built for int8 caches),
+     ``matmul_w8a8`` and ``flash_attention``, and the Triton compile of
+     ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
@@ -22,7 +23,10 @@ Phases, each failing loudly:
      verify at depth 5 over float and int8 pools); every valid
      ``matmul_w8a8`` config of each scale granularity on ragged shapes
      and the four w8a8 serving shapes (its epilogue configs also equal to
-     the exact integer-grid product) and its refusals; then the
+     the exact integer-grid product) and its refusals; every valid
+     ``flash_attention`` config (o and lse) at the serving prefill and at
+     ragged lengths, groups 1, 3 and 4, D 96 and 120, windows, a query
+     offset, non-causal, f32, and rows that see no key; then the
      registry's oracle sweep: every valid config of every registered
      kernel's host bench cases against its reference;
   4. tuning: the serve entry point's deployment lookups (``paged_decode``
@@ -36,6 +40,8 @@ Phases, each failing loudly:
      timed; the four ``matmul_w8a8`` contexts of a w8a8 dense run
      (prefill and decode rows, ``wi`` and ``wo``) tuned and timed beside
      the plain version, ``torch._int_mm`` and a bf16 ``torch.matmul``;
+     the ``--attn-impl pallas`` prefill's ``flash_attention`` context
+     tuned and timed beside the plain version and SDPA;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -56,7 +62,10 @@ Phases, each failing loudly:
      of its streams equal the bf16 run's; then ``--quant w8a8`` (int8 MLP
      weights, per-token int8 activations) with ``--quant-impl pallas``
      (every MLP GEMM through ``matmul_w8a8``) and ``sim``, streams equal
-     8/8 up to a tie, and by ``--decode-impl full``;
+     8/8 up to a tie, and by ``--decode-impl full``; then ``--decode-impl
+     pallas --attn-impl pallas`` (the prefill through ``flash_attention``,
+     32 launches, none in the chunked runs), streams equal the chunked
+     run's up to a tie;
   6. one full-width decode step (float pools and int8 pools) and one
      full-width verify step (float pools and int8 pools) through the
      kernels against the same step through the plain versions on the same
@@ -65,6 +74,9 @@ Phases, each failing loudly:
      einsum, and one w8a8 dense step through ``matmul_w8a8`` against the
      sim GEMMs, with the residual stream compared layer by layer, and a
      profiled window of each (wall time, device time, device busy share);
+     one full-width dense prefill through ``flash_attention`` against the
+     chunked prefill (KV chunks of 64), logits held, and a profile of
+     each;
      then a small f32 model whose drafts are often rejected,
      served speculatively on the CPU (plain versions) and on the card
      (kernels), and by plain decode on the card: the same tokens and
@@ -130,6 +142,7 @@ def build_kernels() -> dict:
     """nvcc for each CUDA kernel (one process each) and Triton's compile of
     rms_norm (on its first launch), started together; returns seconds per
     build."""
+    from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.kernels import gqa_decode as gqa_kernel
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.kernels import paged_decode as pd_kernel
@@ -138,7 +151,8 @@ def build_kernels() -> dict:
     secs, errors = {}, []
     libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
             "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8,
-            "matmul_w8a8": mm8_kernel.LIB}
+            "matmul_w8a8": mm8_kernel.LIB,
+            "flash_attention": fa_kernel.LIB}
 
     def nvcc(name):
         t = time.perf_counter()
@@ -859,6 +873,208 @@ def time_w8a8(chip, M, K, N, cfg) -> dict:
     return out
 
 
+# flash_attention's cases, (label, B, Hq, Hkv, Sq, Skv, D, dtype, causal,
+# window, q_offset): the serving prefill, ragged lengths, groups 1, 3 and 4,
+# D 96 and 120, windows of 16 and 100, a query offset, non-causal, f32 at
+# F32_TOL (TF32 off), and rows that see no key inside running tiles; every
+# case with its lse
+FLASH_SERVING = (8, 24, 8, 512, 512, 128)
+FLASH_CASES = [
+    ("serving", *FLASH_SERVING, torch.bfloat16, True, None, 0),
+    ("ragged f32 group 4 window 100", 2, 8, 2, 200, 333, 128, torch.float32,
+     True, 100, 0),
+    ("ragged group 1 D 96", 2, 8, 8, 333, 200, 96, torch.bfloat16, True,
+     None, 0),
+    ("D 120 group 3 window 16", 2, 12, 4, 300, 300, 120, torch.bfloat16,
+     True, 16, 0),
+    ("f32 D 96 q_offset 211", 2, 6, 2, 77, 300, 96, torch.float32, True,
+     None, 211),
+    ("non-causal group 4 D 64", 2, 8, 2, 200, 333, 64, torch.bfloat16,
+     False, None, 0),
+    ("non-causal f32 window 100 q_offset 30", 1, 4, 1, 128, 200, 128,
+     torch.float32, False, 100, 30),
+    ("rows with no visible key", 1, 8, 2, 64, 40, 128, torch.bfloat16, True,
+     16, 40),
+]
+
+
+def flash_case(seed, B, Hq, Hkv, Sq, Skv, D, dtype):
+    """q, k, v as (B, H, S, D) views of (B, S, H, D) tensors, as the
+    prefill hands them to the kernel."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    return (rand(B, Sq, Hq, D).transpose(1, 2),
+            rand(B, Skv, Hkv, D).transpose(1, 2),
+            rand(B, Skv, Hkv, D).transpose(1, 2))
+
+
+def check_flash_attention(chip) -> float:
+    """Every valid flash_attention config against the plain version on the
+    card at FLASH_CASES: o and lse within the dtype's tolerance, rows with
+    no visible key exactly zero with lse -1e30; the heuristic config timed
+    at the serving shape. Returns the worst error."""
+    from repro_torch.kernels import ops, ref
+    worst_all = 0.0
+    for label, B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset \
+            in FLASH_CASES:
+        q, k, v = flash_case(Sq + D, B, Hq, Hkv, Sq, Skv, D, dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  return_lse=True)
+        want, want_lse = ref.flash_attention(q, k, v, **kw)
+        want = want.float()
+        empty = want_lse[0, 0] <= -1e30
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        ctx = ops.attention_context(chip, B, Hq, Hkv, Sq, Skv, D,
+                                    ops.dtype_name(dtype), causal, window)
+        configs = ops.FLASH_ATTENTION.space.valid_configs(ctx)
+        if not configs:
+            raise AssertionError(f"flash_attention {label}: no valid config")
+        worst = 0.0
+        for cfg in configs:
+            got, lse = ops.attention(q, k, v, config=cfg, **kw)
+            got = got.float()
+            err = max(float((got - want).abs().max()),
+                      float((lse - want_lse).abs().max()))
+            if not (torch.allclose(got, want, atol=tol, rtol=tol)
+                    and torch.allclose(lse, want_lse, atol=tol, rtol=tol)) \
+                    or got[:, :, empty].any() \
+                    or not (lse[:, :, empty] == -1e30).all():
+                raise AssertionError(f"flash_attention {label} {cfg}: max "
+                                     f"abs err {err} over tolerance {tol}")
+            worst = max(worst, err)
+        worst_all = max(worst_all, worst)
+        print(f"flash_attention {label} (B {B}, {Hq}/{Hkv} heads of {D}, Sq "
+              f"{Sq}, Skv {Skv}, {ops.dtype_name(dtype)}, causal {causal}, "
+              f"window {window}, q_offset {q_offset}; {int(empty.sum())} "
+              f"rows see no key): {len(configs)} configs ok, max_abs_err "
+              f"{worst:.3g} (o and lse, tol {tol})")
+        if label == "serving":
+            heur = ops.FLASH_ATTENTION.default_config(ctx)
+            print(f"  heuristic {heur}: " + json.dumps(time_flash(chip, heur)))
+    return worst_all
+
+
+def time_flash(chip, cfg) -> dict:
+    """Kernel (under ``cfg``), plain version, the library yardstick and the
+    roofline bound at the serving prefill: B 8, 24/8 heads of 128, Sq =
+    Skv = 512, bf16, causal, q, k, v as the prefill's views. Yardstick
+    only, the port never calls it: SDPA with ``is_causal`` and GQA on the
+    same views."""
+    from repro_torch.core import KernelWorkload
+    from repro_torch.kernels import ops, ref
+    B, Hq, Hkv, Sq, Skv, D = FLASH_SERVING
+    q, k, v = flash_case(3, B, Hq, Hkv, Sq, Skv, D, torch.bfloat16)
+    bound_ms, by = bound(KernelWorkload(
+        ops.flash_attention_flops(B, Hq, D,
+                                  ops.attention_pairs(Sq, Skv, True)),
+        ops.flash_attention_bytes(B, Hq, Hkv, Sq, Skv, D, 2), "bfloat16"),
+        chip)
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "kernel_ms": timer().time_runner(
+            lambda: ops.attention(q, k, v, config=cfg)) * 1e3,
+        "plain_ms": timer().time_runner(
+            lambda: ref.flash_attention(q, k, v)) * 1e3,
+        "library_ms": timer().time_runner(
+            lambda: fn(q, k, v, is_causal=True, enable_gqa=True)) * 1e3,
+        "bound_ms": bound_ms, "bound_by": by, "config": cfg}
+
+
+def flash_dense_serving(tuner, model, chunked) -> dict:
+    """The launcher's static batch at full width with ``--decode-impl
+    pallas --attn-impl pallas`` (8 prompts of 512, 32 new tokens):
+    flash_attention launched once a layer in the one prefill (32) and
+    gqa_decode_ragged once a layer and decode step; the streams equal the
+    ``--attn-impl chunked`` run's (``chunked``: its report) up to the tie
+    rule (``dense_divergences``, recomputed on ``model``: the seed-0
+    weights the runs had); prefill ms and tokens/s printed beside the
+    chunked run's. Returns the run's report and launch counts."""
+    from repro_torch.kernels import flash_attention as fa_kernel
+    from repro_torch.kernels import gqa_decode as gqa_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg, cuda = serve.get_config("phi4-mini-3.8b"), torch.device("cuda")
+    for tunable, ctx in (serve.dense_context(cfg, 8, DENSE_T, cuda),
+                         serve.flash_context(cfg, 8, 512, cuda)):
+        tuner.best_config(tunable, ctx)      # before the counts start
+    counters = {"flash_attention": fa_kernel.flash_attention,
+                "gqa_decode_ragged": gqa_kernel.gqa_decode}
+    for fn in counters.values():
+        fn.launches = 0
+    args = serve.build_parser().parse_args(
+        ["--full-config", "--requests", "8", "--prompt-len", "512", "--gen",
+         "32", "--decode-impl", "pallas", "--attn-impl", "pallas"])
+    report = serve.serve_dense(args, tuner)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    torch.cuda.empty_cache()
+    print("dense run report (--decode-impl pallas --attn-impl pallas): "
+          + json.dumps({k: v for k, v in report.items() if k != "tokens"},
+                       sort_keys=True))
+    print(f"launches in the run (--decode-impl pallas --attn-impl pallas): "
+          f"{json.dumps(launches)}")
+    assert report["attn_impl"] == "pallas" and chunked["attn_impl"] == \
+        "chunked"
+    assert np.asarray(report["tokens"]).shape == (8, 32)
+    assert launches["flash_attention"] == cfg.n_layers == 32, launches
+    assert launches["gqa_decode_ragged"] == 31 * cfg.n_layers, launches
+    dense_divergences("--attn-impl pallas vs chunked", report["tokens"],
+                      chunked["tokens"], lambda: (model, cfg),
+                      lm.ForwardOpts(attn_chunk=64))
+    print(f"--attn-impl pallas vs chunked (--decode-impl pallas) at full "
+          f"width: prefill {report['prefill_ms']:.1f} / "
+          f"{chunked['prefill_ms']:.1f} ms, decode {report['decode_ms']:.1f} "
+          f"/ {chunked['decode_ms']:.1f} ms, tokens/s "
+          f"{report['tokens_per_s']:.1f} / {chunked['tokens_per_s']:.1f}")
+    return {"report": report, "launches": launches}
+
+
+def prefill_check(model, cfg, steps: int = 2) -> None:
+    """One full-width dense prefill (8 prompts of 512) through
+    flash_attention against the same prefill by chunked attention (KV
+    chunks of 64, the launcher's) on the same weights, last-position
+    logits held by ``hold_logits``, the residual stream compared layer by
+    layer; then a profiled window of each.
+
+    Over 32 random bf16 layers and 512 positions a 1-ulp difference in one
+    attention output grows to about 2% of the logits (relative L2): the
+    reference's own exact prefills, ``full`` and ``chunked``, are as far
+    apart as flash_attention is from either. So the relative L2 is held
+    within BF16_TOL or, where the spread of those two reference prefills
+    (measured here, on the same prompts) is wider, within 10% over it;
+    the greedy tokens are held by the tie rule as everywhere."""
+    from repro_torch.models import lm
+    rng = np.random.default_rng(9)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                            (8, 512))).cuda()
+    opts = {impl: lm.ForwardOpts(attn_impl=impl, attn_chunk=64)
+            for impl in ("pallas", "chunked", "full")}
+    logits, streams = {}, {"pallas": {}, "chunked": {}}
+    for impl, o in opts.items():
+        record = residual_streams(model, streams[impl]) \
+            if impl in streams else contextlib.nullcontext()
+        with record:
+            logits[impl], _ = lm.prefill(model, cfg, prompts, max_len=512,
+                                         opts=o)
+    print(f"  residual stream (prefill), relative L2 after layer "
+          f"{stream_errors(streams['pallas'], streams['chunked'])}")
+    spread = rel_l2(logits["full"], logits["chunked"])
+    print(f"  the reference's prefills, full vs chunked (KV chunks of 64): "
+          f"logits relative L2 {spread:.4g}; flash_attention vs full "
+          f"{rel_l2(logits['pallas'], logits['full']):.4g}")
+    hold_logits("dense prefill, flash_attention vs chunked attention (KV "
+                "chunks of 64), 8 prompts of 512, last position",
+                logits["pallas"], logits["chunked"],
+                rel_tol=max(BF16_TOL, 1.1 * spread))
+    del streams
+    opts.pop("full")
+    for impl, o in opts.items():
+        profile_steps(
+            f"dense prefill (8 prompts of 512, full width, --attn-impl "
+            f"{impl})",
+            lambda i, o=o: lm.prefill(model, cfg, prompts, max_len=512,
+                                      opts=o), steps)
+
+
 def w8a8_dense_serving(tuner, n_layers: int, bf16_tokens) -> dict:
     """The launcher's w8a8 static batch at full width (``--quant w8a8``: 8
     prompts of 512, 32 new tokens), three times: ``--decode-impl pallas``
@@ -872,6 +1088,7 @@ def w8a8_dense_serving(tuner, n_layers: int, bf16_tokens) -> dict:
     from repro_torch.kernels import gqa_decode as gqa_kernel
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.launch import serve
+    from repro_torch.models import lm
     argv = ["--full-config", "--requests", "8", "--prompt-len", "512",
             "--gen", "32", "--quant", "w8a8"]
     counters = {"matmul_w8a8": mm8_kernel.matmul_w8a8,
@@ -908,7 +1125,9 @@ def w8a8_dense_serving(tuner, n_layers: int, bf16_tokens) -> dict:
     assert kl["gqa_decode_ragged"] == sl["gqa_decode_ragged"] == \
         31 * n_layers, (kl, sl)
     assert sl["matmul_w8a8"] == 0 and sum(fl.values()) == 0, (sl, fl)
-    dense_divergences(kernel["tokens"], sim["tokens"])
+    dense_divergences("w8a8 --quant-impl pallas vs sim", kernel["tokens"],
+                      sim["tokens"], w8a8_model,
+                      lm.ForwardOpts(attn_chunk=64, quant="w8a8"))
     eq = {name: sum(a == b for a, b in zip(kernel["tokens"], other))
           for name, other in (("full", full["tokens"]),
                               ("bf16", bf16_tokens))}
@@ -942,38 +1161,40 @@ def w8a8_model():
     return quantize_params(model, "w8a8"), cfg
 
 
-def dense_divergences(kernel_tokens, sim_tokens) -> None:
-    """The w8a8 kernel run's streams equal the sim run's, or at the first
-    token where one differs the sim path's logits (one prefill of the
-    request's context through the sim GEMMs) score the two tokens within
-    2% of the logits' std: a tie, as ``hold_logits`` allows."""
+def dense_divergences(label: str, kernel_tokens, ref_tokens, model_fn,
+                      opts) -> None:
+    """A dense kernel run's streams equal a reference run's (``label``
+    names the pair), or at the first token where one differs the
+    reference path's logits (one prefill of the request's context under
+    ``opts``, on the (model, cfg) ``model_fn`` gives) score the two tokens
+    within 2% of the logits' std: a tie, as ``hold_logits`` allows."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     rng = np.random.default_rng(0)                 # the launcher's prompts
     prompts = rng.integers(1, get_config("phi4-mini-3.8b").vocab_size,
                            (8, 512), dtype=np.int64)
     equal, found = 0, []
-    for r, (a, b) in enumerate(zip(kernel_tokens, sim_tokens)):
+    for r, (a, b) in enumerate(zip(kernel_tokens, ref_tokens)):
         i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if i is None:
             equal += 1
             continue
-        model, cfg = w8a8_model()
+        model, cfg = model_fn()
         ctx = np.concatenate([prompts[r], np.asarray(b[:i], np.int64)])
         logits, _ = lm.prefill(model, cfg, torch.from_numpy(ctx[None]).cuda(),
-                               max_len=len(ctx) + 1, opts=lm.ForwardOpts(
-                                   attn_chunk=64, quant="w8a8"))
+                               max_len=len(ctx) + 1, opts=opts)
         row = logits[0]
         gap = float(row[b[i]] - row[a[i]])
         std = float(row.std())
-        found.append({"request": r, "token": i, "kernel": a[i], "sim": b[i],
-                      "sim_logit_gap": gap, "tol": BF16_TOL * std})
+        found.append({"request": r, "token": i, "kernel": a[i],
+                      "reference": b[i], "reference_logit_gap": gap,
+                      "tol": BF16_TOL * std})
         if abs(gap) > BF16_TOL * std:
-            raise AssertionError(f"w8a8 request {r} diverges at token {i} "
-                                 f"where the sim logits differ by {gap}, "
-                                 f"over {BF16_TOL} of their std {std}")
-    print(f"w8a8 --quant-impl pallas vs sim at full width: {equal}/8 token "
-          f"streams equal; first divergences: {json.dumps(found)}")
+            raise AssertionError(f"{label}: request {r} diverges at token "
+                                 f"{i} where the reference logits differ by "
+                                 f"{gap}, over {BF16_TOL} of their std {std}")
+    print(f"{label} at full width: {equal}/8 token streams equal; first "
+          f"divergences: {json.dumps(found)}")
 
 
 def w8a8_step_check(steps: int = 8) -> None:
@@ -1021,11 +1242,13 @@ def w8a8_step_check(steps: int = 8) -> None:
 def dense_serving(tuner, n_layers: int, quant: str = "none") -> dict:
     """The launcher's static batch over dense caches at full width (int8
     caches under ``--quant kv8``), by the decode kernel (gqa_decode_ragged,
-    or gqa_decode_kv8) and by the plain einsum: equal token streams, the
-    path's kernel launched once a layer and decode step and no other;
-    returns the kernel run's report and launch counts."""
+    or gqa_decode_kv8) and by the plain einsum, both with the chunked
+    prefill: equal token streams, the path's kernel launched once a layer
+    and decode step and no other (flash_attention never); returns the
+    kernel run's report and launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da_kernel
+    from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.kernels import gqa_decode as gqa_kernel
     from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
     from repro_torch.launch import serve
@@ -1033,7 +1256,8 @@ def dense_serving(tuner, n_layers: int, quant: str = "none") -> dict:
             "--gen", "32", "--quant", quant]
     counters = {"gqa_decode_ragged": gqa_kernel.gqa_decode,
                 "decode_attention": da_kernel.decode_attention,
-                "gqa_decode_kv8": kv8_kernel.gqa_decode_kv8}
+                "gqa_decode_kv8": kv8_kernel.gqa_decode_kv8,
+                "flash_attention": fa_kernel.flash_attention}
     path = "gqa_decode_kv8" if quant == "kv8" else "gqa_decode_ragged"
     # tuned before the counts start, as the paged engines' contexts are
     tuner.best_config(*serve.dense_context(
@@ -1280,29 +1504,35 @@ def stream_errors(a: dict, b: dict) -> str:
         for i in STREAM_LAYERS if i in b)
 
 
-def hold_logits(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def hold_logits(label: str, a: torch.Tensor, b: torch.Tensor,
+                rel_tol: float = BF16_TOL) -> None:
     """Kernel-path logits ``a`` against plain-path logits ``b`` of the same
-    step: relative L2 error within the bf16 tolerance, and on every row
-    the same greedy token, or one the plain path scores within 2% of the
-    logits' std of its own best (a tie). Held at the logits' typical
-    scale, not their tail: over millions of logits of 32 bf16 layers the
-    largest elementwise error is a tail value of the scatter."""
+    step: relative L2 error within ``rel_tol`` (the bf16 tolerance), and
+    on every row the same greedy token, or one the plain path scores
+    within 2% of the logits' std of its own best (a tie). Held at the
+    logits' typical scale, not their tail: over millions of logits of 32
+    bf16 layers the largest elementwise error is a tail value of the
+    scatter."""
     a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
     assert torch.isfinite(a).all()
     err = float((a - b).abs().max())
-    rel = float((a - b).norm() / b.norm())
+    rel = rel_l2(a, b)
     std = float(b.std())
     pick_a, pick_b = a.argmax(-1), b.argmax(-1)
     gap = (b.gather(-1, pick_b[:, None]) - b.gather(-1, pick_a[:, None]))
-    print(f"{label}: logits relative L2 error {rel:.4g} (tol {BF16_TOL}), "
+    print(f"{label}: logits relative L2 error {rel:.4g} (tol {rel_tol:.4g}), "
           f"max_abs_err {err:.4g}, logit std {std:.4g}, max |logit| "
           f"{float(b.abs().max()):.4g}; argmax agreement "
           f"{int((pick_a == pick_b).sum())}/{a.shape[0]} (largest "
           f"plain-logit gap at a disagreement {float(gap.max()):.4g}, tol "
           f"{BF16_TOL * std:.4g})")
-    if rel > BF16_TOL:
+    if rel > rel_tol:
         raise AssertionError(f"{label}: relative L2 logits error {rel} over "
-                             f"{BF16_TOL}")
+                             f"{rel_tol}")
     if float(gap.max()) > BF16_TOL * std:
         raise AssertionError(f"{label}: argmax differs where the plain "
                              f"logits differ by {float(gap.max())}, over "
@@ -1612,6 +1842,7 @@ def main(argv=None) -> int:
     pd8 = check_paged_decode_kv8(chip)
     pv8 = check_paged_verify_kv8(chip)
     w8_err = check_matmul_w8a8(chip)
+    fa_err = check_flash_attention(chip)
     off_space_err = off_space_layouts(chip)
     for out, name in ((pdk, "paged_decode"), (pvk, "paged_verify"),
                       (pd8, "paged_decode int8"), (pv8, "paged_verify int8")):
@@ -1777,6 +2008,15 @@ def main(argv=None) -> int:
         w8[label] = time_w8a8(chip, *shape, tuned)
         print(f"matmul_w8a8 {label} ({'x'.join(map(str, shape))}, per "
               f"channel; tuned in {tune_s:.1f} s): " + json.dumps(w8[label]))
+    # The --attn-impl pallas prefill's context: tuned, then the tuned config
+    # timed beside the plain version, SDPA and the bound
+    t = time.perf_counter()
+    fa_cfg = tuner.best_config(*serve.flash_context(
+        engine.cfg, 8, 512, torch.device("cuda")))
+    fak = time_flash(chip, fa_cfg)
+    fak["max_abs_err"] = fa_err
+    print(f"flash_attention at the serving prefill (tuned in "
+          f"{time.perf_counter() - t:.1f} s): " + json.dumps(fak))
     ops.release_tuning_operands()
 
     phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
@@ -1830,6 +2070,7 @@ def main(argv=None) -> int:
         off["lifecycle"]["failed"] == 0, off
     assert pv_kernel.paged_verify.launches == off["verify_passes"] * 2 > 0
     dense = dense_serving(tuner, n_layers)
+    flash = flash_dense_serving(tuner, engine.model, dense["report"])
     dense_kv8 = dense_serving(tuner, n_layers, "kv8")
     same = sum(a == b for a, b in zip(dense_kv8["report"]["tokens"],
                                       dense["report"]["tokens"]))
@@ -1851,6 +2092,7 @@ def main(argv=None) -> int:
     dense_step_check(engine.model, engine.cfg)
     dense_step_check(engine.model, engine.cfg, quant="kv8")
     w8a8_step_check()
+    prefill_check(engine.model, engine.cfg)
     profile_decode(engine)
     profile_verify(spec_engine)
     profile_decode(kv8_engine)
@@ -1900,6 +2142,10 @@ def main(argv=None) -> int:
               "src/repro/kernels/matmul_int8.py:48",
               w8a8["launches"]["matmul_w8a8"],
               dict(w8["decode wi"], max_abs_err=w8_err)),
+        entry("flash_attention", "cuda",
+              "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:36",
+              flash["launches"]["flash_attention"], fak),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

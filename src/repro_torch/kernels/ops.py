@@ -11,7 +11,8 @@ For each of the port's kernels this module declares
 
 and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
 ``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)``,
-``matmul_w8a8(...)`` and ``rmsnorm(...)`` that resolve their config
+``matmul_w8a8(...)``, ``attention(...)`` and ``rmsnorm(...)`` that
+resolve their config
 through the tuner and dispatch. Every entry point accepts
 ``config=`` to bypass tuning. Tensors on the CPU need no config: the
 kernel wrappers run their plain versions there. A pool laid out with a
@@ -19,7 +20,7 @@ page size outside the space, or a verify deeper or shallower than the
 tuned depths, dispatches a fixed config with no tuning, as the reference
 does.
 
-Importing this module registers the seven kernels in ``kernels.registry``
+Importing this module registers the eight kernels in ``kernels.registry``
 under the reference's names, scenarios and bench cases.
 """
 
@@ -37,6 +38,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.config_space import dtype_bytes, smem_fits
 from repro_torch.kernels import decode_attention as da_kernel
+from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
@@ -1017,6 +1019,164 @@ def matmul_w8a8(x, w, x_scale, w_scale, *, config: Optional[Config] = None,
 
 
 # ===========================================================================
+# Flash attention (prefill forward): causal and/or windowed GQA over
+# (B, H, S, D) operands, o and the log-sum-exp
+# ===========================================================================
+
+def _flash_smem(cfg: Config, ctx: TuningContext) -> int:
+    return fa_kernel.smem_bytes(ctx.shape("q")[3], dtype_bytes(ctx.dtype),
+                                cfg["block_q"], cfg["block_kv"])
+
+
+def flash_attention_space() -> ConfigSpace:
+    """The reference's tunables (``block_q``, ``block_kv``) at the sizes a
+    Hopper block takes, with ``num_warps`` beside them (each warp owns 16
+    or 32 of the block's rows) and ``smem_fits`` in place of
+    ``vmem_fits``. The TPU's ``pad_head_dim`` is a lane-padding rule that
+    does not carry over: the kernel masks D itself."""
+    sp = ConfigSpace(
+        "flash_attention",
+        [
+            Param("block_q", fa_kernel.BLOCK_Q),
+            Param("block_kv", fa_kernel.BLOCK_KV),
+            Param("num_warps", fa_kernel.NUM_WARPS),
+        ],
+        version=1,
+    )
+    sp.constrain("smem", smem_fits(_flash_smem))
+    sp.constrain("registers",
+                 lambda c, x: fa_kernel.regs_fit(x.shape("q")[3],
+                                                 c["block_q"], c["block_kv"],
+                                                 c["num_warps"]))
+    # Tiles past the sequences (rounded up to the smallest tile) only add
+    # masked rows and keys, as the reference's block<=seq constraints say.
+    sp.constrain("block_q<=seq_q",
+                 lambda c, x: c["block_q"] <= max(16, _rup(x.shape("q")[2],
+                                                           16)))
+    sp.constrain("block_kv<=seq_kv",
+                 lambda c, x: c["block_kv"] <= max(32, _rup(x.shape("k")[2],
+                                                            32)))
+    return sp
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool,
+                    window: Optional[int] = None, q_offset: int = 0) -> int:
+    """The (query, key) pairs the mask admits, counted exactly: row i (at
+    position p = i + q_offset) sees keys max(0, p - window + 1) through
+    min(p, Skv - 1) (Skv - 1 when not causal)."""
+    pos = torch.arange(Sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(pos, max=Skv - 1) if causal else \
+        torch.full_like(pos, Skv - 1)
+    lo = torch.clamp(pos - window + 1, min=0) if window else \
+        torch.zeros_like(pos)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_attention_bytes(B: int, Hq: int, Hkv: int, Sq: int, Skv: int,
+                          D: int, itemsize: int) -> float:
+    """HBM bytes of one call: q read and o written (B·Hq·Sq·D each), k and
+    v read once (B·Hkv·Skv·D each), in ``itemsize``, and the f32 lse
+    written."""
+    return (2.0 * B * Hq * Sq * D * itemsize
+            + 2.0 * B * Hkv * Skv * D * itemsize + 4.0 * B * Hq * Sq)
+
+
+def flash_attention_flops(B: int, Hq: int, D: int, pairs: int) -> float:
+    """q·k and p·v: 4 operations per admitted (query, key) pair, head and
+    dim."""
+    return 4.0 * B * Hq * D * pairs
+
+
+def _flash_mask(ctx: TuningContext) -> Tuple[bool, Optional[int]]:
+    return bool(ctx.extra.get("causal", True)), ctx.extra.get("window") or None
+
+
+def _flash_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
+    """The bytes each operand needs once and the operations of the pairs
+    the context's mask admits (``q_offset`` 0, as the runner calls it)."""
+    B, Hq, Sq, D = ctx.shape("q")
+    Hkv, Skv = ctx.shape("k")[1], ctx.shape("k")[2]
+    causal, window = _flash_mask(ctx)
+    return KernelWorkload(
+        flops=flash_attention_flops(
+            B, Hq, D, attention_pairs(Sq, Skv, causal, window)),
+        hbm_bytes=flash_attention_bytes(B, Hq, Hkv, Sq, Skv, D,
+                                        dtype_bytes(ctx.dtype)),
+        dtype=ctx.dtype)
+
+
+def _flash_heuristic(ctx: TuningContext) -> Config:
+    """What a port of the flash_attn-v2 default tile would hard-code: 64
+    query rows over four warps, 64 keys a tile."""
+    return {"block_q": 64, "block_kv": 64, "num_warps": 4}
+
+
+def _attention_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                        device="cuda"):
+    """q, k, v as (B, H, S, D) views of (B, S, H, D) activations, the
+    layout the prefill hands the kernel, with the context's mask:
+    ((q, k, v), {"causal", "window"})."""
+    B, Hq, Sq, D = ctx.shape("q")
+    Hkv, Skv = ctx.shape("k")[1], ctx.shape("k")[2]
+    dtype = getattr(torch, ctx.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    q = _randn((B, Sq, Hq, D), dtype, gen).transpose(1, 2)
+    k = _randn((B, Skv, Hkv, D), dtype, gen).transpose(1, 2)
+    v = _randn((B, Skv, Hkv, D), dtype, gen).transpose(1, 2)
+    causal, window = _flash_mask(ctx)
+    return (q, k, v), {"causal": causal, "window": window}
+
+
+def _flash_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    args, kw = _memo_operands(("flash_attention", ctx.signature()),
+                              lambda: _attention_operands(ctx))
+    return KernelRunner(fa_kernel.flash_attention, *args, **kw, **cfg)
+
+
+FLASH_ATTENTION = TunableKernel(
+    name="flash_attention",
+    space=flash_attention_space(),
+    version=1,
+    workload_fn=_flash_workload,
+    make_runner=_flash_runner,
+    heuristic=_flash_heuristic,
+)
+
+
+def attention_context(chip, B: int, Hq: int, Hkv: int, Sq: int, Skv: int,
+                      D: int, dtype: str, causal: bool = True,
+                      window: Optional[int] = None) -> TuningContext:
+    """Tuning scenario of an attention over q (B, Hq, Sq, D) and k, v
+    (B, Hkv, Skv, D), the reference's shapes and ``extra`` ({"causal",
+    "window": window or 0})."""
+    return TuningContext(chip=chip, shapes={"q": (B, Hq, Sq, D),
+                                            "k": (B, Hkv, Skv, D)},
+                         dtype=dtype, extra={"causal": bool(causal),
+                                             "window": window or 0})
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, config: Optional[Config] = None,
+              tuner: Optional[Autotuner] = None, return_lse: bool = False):
+    """Autotuned flash attention. q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D),
+    any strides with D contiguous. Returns o (and lse with
+    ``return_lse``)."""
+    if config is None and q.is_cuda:
+        tuner = tuner or default_tuner()
+        B, Hq, Sq, D = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        dt = dtype_name(q.dtype)
+        config = tuner.dispatch_config(
+            FLASH_ATTENTION, (B, Hq, Hkv, Sq, Skv, D, dt, bool(causal),
+                              window or 0, q.device.index),
+            lambda: attention_context(device_chip(q.device.index), B, Hq,
+                                      Hkv, Sq, Skv, D, dt, causal, window))
+    return fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset,
+                                     return_lse=return_lse, **(config or {}))
+
+
+# ===========================================================================
 # RMS norm
 # ===========================================================================
 
@@ -1101,6 +1261,26 @@ def rmsnorm(x, weight, *, eps: float = 1e-6,
 def _register_builtin_kernels() -> None:
     from repro_torch.kernels.registry import BenchCase, KernelSpec, register
 
+    register(KernelSpec(
+        tunable=FLASH_ATTENTION,
+        scenarios=("prefill", "training", "gqa"),
+        reference=ref.flash_attention,
+        entry_point=attention,
+        operands=_attention_operands,
+        description="Flash attention forward (prefill / training)",
+        bench_cases=(
+            BenchCase("s512", {"q": (1, 4, 512, 128), "k": (1, 1, 512, 128)},
+                      extra={"causal": True, "window": 0}),
+            BenchCase("train4k",
+                      {"q": (8, 32, 4096, 128), "k": (8, 8, 4096, 128)},
+                      dtype="bfloat16",
+                      extra={"causal": True, "window": 0}, scale="paper"),
+            BenchCase("prefill32k",
+                      {"q": (1, 32, 32768, 128), "k": (1, 8, 32768, 128)},
+                      dtype="bfloat16",
+                      extra={"causal": True, "window": 0}, scale="paper"),
+        ),
+    ))
     register(KernelSpec(
         tunable=DECODE_ATTENTION,
         scenarios=("decode", "gqa"),

@@ -15,6 +15,73 @@ import torch
 NEG_INF = -1e30  # large-negative instead of -inf: no NaNs on masked rows
 
 
+def _attn_mask(seq_q: int, seq_kv: int, *, causal: bool,
+               window: Optional[int], q_offset: int,
+               kv_len: Optional[torch.Tensor], device) -> torch.Tensor:
+    """Boolean mask (seq_q, seq_kv), or (B, seq_q, seq_kv) with ``kv_len``;
+    True = attend. Query i sits at position i + q_offset."""
+    q_pos = torch.arange(seq_q, device=device)[:, None] + q_offset
+    k_pos = torch.arange(seq_kv, device=device)[None, :]
+    mask = torch.ones((seq_q, seq_kv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    if kv_len is not None:  # (B,) valid kv lengths (ragged batches)
+        mask = mask[None] & (k_pos[None] < kv_len.to(device)[:, None, None])
+    return mask
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None, q_offset: int = 0,
+              kv_len: Optional[torch.Tensor] = None,
+              return_lse: bool = False):
+    """Multi-head attention with GQA in f32: q (B, Hq, Sq, D); k, v
+    (B, Hkv, Skv, D) with Hq % Hkv == 0. Masked scores are -1e30, so a
+    row with no visible key averages V, as the reference's oracle does.
+    Returns o in q's dtype, and (o, lse (B, Hq, Sq) f32) with
+    ``return_lse``."""
+    B, Hq, Sq, D = q.shape
+    group = Hq // k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    kq = torch.repeat_interleave(k, group, dim=1).float()
+    vq = torch.repeat_interleave(v, group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+    mask = _attn_mask(Sq, k.shape[2], causal=causal, window=window,
+                      q_offset=q_offset, kv_len=kv_len, device=q.device)
+    if mask.dim() == 3:   # per-batch mask
+        mask = mask[:, None]
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l, vq).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l))[..., 0]
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    return_lse: bool = False):
+    """The flash-attention kernel's function: ``attention`` with what the
+    kernel does at the edges, a row with no visible key giving zeros and
+    lse -1e30 (where the all-masked softmax of ``attention`` averages V),
+    as the reference's kernel gives them when no key tile of the row's
+    block is visible. Shapes as ``attention``'s."""
+    o, lse = attention(q, k, v, causal=causal, window=window, scale=scale,
+                       q_offset=q_offset, return_lse=True)
+    empty = ~_attn_mask(q.shape[2], k.shape[2], causal=causal,
+                        window=window, q_offset=q_offset, kv_len=None,
+                        device=q.device).any(-1)              # (Sq,)
+    o = torch.where(empty[:, None], 0.0, o.float()).to(q.dtype)
+    lse = torch.where(empty, NEG_INF, lse)
+    return (o, lse) if return_lse else o
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:

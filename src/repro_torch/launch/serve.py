@@ -6,6 +6,7 @@ batch over dense caches.
       [--speculative [K]] [--quant kv8]
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config \\
       --requests 8 --prompt-len 512 --gen 32 --decode-impl pallas|full \\
+      [--attn-impl chunked|full|pallas] \\
       [--quant kv8 | --quant w8a8 [--quant-impl sim|pallas]]
 
 The port of ``repro.launch.serve``. ``--decode-impl`` takes the reference's
@@ -45,12 +46,16 @@ and ``w8a8`` on the paged path, are not ported and raise
 ``NotImplementedError``.
 
 The dense path (``serve_dense``) follows the reference's: B uniform prompts
-of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill with
-chunked attention over KV chunks of 64, then ``--gen`` - 1 greedy decode
-steps with the argmax on the device; ``--max-batch`` and
-``--prefill-chunk`` are paged-only and ignored there, ``--speculative``
-is refused. ``--device cpu`` runs it on the CPU, where the kernel
-wrappers take their plain versions.
+of ``--prompt-len`` tokens drawn from ``--seed`` with numpy, prefill by
+``--attn-impl`` (``ForwardOpts.attn_impl``: ``chunked``, the reference's
+default, over KV chunks of 64; ``full``, one masked einsum; ``pallas``,
+the hand-written CUDA ``flash_attention``, tuned before the timed run at
+the prompt's context), then ``--gen`` - 1 greedy decode steps with the
+argmax on the device; ``--max-batch`` and ``--prefill-chunk`` are
+paged-only and ignored there, ``--speculative`` is refused. ``--device
+cpu`` runs it on the CPU, where the kernel wrappers take their plain
+versions. The paged path's chunked prefill is the reference's einsum over
+the pool (``attn_prefill_paged``), so it refuses ``--attn-impl pallas``.
 
 The paged path: the pool's
 page size comes from the tuner's deployment-level ``paged_decode`` config:
@@ -281,6 +286,16 @@ def dense_context(cfg: ModelConfig, batch: int, max_len: int, device,
                                                          cfg.dtype)
 
 
+def flash_context(cfg: ModelConfig, batch: int, prompt_len: int, device):
+    """(kernel, context) the ``--attn-impl pallas`` prefill dispatches:
+    causal flash_attention over the batch's prompts, q (B, Hq, P, D) and
+    k, v (B, Hkv, P, D) in the model's dtype."""
+    chip = ops.device_chip(device.index or 0)
+    return ops.FLASH_ATTENTION, ops.attention_context(
+        chip, batch, cfg.n_heads, cfg.n_kv_heads, prompt_len, prompt_len,
+        cfg.head_dim, cfg.dtype, causal=True)
+
+
 def w8a8_contexts(cfg: ModelConfig, batch: int, prompt_len: int, device):
     """(kernel, context) of every ``matmul_w8a8`` GEMM a w8a8 dense run
     dispatches: the MLP's ``wi`` (d_model x 2 d_ff) and ``wo`` (d_ff x
@@ -295,7 +310,8 @@ def w8a8_contexts(cfg: ModelConfig, batch: int, prompt_len: int, device):
 
 def serve_dense(args, tuner: Autotuner) -> dict:
     """Static batch with dense per-request caches (int8 under ``--quant
-    kv8``): prefill, then G - 1 greedy decode steps through the
+    kv8``): prefill by ``--attn-impl`` (``pallas``: the flash_attention
+    kernel), then G - 1 greedy decode steps through the
     ``gqa_decode_ragged`` or ``gqa_decode_kv8`` kernel (``--decode-impl
     pallas``) or the plain einsum (``full``). Under ``--quant w8a8`` the
     MLP weights are quantized once after they are made and their GEMMs
@@ -309,7 +325,7 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     B, P, G = args.requests, args.prompt_len, args.gen
     kernel = args.decode_impl == "pallas"
     quant = None if args.quant == "none" else args.quant
-    opts = lm.ForwardOpts(attn_chunk=64,
+    opts = lm.ForwardOpts(attn_impl=args.attn_impl, attn_chunk=64,
                           decode_impl="kernel" if kernel else "plain",
                           quant=quant, quant_impl=args.quant_impl)
     model = init_params(cfg, torch.Generator(device=device).manual_seed(
@@ -321,6 +337,8 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     if device.type == "cuda":
         contexts = [dense_context(cfg, B, P + G, device, quant)] if kernel \
             else []
+        if args.attn_impl == "pallas":
+            contexts.append(flash_context(cfg, B, P, device))
         if quant == "w8a8" and args.quant_impl == "pallas":
             contexts += w8a8_contexts(cfg, B, P, device)
         for tunable, ctx in contexts:
@@ -350,7 +368,8 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     decode_s = time.perf_counter() - t0
     tokens = torch.cat(outs, 1).cpu().tolist()
     return {
-        "arch": cfg.name, "decode_impl": args.decode_impl,
+        "arch": cfg.name, "attn_impl": args.attn_impl,
+        "decode_impl": args.decode_impl,
         "quant": args.quant, "quant_impl": args.quant_impl,
         "device": str(device), "requests": B, "prompt_len": P, "gen": G,
         "prefill_ms": prefill_s * 1e3, "decode_ms": decode_s * 1e3,
@@ -378,6 +397,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "pallas = a static batch over dense caches through "
                          "the registry's decode kernel (CUDA here); full = "
                          "the same batch through the plain einsum decode")
+    ap.add_argument("--attn-impl", choices=("chunked", "full", "pallas"),
+                    default="chunked",
+                    help="the dense path's prefill attention: chunked (the "
+                         "reference's default, KV chunks of 64) or full in "
+                         "plain torch ops; pallas = the hand-written "
+                         "flash_attention kernel (CUDA here); the paged "
+                         "path refuses pallas")
     ap.add_argument("--max-batch", type=int, default=4,
                     help="concurrent sequences (paged only)")
     ap.add_argument("--prefill-chunk", type=int, default=16,
@@ -425,6 +451,12 @@ def main(argv=None) -> dict:
     if args.tp != 1:
         raise NotImplementedError(f"--tp {args.tp}: tensor-parallel serving "
                                   "is not ported")
+    if args.attn_impl == "pallas" and args.decode_impl == "paged":
+        raise NotImplementedError(
+            "--attn-impl pallas on the paged path: its chunked prefill is "
+            "the reference's einsum over the pool (attn_prefill_paged), not "
+            "flash_attention (--attn-impl pallas serves with --decode-impl "
+            "pallas|full)")
     if args.speculative is not None and args.decode_impl != "paged":
         raise SystemExit("--speculative requires --decode-impl paged "
                          "(draft-and-verify runs on the paged engine)")

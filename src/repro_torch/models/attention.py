@@ -130,16 +130,33 @@ def chunked_attention(q, k, v, *, chunk_kv: int = 512) -> torch.Tensor:
     return o.transpose(1, 2).to(q.dtype)
 
 
+def _pallas_attention(q, k, v) -> torch.Tensor:
+    """Causal attention through the autotuned ``flash_attention`` kernel
+    (``kernels.ops.attention``; CUDA on the card, its plain version on the
+    CPU): q, k, v handed over as (B, H, S, D) views, no copy, and o back
+    as (B, S, Hq, D). Serving only: the backward comes with training."""
+    from repro_torch.kernels import ops as kops
+    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=True)
+    return o.transpose(1, 2)
+
+
 def run_attention(q, k, v, *, impl: str = "chunked",
                   chunk: int = 512) -> torch.Tensor:
-    """Causal self-attention over the prompt by ``impl``."""
+    """Causal self-attention over the prompt by ``impl``: ``full`` and
+    ``chunked`` in plain torch ops, ``pallas`` through the flash_attention
+    kernel."""
     if impl == "full":
         return full_attention(q, k, v)
     if impl == "chunked":
         return chunked_attention(q, k, v, chunk_kv=chunk)
-    raise NotImplementedError(
-        f"attention impl {impl!r}: the port has full and chunked (the "
-        "reference's triangular and pallas prefill are not ported)")
+    if impl == "pallas":
+        return _pallas_attention(q, k, v)
+    if impl == "triangular":
+        raise NotImplementedError(
+            "attention impl 'triangular': the reference's triangular "
+            "prefill is not ported (full, chunked and pallas are)")
+    raise ValueError(f"attention impl {impl!r} (full, chunked or pallas)")
 
 
 # --- dense KV cache (static-batch serving) ---------------------------------

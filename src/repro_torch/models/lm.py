@@ -45,7 +45,8 @@ Cache = List[Dict[str, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class ForwardOpts:
-    attn_impl: str = "chunked"       # dense prefill: full | chunked
+    # dense prefill: full | chunked (plain torch) | pallas (flash_attention)
+    attn_impl: str = "chunked"
     # kernel (gqa_decode_ragged, gqa_decode_kv8, paged_decode,
     # paged_verify) | plain
     decode_impl: str = "kernel"
@@ -148,10 +149,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
 def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: int, opts: ForwardOpts = ForwardOpts()):
     """Run the prompts tokens (B, S) at positions 0..S-1 into caches of
-    ``max_len`` slots (``init_cache``, int8 under ``opts.quant="kv8"``);
-    attention over the prompt is ``opts.attn_impl`` in plain torch ops, as
-    the reference's is jnp. Returns (last-position logits (B, vocab) f32,
-    caches)."""
+    ``max_len`` slots (``init_cache``, int8 under ``opts.quant="kv8"``).
+    Attention over the prompt is ``opts.attn_impl``: ``full`` and
+    ``chunked`` (KV chunks of ``opts.attn_chunk``) are plain torch ops, as
+    the reference's are jnp; ``pallas`` is the autotuned flash_attention
+    kernel (CUDA on the card, its plain version on the CPU), as the
+    reference's is its Pallas kernel. Returns (last-position logits
+    (B, vocab) f32, caches)."""
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
                        kv_dtype=opts.kv_dtype())
     h = embed_tokens(model.embed, tokens, cfg)

@@ -255,11 +255,14 @@ def both():
 
 
 @pytest.mark.parametrize("attn_impl,decode_impl",
-                         [("chunked", "kernel"), ("full", "plain")])
+                         [("chunked", "kernel"), ("full", "plain"),
+                          ("pallas", "kernel")])
 def test_dense_serving_matches_jax_lm(both, attn_impl, decode_impl):
     """Prefill + G-1 decode steps on the smoke phi4-mini in f32 (the
     reference's init_params weights): logits at every step and the greedy
-    tokens equal the reference's prefill + decode_step(decode_impl="full")."""
+    tokens equal the reference's prefill + decode_step(decode_impl="full")
+    with the same attn_impl (``pallas``: the flash_attention kernel's
+    plain version here, the Pallas kernel in interpret mode there)."""
     jcfg, jparams, cfg, model = both
     B, P, G = 3, 13, 5
     prompts = np.random.default_rng(1).integers(
@@ -375,6 +378,8 @@ def test_serve_dense_full_runs_on_the_cpu():
      RuntimeError),
     (["--decode-impl", "full", "--tp", "2"], NotImplementedError),
     (["--decode-impl", "pallas", "--quant", "w8a16"], NotImplementedError),
+    (["--decode-impl", "paged", "--attn-impl", "pallas"],
+     NotImplementedError),
 ])
 def test_serve_dense_refuses(argv, exc):
     with pytest.raises(exc):

@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import Autotuner, set_default_tuner
 from repro_torch.kernels import decode_attention as da_kernel
+from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
@@ -882,3 +883,88 @@ def test_w8a8_dense_serving_on_card_matches_cpu(cuda):
                 torch.testing.assert_close(a, b, atol=tol, rtol=tol)
     finally:
         set_default_tuner(None)
+
+
+# (label, B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset): bf16
+# causal at phi4-mini's heads; f32 with a window on ragged lengths (group
+# 4); D 120 with a window of 16 (group 3); f32 D 96 with a query offset;
+# bf16 rows past a window's reach (no visible key) inside running tiles
+FLASH_CASES = [
+    ("bf16-causal", 2, 6, 2, 256, 256, 128, torch.bfloat16, True, None, 0),
+    ("f32-window", 2, 4, 1, 200, 333, 64, torch.float32, True, 100, 0),
+    ("bf16-d120-window", 1, 6, 2, 130, 130, 120, torch.bfloat16, True, 16,
+     0),
+    ("f32-d96-offset", 2, 3, 3, 77, 300, 96, torch.float32, True, None, 211),
+    ("bf16-empty-rows", 1, 4, 2, 64, 40, 64, torch.bfloat16, True, 8, 40),
+]
+
+
+def flash_operands(seed, B, Hq, Hkv, Sq, Skv, D, dtype, device):
+    """q, k, v as (B, H, S, D) views of (B, S, H, D) tensors, the layout
+    the prefill hands the kernel."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)  # noqa: E731
+    return (rand(B, Sq, Hq, D).transpose(1, 2),
+            rand(B, Skv, Hkv, D).transpose(1, 2),
+            rand(B, Skv, Hkv, D).transpose(1, 2))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: c[0])
+def test_flash_attention_every_valid_config_matches_plain(cuda, case):
+    """Every valid config against the plain version: o and lse at the
+    dtype's tolerance, rows with no visible key exactly zero with lse
+    -1e30, o in q's layout, one launch a call."""
+    _, B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset = case
+    q, k, v = flash_operands(D + Sq, B, Hq, Hkv, Sq, Skv, D, dtype, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              return_lse=True)
+    want, want_lse = ref.flash_attention(q, k, v, **kw)
+    empty = want_lse[0, 0] <= -1e30
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.attention_context(chip, B, Hq, Hkv, Sq, Skv, D,
+                                ops.dtype_name(dtype), causal, window)
+    configs = ops.FLASH_ATTENTION.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = fa_kernel.flash_attention.launches
+        out, lse = ops.attention(q, k, v, config=cfg, **kw)
+        torch.cuda.synchronize()
+        assert fa_kernel.flash_attention.launches == before + 1
+        assert out.stride() == q.stride()
+        torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=lambda m: f"{cfg}: {m}")
+        torch.testing.assert_close(lse, want_lse, atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=lambda m: f"{cfg}: {m}")
+        assert not out[:, :, empty].any() and (lse[:, :, empty] == -1e30).all()
+    if case[0] == "bf16-empty-rows":
+        assert empty.sum() == 57
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q, k, v = flash_operands(0, 1, 4, 2, 32, 32, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim 272"):
+        big = flash_operands(1, 1, 2, 1, 16, 16, 272, torch.bfloat16, cuda)
+        fa_kernel.flash_attention(*big)
+    with pytest.raises(ValueError, match="D must be contiguous"):
+        fa_kernel.flash_attention(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fa_kernel.flash_attention(q, k.float(), v.float())
+    with pytest.raises(ValueError, match="window"):
+        fa_kernel.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="registers"):
+        fa_kernel.flash_attention(q, k, v, block_q=128, num_warps=1)
+    lib = fa_kernel.LIB.load()
+    for D, item, bq, bkv in ((128, 2, 64, 64), (120, 2, 128, 128),
+                             (96, 4, 32, 32), (256, 2, 16, 32)):
+        assert lib.flash_attention_smem_bytes(D, item, bq, bkv) == \
+            fa_kernel.smem_bytes(D, item, bq, bkv)
+    # the C entry refuses what its templates do not instantiate
+    o = torch.empty_like(q)
+    lse = torch.empty(1, 4, 32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), 1, 4, 2, 32, 32, 64, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0.125, 1, 0, 0,
+        64, 256, 2, 1, stream) != 0

@@ -1,4 +1,4 @@
-"""The port's kernel registry held against the reference's: the seven
+"""The port's kernel registry held against the reference's: the eight
 ported kernels under the same names, scenarios, precision and bench cases,
 and the registry's own rules."""
 
@@ -10,8 +10,9 @@ from repro.kernels import registry as jreg
 from repro_torch.core import TunableKernel, cpu_host
 from repro_torch.kernels import registry
 
-PORTED = ("decode_attention", "gqa_decode_kv8", "gqa_decode_ragged",
-          "matmul_w8a8", "paged_decode", "paged_verify", "rms_norm")
+PORTED = ("decode_attention", "flash_attention", "gqa_decode_kv8",
+          "gqa_decode_ragged", "matmul_w8a8", "paged_decode", "paged_verify",
+          "rms_norm")
 INT8 = ("gqa_decode_kv8", "matmul_w8a8")
 
 
@@ -45,7 +46,11 @@ def test_list_kernels_is_a_subset_of_the_reference():
     assert registry.kernel_names(scenario="quant", precision="int8") == \
         jreg.kernel_names(scenario="quant", precision="int8") == list(INT8)
     assert registry.kernel_names(scenario="prefill") == \
-        ["matmul_w8a8", "rms_norm"]
+        ["flash_attention", "matmul_w8a8", "rms_norm"]
+    assert registry.kernel_names(scenario="training") == \
+        ["flash_attention", "matmul_w8a8", "rms_norm"]
+    assert set(registry.kernel_names(scenario="training")) < \
+        set(jreg.kernel_names(scenario="training"))
     assert set(registry.scenarios()) <= set(jreg.scenarios())
 
 
@@ -98,6 +103,20 @@ def test_operands_feed_entry_point_and_reference(name):
             n = 1 if cfg["scale_gran"] == "per_tensor" else None
             assert xs.numel() == (n or M) and ws.numel() == (n or N)
             assert got.dtype == torch.float32 and got.shape == (M, N)
+        elif name == "flash_attention":
+            # (B, H, S, D) views of (B, S, H, D) activations, the layout
+            # the prefill hands the kernel, with the case's mask
+            q, k, v = args
+            assert kw == {"causal": case.extra["causal"],
+                          "window": case.extra["window"] or None}
+            assert q.shape == case.shapes["q"] and k.shape == v.shape == \
+                case.shapes["k"]
+            assert q.transpose(1, 2).is_contiguous()
+            assert k.transpose(1, 2).is_contiguous()
+            assert got.shape == q.shape
+            with_lse = spec.entry_point(*args, **kw, config=cfg,
+                                        return_lse=True)
+            assert with_lse[1].shape == q.shape[:3]
         elif spec.precision == "int8":
             # the int8 operands are the serving layout: (B, Hkv, T, D) and
             # (B, Hkv, T) views of caches quantized through the wire format

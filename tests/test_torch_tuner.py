@@ -864,3 +864,121 @@ def test_matmul_w8a8_operands_and_the_scale_gran_pin(monkeypatch):
                             "num_warps": 4, "dequant": "inline"},
                     tuner=tuner)
     assert calls[-1]["scale_gran"] == "per_tensor" and len(seen) == 2
+
+
+def test_flash_attention_space_workload_and_bound():
+    """flash_attention's Hopper space: at the serving prefill (B 8, 24/8
+    heads of 128, 512 tokens, bf16) 15 valid configs, each within shared
+    memory and the registers the source instantiates (a warp owns 16 or
+    32 rows); the byte bound of 0.0201 ms and 12.91 GFLOP the causal mask
+    admits (PERF.md row 9); f32 and D 96, 120 and 256 contexts; blocks
+    past short sequences pruned."""
+    from repro_torch.kernels import flash_attention as fa_kernel
+    space = ops.FLASH_ATTENTION.space
+    ctx = ops.attention_context(H100_SXM, 8, 24, 8, 512, 512, 128,
+                                "bfloat16")
+    assert ctx.extra == {"causal": True, "window": 0}
+    valid = space.valid_configs(ctx)
+    assert valid == _valid_by_brute_force(space, ctx)
+    assert len(valid) == 15
+    for c in valid:
+        assert ops._flash_smem(c, ctx) <= H100_SXM.smem_per_block
+        assert fa_kernel.regs_fit(128, c["block_q"], c["block_kv"],
+                                  c["num_warps"])
+        assert c["block_q"] // c["num_warps"] in (16, 32)
+    assert {c["block_kv"] for c in valid} == {32, 64, 128}
+    heur = ops.FLASH_ATTENTION.default_config(ctx)
+    assert heur == {"block_q": 64, "block_kv": 64, "num_warps": 4}
+    assert space.why_invalid(dict(heur, block_kv=256), ctx) in (
+        "smem", "registers")
+    assert space.why_invalid(dict(heur, num_warps=1), ctx) == "registers"
+    assert fa_kernel.smem_bytes(128, 2, 64, 64) == (64 + 256) * 272
+    assert fa_kernel.smem_bytes(120, 4, 16, 32) == (16 + 128) * 528
+    w = ops.FLASH_ATTENTION.workload_fn(heur, ctx)
+    assert w.hbm_bytes == ops.flash_attention_bytes(8, 24, 8, 512, 512, 128,
+                                                    2) == 67502080
+    assert ops.attention_pairs(512, 512, True) == 512 * 513 // 2
+    assert w.flops == 4 * 8 * 24 * 128 * 131328 == 12910067712
+    t, by = roofline_seconds(w, H100_SXM)
+    assert by == "bytes" and t * 1e3 == pytest.approx(0.0201498, rel=1e-5)
+    # the registry's f32 s512 case, and the head dims of phi3-mini (96)
+    # and h2o-danube (120), unpadded
+    for shapes, dtype, n in (((1, 4, 512, 128, 1), "float32", 11),
+                             ((8, 32, 512, 96, 32), "bfloat16", 15),
+                             ((2, 32, 300, 120, 8), "bfloat16", 15),
+                             ((1, 8, 64, 256, 8), "float32", 3)):
+        B, Hq, S, D, Hkv = shapes
+        c2 = ops.attention_context(H100_SXM, B, Hq, Hkv, S, S, D, dtype)
+        got = space.valid_configs(c2)
+        assert len(got) == n, (shapes, dtype, got)
+        assert got == _valid_by_brute_force(space, c2)
+    short = ops.attention_context(H100_SXM, 1, 4, 1, 20, 40, 64, "float32",
+                                  window=8)
+    assert short.extra == {"causal": True, "window": 8}
+    assert {(c["block_q"], c["block_kv"])
+            for c in space.valid_configs(short)} <= {(16, 32), (16, 64),
+                                                     (32, 32), (32, 64)}
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,q_offset", [
+    (512, 512, True, None, 0), (200, 333, True, 100, 0),
+    (77, 300, True, None, 211), (64, 40, True, 8, 40),
+    (30, 50, False, 7, 5), (40, 24, False, None, 0)])
+def test_attention_pairs_count_the_mask(Sq, Skv, causal, window, q_offset):
+    """The operations a call needs count exactly the (query, key) pairs
+    the plain version's mask admits."""
+    from repro_torch.kernels import ref
+    mask = ref._attn_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=None, device="cpu")
+    assert ops.attention_pairs(Sq, Skv, causal, window, q_offset) == \
+        int(mask.sum())
+
+
+def test_attention_dispatch_key_and_context(monkeypatch):
+    """The dispatch key and the tuning context carry the dtype, the mask
+    and the shapes, so a window or a dtype tunes apart; a config handed in
+    makes no lookup; CPU tensors make none either."""
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    seen = []
+
+    class Recording(Autotuner):
+        def dispatch_config(self, kernel, key, make_ctx):
+            seen.append((key, make_ctx()))
+            return super().dispatch_config(kernel, key, make_ctx)
+
+    class FakeCuda:
+        """Only what the config resolution reads off a tensor."""
+
+        def __init__(self, *shape, dtype=torch.bfloat16):
+            self.shape, self.dtype = shape, dtype
+            self.is_cuda = True
+            self.device = torch.device("cuda", 0)
+
+    calls = []
+    monkeypatch.setattr(ops.fa_kernel, "flash_attention",
+                        lambda *a, **k: calls.append(k))
+    tuner = Recording(backend=_FakeBackend(lambda c: 1.0),
+                      on_miss="heuristic")
+    k = FakeCuda(2, 2, 48, 64)
+    for q, window in ((FakeCuda(2, 4, 48, 64), None),
+                      (FakeCuda(2, 4, 48, 64), 16),
+                      (FakeCuda(2, 4, 48, 64, dtype=torch.float32), None)):
+        ops.attention(q, k, k, window=window, tuner=tuner)
+    keys = [key for key, _ in seen]
+    assert len(set(keys)) == 3 and len({c.signature() for _, c in seen}) == 3
+    (_, c0), (_, c1), (_, c2) = seen
+    assert c0.shapes == {"q": (2, 4, 48, 64), "k": (2, 2, 48, 64)}
+    assert c0.extra == {"causal": True, "window": 0}
+    assert c1.extra == {"causal": True, "window": 16}
+    assert c2.dtype == "float32" and c0.dtype == "bfloat16"
+    assert all(set(kw) >= {"block_q", "block_kv", "num_warps", "window",
+                           "causal", "q_offset", "return_lse"}
+               for kw in calls)
+    ops.attention(FakeCuda(2, 4, 48, 64), k, k, tuner=tuner,
+                  config={"block_q": 16, "block_kv": 32, "num_warps": 1})
+    assert len(seen) == 3 and calls[-1]["block_q"] == 16
+    monkeypatch.undo()
+    cpu = Autotuner(backend=_FakeBackend(lambda c: 1.0), on_miss="error")
+    out = ops.attention(torch.randn(1, 2, 8, 16), torch.randn(1, 1, 8, 16),
+                        torch.randn(1, 1, 8, 16), tuner=cpu)
+    assert out.shape == (1, 2, 8, 16) and cpu.stats()["misses"] == 0
