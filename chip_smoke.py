@@ -12,8 +12,8 @@ Phases, each failing loudly:
      ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
      ``gqa_decode`` (which also serves ``decode_attention``),
      ``gqa_decode_kv8`` (the same kernel template built for int8 caches),
-     ``matmul_w8a8`` and ``flash_attention``, and the Triton compile of
-     ``rms_norm``;
+     ``matmul_w8a8``, ``flash_attention`` and ``mla_decode``, and the
+     Triton compile of ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
@@ -26,8 +26,12 @@ Phases, each failing loudly:
      the exact integer-grid product) and its refusals; every valid
      ``flash_attention`` config (o and lse) at the serving prefill and at
      ragged lengths, groups 1, 3 and 4, D 96 and 120, windows, a query
-     offset, non-causal, f32, and rows that see no key; then the
-     registry's oracle sweep: every valid config of every registered
+     offset, non-causal, f32, and rows that see no key; every valid
+     ``mla_decode`` config at deepseek-v2-lite's widths (B 8, 16 heads,
+     latent rank 512, RoPE keys of 64, T 544) in bf16 and f32 with
+     ragged lengths (0 and past T: zeros and the whole cache), at the
+     serving decode, and at 4 heads of rank 64 (rows padded to 16); then
+     the registry's oracle sweep: every valid config of every registered
      kernel's host bench cases against its reference;
   4. tuning: the serve entry point's deployment lookups (``paged_decode``
      and ``paged_verify`` with the speculation depth free, float and,
@@ -41,7 +45,9 @@ Phases, each failing loudly:
      (prefill and decode rows, ``wi`` and ``wo``) tuned and timed beside
      the plain version, ``torch._int_mm`` and a bf16 ``torch.matmul``;
      the ``--attn-impl pallas`` prefill's ``flash_attention`` context
-     tuned and timed beside the plain version and SDPA;
+     tuned and timed beside the plain version and SDPA; deepseek-v2-lite's
+     ``mla_decode`` serving context and the registry's ``dsv2_32k`` tuned
+     and timed beside the plain version and SDPA;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -82,7 +88,20 @@ Phases, each failing loudly:
      (kernels), and by plain decode on the card: the same tokens and
      counts, at depth 4 on pages of 8, at depth 5 on pages of 4 (both
      off the tuned layouts) and at depth 4 over int8 pools (kv8);
-  7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+  7. with every phi4-mini model released, serving deepseek-v2-lite-16b at
+     full width (27 layers, MLA rank 512, 64 experts top-6 plus 2 shared,
+     bf16, random weights from a seed, 31 GB): the launcher's static batch
+     of 8 prompts of 512 tokens and 32 new tokens, chunked prefill, by
+     ``--decode-impl pallas`` (``mla_decode`` launched 27 times a decode
+     step) and ``full`` (none), and ``full`` after the reference's other
+     exact prefill (``--attn-impl full``): the streams each pair shares;
+  8. one full-width deepseek decode step: ``mla_decode`` against the
+     reference's einsum on the same inputs at each of the 27 layers, the
+     whole step's logits held against the einsum step's within the
+     reference's own spread, and a profiled window of it; then the model
+     in float32 (63 GB), where the streams of ``mla_decode`` and of the
+     einsum are held equal up to a tie;
+  9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -91,6 +110,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib.metadata
 import json
 import os
@@ -145,6 +165,7 @@ def build_kernels() -> dict:
     from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.kernels import gqa_decode as gqa_kernel
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+    from repro_torch.kernels import mla_decode as mla_kernel
     from repro_torch.kernels import paged_decode as pd_kernel
     from repro_torch.kernels import paged_verify as pv_kernel
     from repro_torch.kernels import rms_norm as rms_kernel
@@ -152,7 +173,7 @@ def build_kernels() -> dict:
     libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
             "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8,
             "matmul_w8a8": mm8_kernel.LIB,
-            "flash_attention": fa_kernel.LIB}
+            "flash_attention": fa_kernel.LIB, "mla_decode": mla_kernel.LIB}
 
     def nvcc(name):
         t = time.perf_counter()
@@ -980,6 +1001,409 @@ def time_flash(chip, cfg) -> dict:
         "bound_ms": bound_ms, "bound_by": by, "config": cfg}
 
 
+# mla_decode at deepseek-v2-lite's widths: B 8, 16 heads, latent rank 512,
+# RoPE keys of 64, a cache of 544 rows (prompts of 512 + 32 new tokens);
+# ragged lengths with 0 (zeros) and past T (the whole cache)
+DSV2 = "deepseek-v2-lite-16b"
+MLA_SERVING = (8, 16, 512, 64, DENSE_T)
+MLA_RAGGED = [0, 1, 17, 300, 528, 544, 600, 333]
+
+
+def mla_case(seed, B, H, C, R, T, dtype, pad=0):
+    """q_abs, q_rope, and ckv, krope as the first T rows of caches ``pad``
+    rows longer (0: the contiguous cache the decode step hands over)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    return (rand(B, H, C), rand(B, H, R), rand(B, T + pad, C)[:, :T],
+            rand(B, T + pad, R)[:, :T])
+
+
+def check_mla_decode(chip) -> float:
+    """Every valid mla_decode config against the plain version
+    (``ref.mla_decode_ragged``) at deepseek-v2-lite's widths with ragged
+    lengths in bf16 and f32 (on caches 8 rows longer than T), at the
+    serving decode (every request at 528 of 544) in bf16, and at 4 heads
+    of rank 64 with RoPE keys of 16 (rows padded to 16) in both dtypes:
+    within the dtype's tolerance, requests with kv_len 0 exactly zero.
+    Returns the worst error."""
+    from repro_torch.kernels import ops, ref
+    small = (3, 4, 64, 16, 200)
+    cases = [("ragged bf16", MLA_SERVING, MLA_RAGGED, torch.bfloat16, 8),
+             ("ragged f32", MLA_SERVING, MLA_RAGGED, torch.float32, 8),
+             ("serving bf16", MLA_SERVING, [528] * 8, torch.bfloat16, 0),
+             ("H 4 C 64 bf16", small, [0, 137, 250], torch.bfloat16, 8),
+             ("H 4 C 64 f32", small, [0, 137, 250], torch.float32, 8)]
+    worst_all = 0.0
+    for label, shape, lens, dtype, pad in cases:
+        B, H, C, R, T = shape
+        args = mla_case(len(label), *shape, dtype, pad)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = (C + R) ** -0.5
+        want = ref.mla_decode_ragged(*args, kv_len=kv_len, scale=scale)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        ctx = ops.mla_decode_context(chip, *shape, ops.dtype_name(dtype))
+        configs = ops.MLA_DECODE.space.valid_configs(ctx)
+        if not configs:
+            raise AssertionError(f"mla_decode {label}: no valid config")
+        empty = kv_len == 0
+        worst = 0.0
+        for cfg in configs:
+            got = ops.latent_decode(*args, kv_len=kv_len, scale=scale,
+                                    config=cfg)
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=tol, rtol=tol) \
+                    or got[empty].any():
+                raise AssertionError(f"mla_decode {label} {cfg}: max abs "
+                                     f"err {err} over tolerance {tol}")
+            worst = max(worst, err)
+        worst_all = max(worst_all, worst)
+        print(f"mla_decode {label} (B {B}, {H} heads, rank {C}, rope {R}, "
+              f"T {T}, lengths {lens}): {len(configs)} configs ok, "
+              f"max_abs_err {worst:.3g} (tol {tol})")
+    return worst_all
+
+
+def time_mla(chip, cfg, B, H, C, R, T, lens) -> dict:
+    """Kernel (under ``cfg``), plain version, the library yardstick and the
+    roofline bound of one mla_decode call in bf16 at the model's scale
+    (C + R)^-0.5 over a contiguous cache, as the decode step hands it
+    over. Yardstick only, the port never calls it: SDPA of cat(q_abs,
+    q_rope) against cat(ckv, krope) with v = ckv, one KV head
+    (``enable_gqa``) and a length mask, the concatenations not timed."""
+    from repro_torch.core import KernelWorkload
+    from repro_torch.kernels import ops, ref
+    args = mla_case(T + 1, B, H, C, R, T, torch.bfloat16)
+    qa, qr, ckv, kr = args
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = (C + R) ** -0.5
+    kv_tokens = int(torch.clamp(kv_len, max=T).sum())
+    bound_ms, by = bound(KernelWorkload(
+        ops.mla_decode_flops(H, C, R, kv_tokens),
+        ops.mla_decode_bytes(B, H, C, R, kv_tokens, 2), "bfloat16"), chip)
+    q = torch.cat([qa, qr], -1)[:, :, None]              # (B, H, 1, C + R)
+    k = torch.cat([ckv, kr], -1)[:, None]                # (B, 1, T, C + R)
+    v = ckv[:, None]
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    out = {
+        "kernel_ms": timer().time_runner(
+            lambda: ops.latent_decode(*args, kv_len=kv_len, scale=scale,
+                                      config=cfg)) * 1e3,
+        "plain_ms": timer().time_runner(
+            lambda: ref.mla_decode_ragged(*args, kv_len=kv_len,
+                                          scale=scale)) * 1e3,
+        "library_ms": timer().time_runner(
+            lambda: fn(q, k, v, attn_mask=mask, scale=scale,
+                       enable_gqa=True)) * 1e3,
+        "library": "SDPA of cat(q_abs, q_rope) against cat(ckv, krope), "
+                   "v = ckv, one KV head, a length mask (cat not timed)",
+        # the same call with the heads as one KV head's query rows: no GQA
+        # expansion of the cache (a second yardstick, printed only)
+        "library_heads_as_rows_ms": timer().time_runner(
+            lambda: fn(q.transpose(1, 2), k, v, attn_mask=mask,
+                       scale=scale)) * 1e3,
+        "bound_ms": bound_ms, "bound_by": by, "kv_tokens": kv_tokens,
+        "config": cfg}
+    del args, qa, qr, ckv, kr, q, k, v
+    return out
+
+
+def tune_and_time_mla(tuner, chip, mla_err: float) -> dict:
+    """deepseek-v2-lite's serving context (``serve.mla_context``: B 8, T
+    544) and the registry's ``dsv2_32k`` (B 8, T 32768, every request
+    attending all of it) tuned, then timed under the tuned configs.
+    Returns the serving shape's numbers with ``dsv2_32k``'s beside
+    them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.registry import get_kernel
+    from repro_torch.launch import serve
+    t = time.perf_counter()
+    cfg = tuner.best_config(*serve.mla_context(
+        serve.get_config(DSV2), 8, DENSE_T, torch.device("cuda")))
+    ((case, ctx),) = [(c, c.context(chip))
+                      for c in get_kernel("mla_decode").cases("paper")]
+    cfg32 = tuner.best_config(ops.MLA_DECODE, ctx)
+    tune_s = time.perf_counter() - t
+    mlak = time_mla(chip, cfg, *MLA_SERVING, [528] * 8)
+    mlak["max_abs_err"] = mla_err
+    print(f"mla_decode at the serving decode (every request at 528 of "
+          f"{DENSE_T}; both contexts tuned in {tune_s:.1f} s): "
+          + json.dumps(mlak))
+    B, H, C = ctx.shape("q_abs")
+    T, R = ctx.shape("ckv")[1], ctx.shape("q_rope")[2]
+    big = time_mla(chip, cfg32, B, H, C, R, T, [T] * B)
+    print(f"mla_decode at {case.label} ({dict(ctx.shapes)}, bf16, all "
+          f"{T} keys): " + json.dumps(big))
+    mlak[case.label] = {k: big[k] for k in ("kernel_ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by", "config")}
+    ops.release_tuning_operands()
+    return mlak
+
+
+@functools.lru_cache(maxsize=1)
+def dsv2_model():
+    """deepseek-v2-lite-16b at full width from the launcher's seed (0): the
+    weights the MLA serving runs had."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import init_params
+    cfg = get_config(DSV2)
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda"), cfg
+
+
+def mla_dense_serving(tuner) -> dict:
+    """The launcher's static batch of deepseek-v2-lite-16b at full width (8
+    prompts of 512, 32 new tokens, bf16, prefill by chunked attention),
+    by ``--decode-impl pallas`` (mla_decode once a layer and decode step,
+    27 x 31, and no other kernel) and ``full`` (no kernel), and by
+    ``full`` after ``--attn-impl full``, the reference's other exact
+    prefill: how many streams each pair shares, tokens/s, prefill ms and
+    peak memory. Each run makes its own weights and frees them. Returns the
+    kernel run's report and launch counts, and the runs' tokens."""
+    from repro_torch.kernels import flash_attention as fa_kernel
+    from repro_torch.kernels import gqa_decode as gqa_kernel
+    from repro_torch.kernels import mla_decode as mla_kernel
+    from repro_torch.launch import serve
+    cfg, cuda = serve.get_config(DSV2), torch.device("cuda")
+    assert (cfg.n_layers, cfg.d_model, cfg.moe.n_experts) == (27, 2048, 64)
+    tuner.best_config(*serve.mla_context(cfg, 8, DENSE_T, cuda))
+    counters = {"mla_decode": mla_kernel.mla_decode,
+                "gqa_decode_ragged": gqa_kernel.gqa_decode,
+                "flash_attention": fa_kernel.flash_attention}
+    runs = {}
+    for label, extra in (("pallas", ["--decode-impl", "pallas"]),
+                         ("full", ["--decode-impl", "full"]),
+                         ("full, full prefill", ["--decode-impl", "full",
+                                                 "--attn-impl", "full"])):
+        for fn in counters.values():
+            fn.launches = 0
+        args = serve.build_parser().parse_args(
+            ["--arch", DSV2, "--full-config", "--requests", "8",
+             "--prompt-len", "512", "--gen", "32"] + extra)
+        report = serve.serve_dense(args, tuner)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[label] = (report, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{DSV2} dense run report ({' '.join(extra)}): "
+              + json.dumps({k: v for k, v in report.items() if k != "tokens"},
+                           sort_keys=True))
+        print(f"launches in the run ({' '.join(extra)}): "
+              f"{json.dumps(launches)}")
+        assert report["launches"]["mla_decode"] == launches["mla_decode"]
+        assert np.asarray(report["tokens"]).shape == (8, 32)
+    (kernel, kl), (plain, pl), (other, ol) = runs.values()
+    assert kl["mla_decode"] == 31 * cfg.n_layers == 837, kl
+    assert sum(kl.values()) == kl["mla_decode"], kl
+    assert sum(pl.values()) == sum(ol.values()) == 0, (pl, ol)
+    for a, b, pair in ((kernel, plain, "pallas vs full"),
+                       (other, plain, "full after the full prefill vs full "
+                                      "after the chunked one (the "
+                                      "reference's own spread)")):
+        firsts = [next((j for j, (x, y) in enumerate(zip(ra, rb)) if x != y),
+                       None) for ra, rb in zip(a["tokens"], b["tokens"])]
+        print(f"{DSV2} {pair}: {firsts.count(None)}/8 token streams equal; "
+              f"first differing token of each request: {firsts}")
+    print(f"{DSV2} at full width, --decode-impl pallas / full: prefill "
+          f"{kernel['prefill_ms']:.1f} / {plain['prefill_ms']:.1f} ms, "
+          f"decode {kernel['decode_ms']:.1f} / {plain['decode_ms']:.1f} ms, "
+          f"tokens/s {kernel['tokens_per_s']:.1f} / "
+          f"{plain['tokens_per_s']:.1f}, peak memory "
+          f"{kernel['peak_memory_bytes'] / 2**30:.2f} / "
+          f"{plain['peak_memory_bytes'] / 2**30:.2f} GiB")
+    return {"report": kernel, "launches": kl}
+
+
+@contextlib.contextmanager
+def mla_attention_pairs(out: list):
+    """Every MLA decode attention the plain path runs inside is also run by
+    mla_decode on the same input and cache (it writes the same new latent
+    into the same slot first), and the relative L2 between the two
+    attention outputs is recorded, layer by layer, into ``out``: the
+    kernel held on the reference path's own inputs, with no other
+    difference carried in from earlier layers. The port's code is
+    unchanged: ``attention._mla_decode`` is wrapped for the duration."""
+    from repro_torch.models import attention as ATT
+    real = ATT._mla_decode
+
+    def paired(p, x, cfg, cache, pos, *, impl):
+        if impl != "plain":
+            return real(p, x, cfg, cache, pos, impl=impl)
+        kernel, _ = real(p, x, cfg, cache, pos, impl="kernel")
+        plain, cache = real(p, x, cfg, cache, pos, impl="plain")
+        out.append(rel_l2(kernel, plain))
+        return plain, cache
+
+    ATT._mla_decode = paired
+    try:
+        yield out
+    finally:
+        ATT._mla_decode = real
+
+
+def mla_step_check(model, cfg, steps: int = 8) -> None:
+    """One full-width deepseek-v2-lite-16b decode step (8 requests at
+    position 512 after a chunked prefill of 512 tokens):
+
+    * mla_decode against the reference's einsum on the reference path's
+      own inputs at each of the 27 layers (``mla_attention_pairs``): the
+      attention outputs within BF16_TOL relative L2, every layer;
+    * the whole step through mla_decode against the step through the
+      einsum on clones of one latent cache, logits held by
+      ``hold_logits``. The random 27-layer MoE turns rounding-level
+      differences into O(1) ones wherever a top-6 routing choice flips, so
+      the relative L2 is held within BF16_TOL or, where wider, 1.1x the
+      reference's own spread between two exact computations of the same
+      logits: this decode step and a prefill of the prompts with the
+      step's token appended (the rule of ``prefill_check``); the greedy
+      tokens by the tie rule as everywhere. The expert choices that
+      differ between the two steps and the residual stream are printed;
+    * a profiled window of kernel steps."""
+    from repro_torch.models import lm
+    rng = np.random.default_rng(9)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 512))).cuda()
+    chunked = lm.ForwardOpts(attn_chunk=64)
+    _, cache = lm.prefill(model, cfg, prompts, max_len=512 + 2 * steps + 2,
+                          opts=chunked)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 1))).cuda()
+    caches = {"kernel": [{k: v.clone() for k, v in layer.items()}
+                         for layer in cache], "plain": cache}
+    layers = []
+    with mla_attention_pairs(layers):
+        lm.decode_step(model, cfg, tok,
+                       [{k: v.clone() for k, v in layer.items()}
+                        for layer in cache], 512,
+                       lm.ForwardOpts(decode_impl="plain"))
+    print(f"{cfg.name}: mla_decode vs the einsum on the same inputs, "
+          f"attention output relative L2 by layer (tol {BF16_TOL}): "
+          f"max {max(layers):.3g}; {[float(f'{e:.3g}') for e in layers]}")
+    assert len(layers) == cfg.n_layers, len(layers)
+    if max(layers) > BF16_TOL:
+        raise AssertionError(f"mla_decode's attention output at full width "
+                             f"differs from the einsum's by {max(layers)}")
+    logits, streams = {}, {"kernel": {}, "plain": {}}
+    routes = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain"):
+        with residual_streams(model, streams[path]), \
+                routing_record(routes[path]):
+            logits[path], _ = lm.decode_step(
+                model, cfg, tok, caches[path], 512,
+                lm.ForwardOpts(decode_impl=path))
+    flips = [int((a != b).any(-1).sum())
+             for a, b in zip(routes["kernel"], routes["plain"])]
+    print(f"{cfg.name} decode step: residual stream, relative L2 after "
+          f"layer {stream_errors(streams['kernel'], streams['plain'])}; "
+          f"MoE rows whose top-6 experts differ between the paths, by MoE "
+          f"layer: {flips} ({sum(flips)} of {len(flips) * 8})")
+    prefilled, _ = lm.prefill(model, cfg, torch.cat([prompts, tok], 1),
+                              max_len=513, opts=chunked)
+    spread = rel_l2(prefilled, logits["plain"])
+    print(f"  the reference's own spread: this step's logits against a "
+          f"prefill of the prompts with the token appended, relative L2 "
+          f"{spread:.4g}; the step through mla_decode against the prefill "
+          f"{rel_l2(prefilled, logits['kernel']):.4g}")
+    hold_logits(f"{cfg.name} dense decode step, mla_decode vs plain "
+                f"einsum, 8 requests at position 512", logits["kernel"],
+                logits["plain"], rel_tol=max(BF16_TOL, 1.1 * spread))
+    del streams, prefilled
+    for path, what in (("kernel", "mla_decode"), ("plain", "the einsum")):
+        opts = lm.ForwardOpts(decode_impl=path)
+        by_name = profile_steps(
+            f"{cfg.name} dense decode step (8 rows, full width, {what})",
+            lambda i, o=opts, p=path: lm.decode_step(
+                model, cfg, tok, caches[p], 513 + i, o), steps)
+        if by_name and path == "kernel":
+            ms, n = by_name.get(next((k for k in by_name
+                                      if "mla_kernel" in k), ""), (0.0, 0))
+            print(f"  mla_decode's kernel: {ms:.4f} ms/step in {n} "
+                  f"calls/step")
+
+
+def mla_f32_streams(tuner) -> None:
+    """deepseek-v2-lite-16b at full width in float32 (63 GB of weights from
+    seed 0): the launcher's 8 prompts of 512, one chunked prefill, then 31
+    greedy decode steps from it by mla_decode and by the reference's
+    einsum on clones of its latent caches. Without bf16 roundings between
+    the layers, the two paths' differences stay at f32 level, too small to
+    flip the MoE routing, so the token streams are held equal 8/8, or at
+    the first token where one differs the einsum path's own logits of that
+    step score the two tokens within 2% of their std (the tie rule)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    cfg = dataclasses.replace(serve.get_config(DSV2), dtype="float32")
+    cuda = torch.device("cuda")
+    tuner.best_config(*serve.mla_context(cfg, 8, DENSE_T, cuda))
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    rng = np.random.default_rng(0)                 # the launcher's prompts
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (8, 512),
+                                            dtype=np.int64)).cuda()
+    logits, cache = lm.prefill(model, cfg, prompts, max_len=DENSE_T,
+                               opts=lm.ForwardOpts(attn_chunk=64))
+    first = torch.argmax(logits, -1, keepdim=True)
+    toks, rows = {}, {}
+    for path in ("kernel", "plain"):
+        c = [{k: v.clone() for k, v in layer.items()} for layer in cache] \
+            if path == "kernel" else cache
+        tok, out, per_step = first, [first], []
+        opts = lm.ForwardOpts(decode_impl=path)
+        for i in range(31):
+            step_logits, c = lm.decode_step(model, cfg, tok, c, 512 + i,
+                                            opts)
+            per_step.append(step_logits.cpu())
+            tok = torch.argmax(step_logits, -1, keepdim=True)
+            out.append(tok)
+        toks[path] = torch.cat(out, 1).cpu().numpy()
+        rows[path] = per_step
+        del c
+    assert np.isfinite(torch.stack(rows["kernel"]).numpy()).all()
+    equal, found = 0, []
+    for r in range(8):
+        a, b = toks["kernel"][r], toks["plain"][r]
+        i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+        if i is None:
+            equal += 1
+            continue
+        row = rows["plain"][i - 1][r]             # step i - 1 chose token i
+        gap, std = float(row[b[i]] - row[a[i]]), float(row.std())
+        found.append({"request": r, "token": i, "gap": gap,
+                      "tol": BF16_TOL * std})
+        if gap > BF16_TOL * std:
+            raise AssertionError(f"{DSV2} f32: request {r} diverges at "
+                                 f"token {i} where the einsum path's logits "
+                                 f"differ by {gap}, over {BF16_TOL} of their "
+                                 f"std {std}")
+    print(f"{DSV2} in float32 at full width, mla_decode vs the einsum: "
+          f"{equal}/8 token streams equal (32 tokens each); the first "
+          f"step's logits relative L2 "
+          f"{rel_l2(rows['kernel'][0], rows['plain'][0]):.3g}; first "
+          f"divergences: {json.dumps(found)}")
+    del model, cache, logits
+
+
+@contextlib.contextmanager
+def routing_record(out: list):
+    """Record the top-k expert ids of every MoE call run inside, in call
+    order, into ``out`` (the port's code is unchanged: ``moe.route`` is
+    wrapped for the duration)."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def recording(p, x, cfg):
+        w, idx, probs = real(p, x, cfg)
+        out.append(idx.sort(-1).values.cpu())
+        return w, idx, probs
+
+    moe.route = recording
+    try:
+        yield out
+    finally:
+        moe.route = real
+
+
 def flash_dense_serving(tuner, model, chunked) -> dict:
     """The launcher's static batch at full width with ``--decode-impl
     pallas --attn-impl pallas`` (8 prompts of 512, 32 new tokens):
@@ -1650,6 +2074,8 @@ def profile_steps(label: str, step, steps: int = 8) -> None:
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {us * 1e-3 / steps:8.4f} ms/step {n // steps:4d} calls/step"
               f"  {name[:90]}")
+    return {name: (us * 1e-3 / steps, n // steps)
+            for name, (us, n) in by_name.items()}
 
 
 def profile_decode(engine, steps: int = 8) -> None:
@@ -1843,6 +2269,7 @@ def main(argv=None) -> int:
     pv8 = check_paged_verify_kv8(chip)
     w8_err = check_matmul_w8a8(chip)
     fa_err = check_flash_attention(chip)
+    mla_err = check_mla_decode(chip)
     off_space_err = off_space_layouts(chip)
     for out, name in ((pdk, "paged_decode"), (pvk, "paged_verify"),
                       (pd8, "paged_decode int8"), (pv8, "paged_verify int8")):
@@ -2017,6 +2444,7 @@ def main(argv=None) -> int:
     fak["max_abs_err"] = fa_err
     print(f"flash_attention at the serving prefill (tuned in "
           f"{time.perf_counter() - t:.1f} s): " + json.dumps(fak))
+    mlak = tune_and_time_mla(tuner, chip, mla_err)
     ops.release_tuning_operands()
 
     phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
@@ -2101,7 +2529,37 @@ def main(argv=None) -> int:
     rejection_run(K=5, page_size=4)
     rejection_run(quant="kv8")
 
-    phase(f"7. summary {elapsed()}")
+    phase(f"7. serving {DSV2} at full width (MLA + MoE) {elapsed()}")
+    # every phi4-mini model goes before the 31 GB of deepseek weights come
+    del engine, spec_engine, kv8_engine, kv8_spec_engine
+    w8a8_model.cache_clear()
+    ops.release_tuning_operands()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = [t for t in gc.get_objects()
+            if isinstance(t, torch.Tensor) and t.is_cuda]
+    held.sort(key=lambda t: -t.untyped_storage().nbytes())
+    print(f"device memory held after releasing phi4-mini: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; the largest "
+          f"live tensors: " + ", ".join(
+              f"{tuple(t.shape)} {t.dtype} "
+              f"({t.untyped_storage().nbytes() / 2**20:.0f} MiB)"
+              for t in held[:6]))
+    del held
+    mla = mla_dense_serving(tuner)
+
+    phase(f"8. a full-width {DSV2} decode step: mla_decode against the "
+          f"einsum, and where its time goes; the streams in float32 "
+          f"{elapsed()}")
+    mla_step_check(*dsv2_model())
+    dsv2_model.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_f32_streams(tuner)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"9. summary {elapsed()}")
 
     def entry(name, route, source, replaces, launches, out):
         return {"name": name, "route": route, "source": source,
@@ -2146,6 +2604,9 @@ def main(argv=None) -> int:
               "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:36",
               flash["launches"]["flash_attention"], fak),
+        entry("mla_decode", "cuda", "src/repro_torch/csrc/mla_decode.cu",
+              "src/repro/kernels/mla_decode.py:43",
+              mla["launches"]["mla_decode"], mlak),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

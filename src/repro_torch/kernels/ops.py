@@ -11,8 +11,8 @@ For each of the port's kernels this module declares
 
 and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
 ``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)``,
-``matmul_w8a8(...)``, ``attention(...)`` and ``rmsnorm(...)`` that
-resolve their config
+``matmul_w8a8(...)``, ``attention(...)``, ``latent_decode(...)`` and
+``rmsnorm(...)`` that resolve their config
 through the tuner and dispatch. Every entry point accepts
 ``config=`` to bypass tuning. Tensors on the CPU need no config: the
 kernel wrappers run their plain versions there. A pool laid out with a
@@ -20,7 +20,7 @@ page size outside the space, or a verify deeper or shallower than the
 tuned depths, dispatches a fixed config with no tuning, as the reference
 does.
 
-Importing this module registers the eight kernels in ``kernels.registry``
+Importing this module registers the nine kernels in ``kernels.registry``
 under the reference's names, scenarios and bench cases.
 """
 
@@ -42,6 +42,7 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.kernels import ref
@@ -1177,6 +1178,154 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 
 # ===========================================================================
+# MLA decode (absorbed latent attention over the compressed KV cache)
+# ===========================================================================
+
+def _mla_smem(cfg: Config, ctx: TuningContext) -> int:
+    width = ctx.shape("q_abs")[2] + ctx.shape("q_rope")[2]
+    return mla_kernel.smem_bytes(
+        width, dtype_bytes(ctx.dtype),
+        mla_kernel.clamp_block_kv(cfg["block_kv"], ctx.shape("ckv")[1]),
+        cfg["num_warps"])
+
+
+def mla_decode_space() -> ConfigSpace:
+    """The reference's tunables (``block_kv``, ``k_splits``) at the sizes a
+    Hopper block stages, with ``num_warps`` beside them and ``smem_fits``
+    (two stages of block_kv rows of C + R) in place of ``vmem_fits``; the
+    reference's ``splits<=blocks``."""
+    sp = ConfigSpace(
+        "mla_decode",
+        [
+            Param("block_kv", mla_kernel.BLOCK_KV),
+            Param("k_splits", mla_kernel.K_SPLITS),
+            Param("num_warps", mla_kernel.NUM_WARPS),
+        ],
+        version=1,
+    )
+    sp.constrain("smem", smem_fits(_mla_smem))
+    sp.constrain(
+        "splits<=blocks",
+        lambda c, x: c["k_splits"] <= max(1, _cdiv(x.shape("ckv")[1],
+                                                   c["block_kv"])))
+    return sp
+
+
+def mla_decode_bytes(B: int, H: int, C: int, R: int, kv_tokens: float,
+                     itemsize: int) -> float:
+    """HBM bytes of one call reading each cache row once: the ckv and
+    krope rows of ``kv_tokens`` valid positions and q_abs, q_rope in
+    ``itemsize``, the f32 context (B, H, C) out, the lengths."""
+    return ((kv_tokens + B * H) * (C + R) * itemsize + 4.0 * B * H * C
+            + 4.0 * B)
+
+
+def mla_decode_flops(H: int, C: int, R: int, kv_tokens: float) -> float:
+    """The C- and R-contractions of the scores and p·ckv: 2·(2C + R)
+    operations per valid position and head."""
+    return 2.0 * H * kv_tokens * (2 * C + R)
+
+
+def _mla_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
+    """What the timed call moves under ``cfg`` (the runner attends all T,
+    as the reference's does): the cache rows, q, the context, and the
+    f32 partials the port writes: with one split an lse a row beside the
+    context, with more each split's (context, lse) written by the kernel
+    and read back by the combine."""
+    B, H, C = ctx.shape("q_abs")
+    T, R = ctx.shape("ckv")[1], ctx.shape("q_rope")[2]
+    ks = cfg["k_splits"]
+    partials = 4.0 * B * H if ks == 1 else 2.0 * 4 * B * ks * H * (C + 1)
+    kv_tokens = float(B * T)
+    return KernelWorkload(
+        flops=mla_decode_flops(H, C, R, kv_tokens),
+        hbm_bytes=mla_decode_bytes(B, H, C, R, kv_tokens,
+                                   dtype_bytes(ctx.dtype)) + partials,
+        dtype=ctx.dtype)
+
+
+def _mla_heuristic(ctx: TuningContext) -> Config:
+    """The reference's one split, at the largest block whose two stages
+    the card holds with four warps."""
+    base = {"k_splits": 1, "num_warps": 4}
+    for block_kv in reversed(mla_kernel.BLOCK_KV):
+        cfg = dict(base, block_kv=block_kv)
+        if _mla_smem(cfg, ctx) <= ctx.chip.smem_per_block:
+            return cfg
+    return dict(base, block_kv=mla_kernel.BLOCK_KV[0])
+
+
+def _mla_canonical(cfg: Config, ctx: TuningContext) -> Config:
+    """The kernel clamps its block to the smallest one that holds the
+    cache; larger blocks launch the same program."""
+    c = dict(cfg)
+    c["block_kv"] = mla_kernel.clamp_block_kv(c["block_kv"],
+                                              ctx.shape("ckv")[1])
+    return c
+
+
+def _mla_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                  device="cuda"):
+    """q_abs, q_rope, ckv, krope drawn in the context's dtype (the
+    reference's runner passes no lengths: every request attends all T),
+    with the context's scale (1.0 unless ``extra`` names one)."""
+    dtype = getattr(torch, ctx.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    args = tuple(_randn(ctx.shape(name), dtype, gen)
+                 for name in ("q_abs", "q_rope", "ckv", "krope"))
+    return args, {"scale": float(ctx.extra.get("scale", 1.0))}
+
+
+def _mla_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    args, kw = _memo_operands(("mla_decode", ctx.signature()),
+                              lambda: _mla_operands(ctx))
+    return KernelRunner(mla_kernel.mla_decode, *args, **kw, **cfg)
+
+
+MLA_DECODE = TunableKernel(
+    name="mla_decode",
+    space=mla_decode_space(),
+    version=1,
+    workload_fn=_mla_workload,
+    make_runner=_mla_runner,
+    heuristic=_mla_heuristic,
+    canonicalize=_mla_canonical,
+)
+
+
+def mla_decode_context(chip, B: int, H: int, C: int, R: int, T: int,
+                       dtype: str) -> TuningContext:
+    """Tuning scenario of an absorbed-MLA decode: B requests of H heads
+    over a latent cache of T rows of rank C with RoPE keys of R, the
+    reference's shapes."""
+    return TuningContext(chip=chip, shapes={"q_abs": (B, H, C),
+                                            "q_rope": (B, H, R),
+                                            "ckv": (B, T, C),
+                                            "krope": (B, T, R)},
+                         dtype=dtype)
+
+
+def latent_decode(q_abs, q_rope, ckv, krope, *, kv_len=None,
+                  scale: Optional[float] = None,
+                  config: Optional[Config] = None,
+                  tuner: Optional[Autotuner] = None):
+    """Autotuned absorbed-MLA decode. q_abs (B, H, C); q_rope (B, H, R);
+    ckv (B, T, C); krope (B, T, R). Returns attended latents (B, H, C)
+    f32."""
+    if config is None and q_abs.is_cuda:
+        tuner = tuner or default_tuner()
+        B, H, C = q_abs.shape
+        T, R = ckv.shape[1], q_rope.shape[2]
+        dt = dtype_name(ckv.dtype)
+        config = tuner.dispatch_config(
+            MLA_DECODE, (B, H, C, R, T, dt, q_abs.device.index),
+            lambda: mla_decode_context(device_chip(q_abs.device.index), B,
+                                       H, C, R, T, dt))
+    return mla_kernel.mla_decode(q_abs, q_rope, ckv, krope, kv_len=kv_len,
+                                 scale=scale, **(config or {}))
+
+
+# ===========================================================================
 # RMS norm
 # ===========================================================================
 
@@ -1390,6 +1539,23 @@ def _register_builtin_kernels() -> None:
                       dtype="int8", scale="paper"),
             BenchCase("mm8k", {"x": (8192, 8192), "y": (8192, 8192)},
                       dtype="int8", scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=MLA_DECODE,
+        scenarios=("decode", "mla", "serving"),
+        reference=ref.mla_decode,
+        entry_point=latent_decode,
+        operands=_mla_operands,
+        description="Absorbed-MLA decode over the compressed latent cache",
+        bench_cases=(
+            BenchCase("m1024", {"q_abs": (2, 4, 256), "q_rope": (2, 4, 64),
+                                "ckv": (2, 1024, 256),
+                                "krope": (2, 1024, 64)}),
+            BenchCase("dsv2_32k",
+                      {"q_abs": (8, 16, 512), "q_rope": (8, 16, 64),
+                       "ckv": (8, 32768, 512), "krope": (8, 32768, 64)},
+                      dtype="bfloat16", scale="paper"),
         ),
     ))
     register(KernelSpec(

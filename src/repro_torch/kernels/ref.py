@@ -213,6 +213,46 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
+def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+               krope: torch.Tensor, *, kv_len: Optional[torch.Tensor] = None,
+               scale: float = 1.0) -> torch.Tensor:
+    """Absorbed-MLA decode in f32, the reference's oracle: q_abs (B, H, C)
+    queries with W_uk absorbed; q_rope (B, H, R); ckv (B, T, C) latent
+    cache; krope (B, T, R). ``kv_len`` (B,) masks positions >= kv_len[b]
+    (a row with kv_len 0 averages ckv, as the oracle's softmax does).
+    Returns the attended latent context (B, H, C) f32; W_uv applies
+    downstream."""
+    s = torch.einsum("bhc,btc->bht", q_abs.float(), ckv.float())
+    s = s + torch.einsum("bhr,btr->bht", q_rope.float(), krope.float())
+    s = s * scale
+    if kv_len is not None:
+        T = ckv.shape[1]
+        s = torch.where(torch.arange(T, device=s.device)[None, None, :]
+                        < kv_len.to(s.device)[:, None, None], s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    return torch.einsum("bht,btc->bhc", p, ckv.float())
+
+
+def mla_decode_ragged(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                      ckv: torch.Tensor, krope: torch.Tensor, *,
+                      kv_len: Optional[torch.Tensor] = None,
+                      scale: float = 1.0) -> torch.Tensor:
+    """The mla_decode kernel's function: ``mla_decode`` with what the
+    kernel does at the edges, ``kv_len`` clamped to T (past T means the
+    whole cache) and a row with kv_len 0 giving zeros (where the oracle's
+    all-masked softmax averages ckv). Shapes as ``mla_decode``'s; returns
+    (B, H, C) f32."""
+    B, T = ckv.shape[0], ckv.shape[1]
+    if kv_len is None:
+        kv_len = torch.full((B,), T, dtype=torch.long, device=ckv.device)
+    lens = torch.clamp(kv_len.long().to(ckv.device), 0, T)
+    o = mla_decode(q_abs, q_rope, ckv, krope,
+                   kv_len=torch.clamp(lens, min=1), scale=scale)
+    return torch.where((lens > 0)[:, None, None], o, 0.0)
+
+
 def matmul_w8a8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """w8a8 GEMM: dequantize both int8 operands, multiply in f32. x (M, K)

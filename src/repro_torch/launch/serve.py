@@ -76,6 +76,19 @@ page size either way.
 The paged path runs on the card only: with no CUDA device it raises
 instead of carrying on on the CPU. Tensor parallelism (``--tp``) is not
 ported and raises ``NotImplementedError``.
+
+``--arch deepseek-v2-lite-16b`` (MLA attention, MoE layers) and
+``--arch olmoe-1b-7b`` (MoE layers) serve on the dense path only, as the
+reference's paged path refuses them: ``pallas`` decodes an MLA arch
+through the hand-written CUDA ``mla_decode`` over the latent cache (tuned
+before the timed run at the serving context), ``full`` through the
+reference's einsum; the MoE layers are the reference's index dispatch in
+plain torch ops. Refused by name (``NotImplementedError``) on these
+archs: ``--decode-impl paged`` and ``--speculative`` (MLA or MoE),
+``--quant kv8`` (MLA: no int8 latent cache), ``--quant w8a8|w8a16``
+(MoE: no quantized path for the stacked expert weights) and
+``--attn-impl pallas`` (MLA: q and k are wider than v, and
+``flash_attention`` takes one head dim).
 """
 
 from __future__ import annotations
@@ -90,6 +103,11 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.tuner import Autotuner, default_tuner
+from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import gqa_decode as gqa_kernel
+from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
+from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_verify as pv_kernel
 from repro_torch.models import lm
@@ -286,6 +304,39 @@ def dense_context(cfg: ModelConfig, batch: int, max_len: int, device,
                                                          cfg.dtype)
 
 
+def mla_context(cfg: ModelConfig, batch: int, max_len: int, device):
+    """(kernel, context) an MLA arch's dense decode steps dispatch:
+    ``mla_decode`` over the batch's latent caches of ``max_len`` slots, q
+    in the model's dtype."""
+    chip = ops.device_chip(device.index or 0)
+    m = cfg.mla
+    return ops.MLA_DECODE, ops.mla_decode_context(
+        chip, batch, cfg.n_heads, m.kv_lora_rank, m.qk_rope_dim, max_len,
+        cfg.dtype)
+
+
+def decode_context(cfg: ModelConfig, batch: int, max_len: int, device,
+                   quant: Optional[str] = None):
+    """(kernel, context) the dense decode steps dispatch under
+    ``--decode-impl pallas``: ``mla_context`` for an MLA arch, else
+    ``dense_context``."""
+    if cfg.mla is not None:
+        return mla_context(cfg, batch, max_len, device)
+    return dense_context(cfg, batch, max_len, device, quant)
+
+
+# The kernels the dense path may launch, counted in its run report
+DENSE_KERNELS = {"gqa_decode_ragged": gqa_kernel.gqa_decode,
+                 "gqa_decode_kv8": kv8_kernel.gqa_decode_kv8,
+                 "mla_decode": mla_kernel.mla_decode,
+                 "flash_attention": fa_kernel.flash_attention,
+                 "matmul_w8a8": mm8_kernel.matmul_w8a8}
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in DENSE_KERNELS.items()}
+
+
 def flash_context(cfg: ModelConfig, batch: int, prompt_len: int, device):
     """(kernel, context) the ``--attn-impl pallas`` prefill dispatches:
     causal flash_attention over the batch's prompts, q (B, Hq, P, D) and
@@ -315,8 +366,11 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     ``gqa_decode_ragged`` or ``gqa_decode_kv8`` kernel (``--decode-impl
     pallas``) or the plain einsum (``full``). Under ``--quant w8a8`` the
     MLP weights are quantized once after they are made and their GEMMs
-    run by ``--quant-impl``. Returns the run report, the generated tokens
-    (B, G) under ``"tokens"``."""
+    run by ``--quant-impl``. An MLA arch decodes through ``mla_decode``
+    (``pallas``) or the reference's absorbed einsum (``full``). Returns
+    the run report, with the launches of each kernel the run made
+    (``"launches"``) and the generated tokens (B, G) under
+    ``"tokens"``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
@@ -335,8 +389,8 @@ def serve_dense(args, tuner: Autotuner) -> dict:
     prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P),
                                             dtype=np.int64)).to(device)
     if device.type == "cuda":
-        contexts = [dense_context(cfg, B, P + G, device, quant)] if kernel \
-            else []
+        contexts = [decode_context(cfg, B, P + G, device, quant)] \
+            if kernel else []
         if args.attn_impl == "pallas":
             contexts.append(flash_context(cfg, B, P, device))
         if quant == "w8a8" and args.quant_impl == "pallas":
@@ -353,6 +407,7 @@ def serve_dense(args, tuner: Autotuner) -> dict:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    before = _launch_counts()
     t0 = time.perf_counter()
     logits, cache = lm.prefill(model, cfg, prompts, max_len=P + G, opts=opts)
     tok = torch.argmax(logits, -1, keepdim=True)
@@ -366,6 +421,7 @@ def serve_dense(args, tuner: Autotuner) -> dict:
         outs.append(tok)
     sync()
     decode_s = time.perf_counter() - t0
+    launches = {k: n - before[k] for k, n in _launch_counts().items()}
     tokens = torch.cat(outs, 1).cpu().tolist()
     return {
         "arch": cfg.name, "attn_impl": args.attn_impl,
@@ -376,13 +432,15 @@ def serve_dense(args, tuner: Autotuner) -> dict:
         "tokens_per_s": B * (G - 1) / decode_s if G > 1 else 0.0,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
-        "sample": tokens[0][:12], "tokens": tokens,
+        "launches": launches, "sample": tokens[0][:12], "tokens": tokens,
     }
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=ARCHS, default="phi4-mini-3.8b")
+    ap.add_argument("--arch", choices=ARCHS, default="phi4-mini-3.8b",
+                    help="deepseek-v2-lite-16b (MLA + MoE) and olmoe-1b-7b "
+                         "(MoE) serve on the dense path only")
     ap.add_argument("--full-config", action="store_true",
                     help="serve the published widths (default: smoke)")
     ap.add_argument("--requests", type=int, default=8)
@@ -439,8 +497,40 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _refuse_for_arch(args, cfg: ModelConfig) -> None:
+    """What the port does not serve on an MLA or MoE arch, each refused by
+    name, as the reference refuses it or leaves it untested."""
+    kind = "MLA" if cfg.mla is not None else "MoE" if cfg.moe else None
+    if kind is None:
+        return
+    if args.decode_impl == "paged":
+        raise NotImplementedError(
+            f"--decode-impl paged on {cfg.name} ({kind}): paged serving "
+            f"takes dense GQA archs (serve it with --decode-impl "
+            f"pallas|full)")
+    if args.speculative is not None:
+        raise NotImplementedError(
+            f"--speculative on {cfg.name} ({kind}): draft and verify run on "
+            f"the paged engine, which takes dense GQA archs")
+    if args.quant == "kv8" and cfg.mla is not None:
+        raise NotImplementedError(
+            f"--quant kv8 on {cfg.name}: kv8 int8 caching needs the "
+            f"latent-cache quant path, and MLA caches latents")
+    if args.quant in ("w8a8", "w8a16") and cfg.moe is not None:
+        raise NotImplementedError(
+            f"--quant {args.quant} on {cfg.name}: the MoE experts' stacked "
+            f"weights have no quantized path")
+    if args.attn_impl == "pallas" and cfg.mla is not None:
+        raise NotImplementedError(
+            f"--attn-impl pallas on {cfg.name}: MLA's q and k are "
+            f"{cfg.attn_qk_dim} wide and v {cfg.attn_v_dim}, and "
+            f"flash_attention takes one head dim (prefill by chunked or "
+            f"full)")
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    _refuse_for_arch(args, get_config(args.arch))
     if args.quant == "w8a16":
         raise NotImplementedError("--quant w8a16: w8a16 weights are not "
                                   "ported yet")

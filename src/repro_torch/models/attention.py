@@ -15,8 +15,14 @@ Both paths cover window-free GQA, with float caches or int8 ones (the
 kv8 policy: per-token-per-head int8 entries with f32 scales, the wire
 format of ``repro_torch.quant.quantize_kv``, in parallel
 ``k_scale``/``v_scale`` buffers of a dense cache or
-``k_scales``/``v_scales`` pools of a paged one). SWA ring caches, MLA
-and tensor parallelism are not ported and raise ``NotImplementedError``.
+``k_scales``/``v_scales`` pools of a paged one). The dense path also
+serves MLA (deepseek-v2's multi-head latent attention): its cache holds
+the compressed latents ``ckv`` (B, max_len, C) and the RoPE keys
+``krope`` (B, max_len, R), written in place; the prompt attends through
+the decompressed K/V (``full`` or ``chunked``), a decode step through the
+absorbed query, by the ``mla_decode`` kernel or the reference's einsum.
+SWA ring caches, int8 latent caches, paged MLA and tensor parallelism are
+not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,15 +41,32 @@ NEG_INF = -1e30
 
 
 class Attention(_Params):
+    """GQA projections, or under ``cfg.mla`` the MLA ones: ``wq`` (d, H·(n
+    + r)), the KV down-projection ``wdkv`` (d, C + r), the latents' f32
+    norm weight ``kvnorm`` (C,), the per-head up-projections ``wuk`` (H,
+    C, n) and ``wuv`` (H, C, v), and ``wo`` (H·v, d), as the reference's
+    ``attn_specs``."""
+
     def __init__(self, cfg: ModelConfig, device):
-        if cfg.mla is not None:
-            raise NotImplementedError("MLA attention: not in the port")
         d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = torch_dtype(cfg.dtype)
-        super().__init__({"wq": ParamSpec((d, hq * dh), dt),
-                          "wk": ParamSpec((d, hkv * dh), dt),
-                          "wv": ParamSpec((d, hkv * dh), dt),
-                          "wo": ParamSpec((hq * dh, d), dt)}, device)
+        if cfg.mla is not None:
+            m = cfg.mla
+            specs = {
+                "wq": ParamSpec((d, hq * (m.qk_nope_dim + m.qk_rope_dim)),
+                                dt),
+                "wdkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim), dt),
+                "kvnorm": ParamSpec((m.kv_lora_rank,), torch.float32,
+                                    "ones"),
+                "wuk": ParamSpec((hq, m.kv_lora_rank, m.qk_nope_dim), dt),
+                "wuv": ParamSpec((hq, m.kv_lora_rank, m.v_head_dim), dt),
+                "wo": ParamSpec((hq * m.v_head_dim, d), dt)}
+        else:
+            specs = {"wq": ParamSpec((d, hq * dh), dt),
+                     "wk": ParamSpec((d, hkv * dh), dt),
+                     "wv": ParamSpec((d, hkv * dh), dt),
+                     "wo": ParamSpec((hq * dh, d), dt)}
+        super().__init__(specs, device)
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -166,7 +189,15 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     """(shape, dtype) of this layer's dense cache, layout (B, max_len,
     Hkv, D) as the reference's; window-free only. ``kv_dtype="int8"`` (the
     kv8 policy) stores int8 entries plus per-token-per-head f32 scales
-    (B, max_len, Hkv) in parallel ``k_scale``/``v_scale`` buffers."""
+    (B, max_len, Hkv) in parallel ``k_scale``/``v_scale`` buffers. An MLA
+    layer's cache is the latents ``ckv`` (B, max_len, C) and the RoPE keys
+    ``krope`` (B, max_len, R) in the model's dtype; it has no int8 form."""
+    if cfg.mla is not None:
+        if kv_dtype is not None:
+            _check_kv8(cfg)
+        m, dt = cfg.mla, torch_dtype(cfg.dtype)
+        return {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
+                "krope": ((batch, max_len, m.qk_rope_dim), dt)}
     if cfg.window is not None:
         raise NotImplementedError(
             f"{cfg.name!r}: SWA ring caches are not ported")
@@ -180,6 +211,13 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     return {"k": (shape, torch.int8), "v": (shape, torch.int8),
             "k_scale": (sshape, torch.float32),
             "v_scale": (sshape, torch.float32)}
+
+
+def _check_kv8(cfg: ModelConfig) -> None:
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"kv8 int8 caching needs the latent-cache quant path; "
+            f"{cfg.name!r} uses MLA")
 
 
 def _write_kv(cache: Dict[str, torch.Tensor], k, v, pos: slice) -> None:
@@ -202,6 +240,8 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     max_len slots), in place. Under kv8 the attention over the prompt
     still runs in full precision: only what persists is quantized.
     Returns (out, cache)."""
+    if cfg.mla is not None:
+        return _mla_prefill(p, x, cfg, cache, impl=impl, chunk=chunk)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
@@ -221,8 +261,10 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     cache ``gqa_decode_kv8`` (``kernels.ops.ragged_decode_kv8``), kv_len =
     pos + 1, the cache and its scales handed over as (B, Hkv, T, D) and
     (B, Hkv, T) views; ``impl="plain"`` attends through the reference's
-    einsum path, over the int8 cache dequantized in f32. Returns
-    (out, cache)."""
+    einsum path, over the int8 cache dequantized in f32. An MLA layer
+    decodes through ``_mla_decode``. Returns (out, cache)."""
+    if cfg.mla is not None:
+        return _mla_decode(p, x, cfg, cache, pos, impl=impl)
     B = x.shape[0]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
@@ -255,6 +297,104 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     prob = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
     o = torch.einsum("bkgst,btkv->bskgv", prob, cvf)
     o = o.reshape(B, 1, hq, dh).to(x.dtype)
+    return _proj_out(p, o, cfg), cache
+
+
+# --- MLA (DeepSeek multi-head latent attention), dense caches ---------------
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    m = cfg.mla
+    return (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+
+def _mla_project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor):
+    """(q_nope (B, S, H, n), q_rope (B, S, H, r) rotated)."""
+    B, S, _ = x.shape
+    m = cfg.mla
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_compress(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor):
+    """(ckv (B, S, C): the latents RMS-normed in f32 with ``kvnorm`` at eps
+    1e-6, in x's dtype; krope (B, S, r): the shared RoPE key, rotated)."""
+    m = cfg.mla
+    dkv = x @ p.wdkv
+    ckv, krope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    xf = ckv.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    ckv = (xf * torch.rsqrt(var + 1e-6) * p.kvnorm).to(x.dtype)
+    krope = rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, krope
+
+
+def _mla_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 cache: Dict[str, torch.Tensor], *, impl: str, chunk: int):
+    """The prompt through the decompressed form (the reference's
+    ``_mla_forward``): per-head K = [ckv W_uk | krope] and V = ckv W_uv,
+    causal attention by ``impl`` (``full`` or ``chunked``; q and k are n + r
+    wide and v is v_head_dim wide, which ``flash_attention``, one head dim,
+    does not take); the latents and RoPE keys land in slots 0..S-1 of the
+    cache in place. Returns (out, cache)."""
+    if impl == "pallas":
+        raise NotImplementedError(
+            "MLA prefill under attn_impl='pallas': q and k are "
+            "qk_nope + qk_rope wide and v is v_head_dim wide, and "
+            "flash_attention takes one head dim (MLA prefills by chunked "
+            "or full)")
+    B, S, _ = x.shape
+    m = cfg.mla
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
+    ckv, krope = _mla_compress(p, x, cfg, positions)
+    k_nope = torch.einsum("btc,hcn->bthn", ckv, p.wuk.to(x.dtype))
+    v = torch.einsum("btc,hcv->bthv", ckv, p.wuv.to(x.dtype))
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        B, S, cfg.n_heads, m.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = run_attention(q, k, v, impl=impl, chunk=chunk)
+    cache["ckv"][:, :S] = ckv
+    cache["krope"][:, :S] = krope
+    return _proj_out(p, o, cfg), cache
+
+
+def _mla_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                cache: Dict[str, torch.Tensor], pos: int, *, impl: str):
+    """Absorbed-MLA decode at position ``pos``: the new latent and RoPE key
+    land in slot ``pos`` in place; W_uk folds into the query (q_abs, B×H×C)
+    so attention runs against the latent cache itself. ``impl="kernel"``
+    attends through the autotuned ``mla_decode`` kernel
+    (``kernels.ops.latent_decode``, kv_len = pos + 1) and applies W_uv in
+    f32; ``impl="plain"`` through the reference's einsum and softmax.
+    Returns (out, cache)."""
+    B = x.shape[0]
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_project_q(p, x, cfg, positions)
+    ckv_t, krope_t = _mla_compress(p, x, cfg, positions)
+    cache["ckv"][:, pos:pos + 1] = ckv_t
+    cache["krope"][:, pos:pos + 1] = krope_t
+    ckv, krope = cache["ckv"], cache["krope"]
+    q_abs = torch.einsum("bshn,hcn->bshc", q_nope, p.wuk.to(x.dtype))
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        kv_len = torch.full((B,), pos + 1, dtype=torch.int32,
+                            device=x.device)
+        ctx = kops.latent_decode(q_abs[:, 0], q_rope[:, 0], ckv, krope,
+                                 kv_len=kv_len, scale=_mla_scale(cfg))
+        o = torch.einsum("bhc,hcv->bhv", ctx, p.wuv.float())
+        return _proj_out(p, o[:, None].to(x.dtype), cfg), cache
+    if impl != "plain":
+        raise ValueError(f"decode impl {impl!r}")
+    s = torch.einsum("bshc,btc->bhst", q_abs.float(), ckv.float())
+    s = s + torch.einsum("bshr,btr->bhst", q_rope.float(), krope.float())
+    s = s * _mla_scale(cfg)
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    prob = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhst,btc->bshc", prob, ckv.float())
+    o = torch.einsum("bshc,hcv->bshv", ctx, p.wuv.float()).to(x.dtype)
     return _proj_out(p, o, cfg), cache
 
 

@@ -20,9 +20,11 @@ The steps write the caches in place and return them with f32 logits. The
 dense caches and the paged pools (the speculative verify's too) are int8
 with f32 scales under ``ForwardOpts(quant="kv8")``; a model whose MLP
 weights ``quant.quantize_params`` made QTensors (w8a8) runs their GEMMs by
-``ForwardOpts.quant_impl``. Both paths serve
-``attn_mlp`` dense archs with RoPE and no window, MLA, learned positions
-or prefix embeddings (``_check_supported``).
+``ForwardOpts.quant_impl``. Both paths serve RoPE attention archs with
+no window, learned positions or prefix embeddings (``_check_dense``); the
+paged path takes the dense GQA family only (``_check_paged``, as the
+reference's), while the dense path also serves MoE layers (``attn_moe``:
+``models.moe``, the reference's index dispatch) and MLA attention.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLP, Embed, Norm, apply_mlp, apply_norm, embed_tokens, logits_out,
 )
+from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.quant import get_policy
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -68,42 +71,59 @@ class ForwardOpts:
 
 
 class Block(nn.Module):
-    """One ``attn_mlp`` decoder layer, named as the reference's tree."""
+    """One decoder layer of ``kind`` (``attn_mlp`` or ``attn_moe``), named
+    as the reference's tree: the MLP is ``d_ff_dense`` wide where a MoE
+    model keeps a layer dense."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, kind: str):
         super().__init__()
         self.ln1 = Norm(cfg, device)
         self.mix = ATT.Attention(cfg, device)
         self.ln2 = Norm(cfg, device)
-        self.ffn = MLP(cfg, device, cfg.d_ff_dense or cfg.d_ff)
+        self.ffn = (MoE(cfg, device) if kind == "attn_moe"
+                    else MLP(cfg, device, cfg.d_ff_dense or cfg.d_ff))
 
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        _check_supported(cfg)
-        kinds = set(cfg.layer_kinds())
-        if kinds != {"attn_mlp"}:
+        _check_dense(cfg)
+        kinds = cfg.layer_kinds()
+        if not set(kinds) <= {"attn_mlp", "attn_moe"}:
             raise NotImplementedError(
-                f"{cfg.name!r} has layer kinds {sorted(kinds)}; the port "
-                "serves attn_mlp decoders")
+                f"{cfg.name!r} has layer kinds {sorted(set(kinds))}; the "
+                "port serves attn_mlp and attn_moe decoders")
         self.cfg = cfg
         self.embed = Embed(cfg, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, device, kind)
+                                    for kind in kinds)
         self.final_ln = Norm(cfg, device)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """What the port's paged serving and dense serving both support: a
-    dense RoPE attention arch with no window, MLA, learned positions or
-    prefix embeddings."""
-    if cfg.family != "dense" or cfg.mla is not None or cfg.window is not None \
+def _check_dense(cfg: ModelConfig) -> None:
+    """What the port's dense serving supports, and its paged serving too
+    where ``_check_paged`` agrees: a RoPE attention arch of the dense or
+    MoE family, GQA or MLA, with no window, learned positions or prefix
+    embeddings."""
+    if cfg.family not in ("dense", "moe") or cfg.window is not None \
             or cfg.learned_pos or cfg.n_prefix:
         raise NotImplementedError(
-            f"the port's paged serving and dense serving support dense RoPE "
-            f"attention archs; {cfg.name!r} needs MLA, SWA ring caches, "
-            f"enc-dec or prefix embeddings, which are not ported")
+            f"the port's paged serving and dense serving support RoPE "
+            f"attention archs; {cfg.name!r} needs SWA ring caches, learned "
+            f"positions, enc-dec, SSM or prefix embeddings, which are not "
+            f"ported")
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """Paged serving takes dense GQA archs only, as the reference's
+    ``_check_paged``: no MoE family, no MLA (whose latent cache has no
+    paged form in the reference)."""
+    _check_dense(cfg)
+    if cfg.family != "dense" or cfg.mla is not None:
+        raise NotImplementedError(
+            f"paged serving supports dense RoPE attention archs; "
+            f"{cfg.name!r} needs MLA or MoE paging, which the reference "
+            f"does not have and the port does not either")
 
 
 def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
@@ -124,21 +144,25 @@ def _run_layers(model: LM, h, cfg, opts, cache, tables, start, *, mode):
             mix, _ = ATT.attn_verify_paged(block.mix, hn, cfg, layer_cache,
                                            tables, start,
                                            impl=opts.decode_impl)
-        h = _mlp_residual(block, h + mix, cfg, opts)
+        h = _ffn_residual(block, h + mix, cfg, opts)
     return h
 
 
-def _mlp_residual(block: Block, h, cfg, opts):
-    return h + apply_mlp(block.ffn, apply_norm(block.ln2, h, cfg,
-                                               impl=opts.norm_impl), cfg,
-                         quant_impl=opts.quant_impl)
+def _ffn_residual(block: Block, h, cfg, opts):
+    """h plus the layer's MLP or MoE (its aux loss unused in serving) over
+    the second norm."""
+    hn = apply_norm(block.ln2, h, cfg, impl=opts.norm_impl)
+    if isinstance(block.ffn, MoE):
+        return h + apply_moe(block.ffn, hn, cfg)[0]
+    return h + apply_mlp(block.ffn, hn, cfg, quant_impl=opts.quant_impl)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                kv_dtype: Optional[str] = None) -> Cache:
     """Zero-filled dense caches (B, max_len, Hkv, D) for every layer;
-    ``kv_dtype="int8"`` (kv8) adds the (B, max_len, Hkv) f32 scales."""
-    _check_supported(cfg)
+    ``kv_dtype="int8"`` (kv8) adds the (B, max_len, Hkv) f32 scales. An
+    MLA arch's caches are its latents and RoPE keys (``ckv``, ``krope``)."""
+    _check_dense(cfg)
     specs = ATT.attn_cache_spec(cfg, batch, max_len, kv_dtype)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in specs.items()}
@@ -163,7 +187,7 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
         hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
         mix, _ = ATT.attn_prefill(block.mix, hn, cfg, layer_cache,
                                   impl=opts.attn_impl, chunk=opts.attn_chunk)
-        h = _mlp_residual(block, h + mix, cfg, opts)
+        h = _ffn_residual(block, h + mix, cfg, opts)
     h = apply_norm(model.final_ln, h[:, -1:], cfg, impl=opts.norm_impl)
     return logits_out(model.embed, h, cfg)[:, 0], cache
 
@@ -182,7 +206,7 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
         hn = apply_norm(block.ln1, h, cfg, impl=opts.norm_impl)
         mix, _ = ATT.attn_decode(block.mix, hn, cfg, layer_cache, pos,
                                  impl=opts.decode_impl)
-        h = _mlp_residual(block, h + mix, cfg, opts)
+        h = _ffn_residual(block, h + mix, cfg, opts)
     h = apply_norm(model.final_ln, h, cfg, impl=opts.norm_impl)
     return logits_out(model.embed, h, cfg)[:, 0], cache
 
@@ -197,7 +221,7 @@ def prefill_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     (all-position logits (B, S, vocab) f32, cache) — chunks are padded to
     a fixed width by the scheduler, so the caller picks the logit at its
     last valid position."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     h = embed_tokens(model.embed, tokens, cfg)
     h = _run_layers(model, h, cfg, opts, cache, block_tables, start,
                     mode="prefill")
@@ -213,7 +237,7 @@ def decode_step_paged(model: LM, cfg: ModelConfig, token: torch.Tensor,
     lens (B,) resident lengths (0 = inactive slot); the pools must be of
     ``opts``' kv dtype (int8 under kv8). Returns
     (logits (B, vocab) f32, cache)."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     h = embed_tokens(model.embed, token, cfg)
     h = _run_layers(model, h, cfg, opts, cache, block_tables, lens,
                     mode="decode")
@@ -232,7 +256,7 @@ def verify_step_paged(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     vocab) f32, cache): logits[:, t] predicts the token after position t,
     what t+1 sequential ``decode_step_paged`` calls would give when the
     drafts before it match."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     h = embed_tokens(model.embed, tokens, cfg)
     h = _run_layers(model, h, cfg, opts, cache, block_tables, lens,
                     mode="verify")
@@ -244,7 +268,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device="cuda", kv_dtype: Optional[str] = None) -> Cache:
     """Zero-filled page pools for every layer; ``kv_dtype="int8"`` (kv8)
     makes them int8 and adds the (Hkv, P, page_size) f32 scale pools."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     specs = ATT.paged_cache_spec(cfg, num_pages, page_size, kv_dtype)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in specs.items()}

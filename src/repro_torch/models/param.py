@@ -60,7 +60,7 @@ def _init_leaf_(p: torch.Tensor, spec: ParamSpec,
     scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     noise = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=p.device)
-    p.copy_(noise * scale)
+    p.copy_(noise.mul_(scale))      # one f32 temporary a leaf
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -113,6 +113,8 @@ def _load_module_(mod: nn.Module, tree: Dict[str, Any], index: Optional[int]):
             raise ValueError(f"{type(mod).__name__}.{name}: reference shape "
                              f"{tuple(src.shape)} != {tuple(spec.shape)}")
         getattr(mod, name).copy_(src.to(spec.dtype))
+    for name, child in mod.named_children():   # a MoE's shared experts
+        _load_module_(child, tree[name], index)
 
 
 def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
@@ -121,9 +123,12 @@ def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
     ``repro.models.lm.lm_specs``: ``embed.tok``, ``final_ln.w``,
     ``u{i}.l{j}.{ln1,mix,ln2,ffn}``) into a new ``lm.LM``. A unit scanned
     ``reps > 1`` times carries a leading stack axis that is unstacked
-    into consecutive layers. Quantized MLP weights (the reference's
-    ``quantize_params``: QTensor leaves with numpy values and scale) load
-    as the port's ``QTensor``s."""
+    into consecutive layers (deepseek-v2-lite: a unit ``u0`` of its dense
+    first layer and 15 MoE layers, then its last 11 MoE layers stacked in
+    ``u1``); a MoE layer's ``ffn`` holds the router, the stacked experts
+    and, under ``shared``, the shared experts' MLP. Quantized MLP weights
+    (the reference's ``quantize_params``: QTensor leaves with numpy values
+    and scale) load as the port's ``QTensor``s."""
     from repro_torch.models.lm import LM
     model = LM(cfg, device=torch.device(device))
     with torch.no_grad():

@@ -93,6 +93,10 @@ def quantize_params(model: nn.Module, policy) -> nn.Module:
         return model
     mlps = [mod for name, mod in model.named_modules()
             if name.rsplit(".", 1)[-1] == "ffn"]
+    if any(hasattr(mod, "router") for mod in mlps):
+        raise NotImplementedError(
+            f"{pol.name} weights on MoE experts: their stacked (E, K, N) "
+            f"weights have no quantized path in the port")
     with torch.no_grad():
         for mod in mlps:
             for leaf in _QUANT_LEAVES:

@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
+from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode as pd_kernel
 from repro_torch.kernels import paged_verify as pv_kernel
@@ -968,3 +969,128 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         lse.data_ptr(), 1, 4, 2, 32, 32, 64, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0.125, 1, 0, 0,
         64, 256, 2, 1, stream) != 0
+
+
+# mla_decode's cases, (label, B, H, C, R, T, dtype, kv_len): deepseek-v2-lite's
+# serving decode (every request at 528 of 544), its widths with ragged
+# lengths (0 and past T among them) in bf16 and f32, H 4 with C 64 (rows
+# padded to 16), and dsv2-lite-smoke's C 32, R 8; ckv and krope are views
+# of longer caches, as the serving cache is
+MLA_CASES = [
+    ("bf16-serving", 8, 16, 512, 64, 544, torch.bfloat16, [528] * 8),
+    ("bf16-ragged", 4, 16, 512, 64, 544, torch.bfloat16, [0, 1, 300, 600]),
+    ("f32-ragged", 3, 16, 512, 64, 200, torch.float32, [0, 77, 250]),
+    ("bf16-h4-c64", 3, 4, 64, 16, 200, torch.bfloat16, [0, 137, 250]),
+    ("f32-smoke", 2, 4, 32, 8, 40, torch.float32, [17, 40]),
+]
+
+
+def mla_operands(seed, B, H, C, R, T, dtype, device):
+    """q_abs, q_rope, and ckv, krope as the first T rows of caches 8 rows
+    longer."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)  # noqa: E731
+    return (rand(B, H, C), rand(B, H, R), rand(B, T + 8, C)[:, :T],
+            rand(B, T + 8, R)[:, :T])
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=lambda c: c[0])
+def test_mla_decode_every_valid_config_matches_plain(cuda, case):
+    """Every valid config against the plain version at the dtype's
+    tolerance, a request with kv_len 0 exactly zero, one launch a call,
+    the context in f32."""
+    _, B, H, C, R, T, dtype, lens = case
+    args = mla_operands(C + T, B, H, C, R, T, dtype, cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    scale = (C + R) ** -0.5
+    want = ref.mla_decode_ragged(*args, kv_len=kv_len, scale=scale)
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.mla_decode_context(chip, B, H, C, R, T, ops.dtype_name(dtype))
+    configs = ops.MLA_DECODE.space.valid_configs(ctx)
+    assert configs
+    empty = kv_len == 0
+    for cfg in configs:
+        before = mla_kernel.mla_decode.launches
+        out = ops.latent_decode(*args, kv_len=kv_len, scale=scale, config=cfg)
+        torch.cuda.synchronize()
+        assert mla_kernel.mla_decode.launches == before + 1
+        assert out.dtype == torch.float32 and out.shape == (B, H, C)
+        torch.testing.assert_close(out, want, atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=lambda m: f"{cfg}: {m}")
+        assert not out[empty].any()
+
+
+def test_mla_decode_rejects_what_it_does_not_take(cuda):
+    qa, qr, ckv, kr = mla_operands(0, 2, 16, 512, 64, 64, torch.bfloat16,
+                                   cuda)
+    with pytest.raises(ValueError, match="share a dtype"):
+        mla_kernel.mla_decode(qa.float(), qr, ckv, kr)
+    with pytest.raises(ValueError, match="latent rank 40"):
+        mla_kernel.mla_decode(*mla_operands(1, 2, 4, 40, 8, 32,
+                                            torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="shared memory"):     # 128 rows
+        mla_kernel.mla_decode(*mla_operands(2, 2, 16, 512, 64, 200,
+                                            torch.bfloat16, cuda),
+                              block_kv=128)
+    with pytest.raises(ValueError, match="k_splits"):
+        mla_kernel.mla_decode(qa, qr, ckv, kr, k_splits=3)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        mla_kernel.mla_decode(qa, qr, torch.zeros_like(ckv).repeat(
+            1, 1, 2)[..., ::2], kr)
+    lib = mla_kernel.LIB.load()
+    for width, item, bkv, warps in ((576, 2, 64, 8), (576, 4, 32, 4),
+                                    (40, 4, 16, 4), (320, 4, 128, 8)):
+        assert lib.mla_decode_smem_bytes(width, item, bkv, warps) == \
+            mla_kernel.smem_bytes(width, item, bkv, warps)
+    # the C entry refuses what its templates do not instantiate
+    o = torch.empty(2, 1, 16, 512, device=cuda)
+    lse = torch.empty(2, 1, 16, device=cuda)
+    lens = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.mla_decode_launch(
+        qa.data_ptr(), qr.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
+        lens.data_ptr(), o.data_ptr(), lse.data_ptr(), 2, 16, 512, 64, 64,
+        *ckv.stride()[:2], *kr.stride()[:2], 1.0, 64, 1, 64, 2, 1,
+        stream) != 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "olmoe-1b-7b"])
+def test_mla_moe_dense_serving_on_card_matches_cpu(cuda, arch):
+    """The smoke MLA + MoE and MoE models in f32: dense prefill and decode
+    steps on the card (deepseek: the mla_decode kernel, one launch a layer
+    and step) give the CPU's plain path tokens, and its logits at the f32
+    tolerance."""
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        cfg = get_config(arch, smoke=True)
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        prompts = torch.from_numpy(np.random.default_rng(3).integers(
+            1, cfg.vocab_size, (3, 11)))
+        G = 6
+
+        def run(m, device, impl):
+            opts = lm.ForwardOpts(attn_chunk=4, decode_impl=impl)
+            logits, cache = lm.prefill(m, cfg, prompts.to(device),
+                                       max_len=11 + G, opts=opts)
+            rows, tok = [logits.cpu()], torch.argmax(logits, -1,
+                                                     keepdim=True)
+            toks = [tok.cpu()]
+            for i in range(G - 1):
+                logits, cache = lm.decode_step(m, cfg, tok, cache, 11 + i,
+                                               opts)
+                tok = torch.argmax(logits, -1, keepdim=True)
+                rows.append(logits.cpu())
+                toks.append(tok.cpu())
+            return torch.cat(toks, 1), rows
+
+        cpu_toks, cpu_rows = run(model, "cpu", "plain")
+        before = mla_kernel.mla_decode.launches
+        gpu_toks, gpu_rows = run(model.to(cuda), cuda, "kernel")
+        mla_layers = cfg.n_layers if cfg.mla is not None else 0
+        assert mla_kernel.mla_decode.launches == \
+            before + (G - 1) * mla_layers
+        assert torch.equal(gpu_toks, cpu_toks)
+        for a, b in zip(gpu_rows, cpu_rows):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        set_default_tuner(None)

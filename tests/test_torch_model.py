@@ -62,15 +62,28 @@ def test_init_params_follows_reference_rules():
 
 
 def test_configs_cover_the_paged_archs():
-    assert set(ARCHS) == {"phi4-mini-3.8b", "phi3-mini-3.8b", "stablelm-12b"}
+    """The port's archs, the paged path's three dense GQA ones and the
+    dense path's MoE (olmoe) and MLA + MoE (deepseek-v2-lite) ones, equal
+    the reference's configs field by field, their MLA and MoE settings and
+    scan plans included."""
+    import dataclasses
+    assert set(ARCHS) == {"phi4-mini-3.8b", "phi3-mini-3.8b", "stablelm-12b",
+                          "olmoe-1b-7b", "deepseek-v2-lite-16b"}
     for name in ARCHS:
         for smoke in (False, True):
             ref = jax_get_config(name, smoke=smoke)
             ours = get_config(name, smoke=smoke)
             for field in ("n_layers", "d_model", "n_heads", "n_kv_heads",
                           "head_dim", "d_ff", "vocab_size", "dtype",
-                          "tie_embeddings", "rope_theta", "window"):
+                          "tie_embeddings", "rope_theta", "window",
+                          "family", "first_dense", "d_ff_dense"):
                 assert getattr(ours, field) == getattr(ref, field), field
+            for field in ("mla", "moe"):
+                mine, theirs = getattr(ours, field), getattr(ref, field)
+                assert (mine is None) == (theirs is None), field
+                if mine is not None:
+                    assert dataclasses.asdict(mine) == \
+                        dataclasses.asdict(theirs), field
             assert ours.scan_plan() == ref.scan_plan()
 
 

@@ -1,4 +1,4 @@
-"""The port's kernel registry held against the reference's: the eight
+"""The port's kernel registry held against the reference's: the nine
 ported kernels under the same names, scenarios, precision and bench cases,
 and the registry's own rules."""
 
@@ -11,8 +11,8 @@ from repro_torch.core import TunableKernel, cpu_host
 from repro_torch.kernels import registry
 
 PORTED = ("decode_attention", "flash_attention", "gqa_decode_kv8",
-          "gqa_decode_ragged", "matmul_w8a8", "paged_decode", "paged_verify",
-          "rms_norm")
+          "gqa_decode_ragged", "matmul_w8a8", "mla_decode", "paged_decode",
+          "paged_verify", "rms_norm")
 INT8 = ("gqa_decode_kv8", "matmul_w8a8")
 
 
@@ -39,8 +39,10 @@ def test_list_kernels_is_a_subset_of_the_reference():
     ours = registry.kernel_names(scenario="decode")
     assert set(ours) <= set(jreg.kernel_names(scenario="decode"))
     assert set(ours) == {"decode_attention", "gqa_decode_kv8",
-                         "gqa_decode_ragged", "paged_decode", "paged_verify",
-                         "rms_norm"}
+                         "gqa_decode_ragged", "mla_decode", "paged_decode",
+                         "paged_verify", "rms_norm"}
+    assert registry.kernel_names(scenario="mla") == \
+        jreg.kernel_names(scenario="mla") == ["mla_decode"]
     assert registry.kernel_names(scenario="speculative") == ["paged_verify"]
     assert registry.kernel_names(precision="int8") == list(INT8)
     assert registry.kernel_names(scenario="quant", precision="int8") == \
@@ -117,6 +119,16 @@ def test_operands_feed_entry_point_and_reference(name):
             with_lse = spec.entry_point(*args, **kw, config=cfg,
                                         return_lse=True)
             assert with_lse[1].shape == q.shape[:3]
+        elif name == "mla_decode":
+            # q_abs, q_rope, ckv, krope in the case's dtype, every request
+            # attending all T (the reference's runner passes no lengths),
+            # at the context's scale; the latent context comes out f32
+            qa, qr, ckv, kr = args
+            assert kw == {"scale": 1.0}
+            for t, key in ((qa, "q_abs"), (qr, "q_rope"), (ckv, "ckv"),
+                           (kr, "krope")):
+                assert t.shape == case.shapes[key] and t.is_contiguous()
+            assert got.dtype == torch.float32 and got.shape == qa.shape
         elif spec.precision == "int8":
             # the int8 operands are the serving layout: (B, Hkv, T, D) and
             # (B, Hkv, T) views of caches quantized through the wire format

@@ -982,3 +982,120 @@ def test_attention_dispatch_key_and_context(monkeypatch):
     out = ops.attention(torch.randn(1, 2, 8, 16), torch.randn(1, 1, 8, 16),
                         torch.randn(1, 1, 8, 16), tuner=cpu)
     assert out.shape == (1, 2, 8, 16) and cpu.stats()["misses"] == 0
+
+
+def test_mla_decode_space_workload_and_bound():
+    """mla_decode's Hopper space: at deepseek-v2-lite's serving decode (B 8,
+    H 16, C 512, R 64, T 544, bf16) 30 valid configs, each within shared
+    memory (two stages of block_kv rows of C + R: 128 rows do not fit) and
+    the reference's splits<=blocks; 22 in f32; the registry's cases; the
+    byte bound of 1.575 us at every request at 528 keys (PERF.md row 8),
+    the workload's partials, the block clamp and the splits' span."""
+    from repro_torch.kernels import mla_decode as mla_kernel
+    space = ops.MLA_DECODE.space
+    ctx = ops.mla_decode_context(H100_SXM, 8, 16, 512, 64, 544, "bfloat16")
+    valid = space.valid_configs(ctx)
+    assert valid == _valid_by_brute_force(space, ctx)
+    assert len(valid) == 30
+    assert {c["block_kv"] for c in valid} == {16, 32, 64}
+    for c in valid:
+        assert ops._mla_smem(c, ctx) <= H100_SXM.smem_per_block
+        assert c["k_splits"] <= -(-544 // c["block_kv"])
+    heur = ops.MLA_DECODE.default_config(ctx)
+    assert heur == {"block_kv": 64, "k_splits": 1, "num_warps": 4}
+    assert space.why_invalid(dict(heur, block_kv=128), ctx) == "smem"
+    assert space.why_invalid(dict(heur, k_splits=16), ctx) == \
+        "splits<=blocks"
+    assert mla_kernel.smem_bytes(576, 2, 64, 8) == \
+        (16 + 128) * 1168 + 9 * 16 * 72 * 4 + 192 == 209856
+    for shapes, dtype, n, bk in (((8, 16, 512, 64, 544), "float32", 22, 32),
+                                 ((2, 4, 256, 64, 1024), "float32", 34, 64),
+                                 ((8, 16, 512, 64, 32768), "bfloat16", 36,
+                                  64),
+                                 ((2, 4, 32, 8, 40), "float32", 12, 128)):
+        c2 = ops.mla_decode_context(H100_SXM, *shapes, dtype)
+        got = space.valid_configs(c2)
+        assert len(got) == n, (shapes, dtype)
+        assert got == _valid_by_brute_force(space, c2)
+        assert ops.MLA_DECODE.default_config(c2)["block_kv"] == bk
+    w = ops.MLA_DECODE.workload_fn(heur, ctx)
+    assert w.flops == 2 * 16 * 8 * 544 * (2 * 512 + 64)
+    assert w.hbm_bytes == (8 * 544 + 8 * 16) * 576 * 2 + 4 * 8 * 16 * 512 \
+        + 4 * 8 + 4 * 8 * 16
+    split = ops.MLA_DECODE.workload_fn(dict(heur, k_splits=8), ctx)
+    assert split.hbm_bytes - w.hbm_bytes == 2 * 4 * 8 * 8 * 16 * 513 \
+        - 4 * 8 * 16
+    served = KernelWorkload(ops.mla_decode_flops(16, 512, 64, 8 * 528),
+                            ops.mla_decode_bytes(8, 16, 512, 64, 8 * 528, 2),
+                            "bfloat16")
+    assert served.hbm_bytes == 5275680
+    t, by = roofline_seconds(served, H100_SXM)
+    assert by == "bytes" and t * 1e3 == pytest.approx(0.00157483, rel=1e-5)
+    # the block the kernel stages, and the keys a split covers
+    assert mla_kernel.clamp_block_kv(128, 40) == 64
+    assert mla_kernel.clamp_block_kv(32, 16) == 16
+    assert mla_kernel.clamp_block_kv(64, 544) == 64
+    small = ops.mla_decode_context(H100_SXM, 2, 4, 32, 8, 40, "float32")
+    assert ops.MLA_DECODE.canonicalize(dict(heur, block_kv=128), small) == \
+        dict(heur, block_kv=64)
+    assert mla_kernel.split_span(544, 64, 8) == 128
+    assert mla_kernel.split_span(544, 16, 32) == 32
+    assert mla_kernel.split_span(200, 128, 2) == 128
+
+
+def test_latent_decode_dispatch_key_and_context(monkeypatch):
+    """The dispatch key and the tuning context carry the dtype and the
+    shapes (a longer cache tunes apart); a config handed in makes no
+    lookup; CPU tensors make none either; the launcher's MLA context is
+    the decode step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
+    seen = []
+
+    class Recording(Autotuner):
+        def dispatch_config(self, kernel, key, make_ctx):
+            seen.append((key, make_ctx()))
+            return super().dispatch_config(kernel, key, make_ctx)
+
+    class FakeCuda:
+        """Only what the config resolution reads off a tensor."""
+
+        def __init__(self, *shape, dtype=torch.bfloat16):
+            self.shape, self.dtype = shape, dtype
+            self.is_cuda = True
+            self.device = torch.device("cuda", 0)
+
+    calls = []
+    monkeypatch.setattr(ops.mla_kernel, "mla_decode",
+                        lambda *a, **k: calls.append(k))
+    tuner = Recording(backend=_FakeBackend(lambda c: 1.0),
+                      on_miss="heuristic")
+    for T, dtype in ((544, torch.bfloat16), (1024, torch.bfloat16),
+                     (544, torch.float32)):
+        ops.latent_decode(FakeCuda(8, 16, 512, dtype=dtype),
+                          FakeCuda(8, 16, 64, dtype=dtype),
+                          FakeCuda(8, T, 512, dtype=dtype),
+                          FakeCuda(8, T, 64, dtype=dtype), tuner=tuner)
+    keys = [key for key, _ in seen]
+    assert len(set(keys)) == 3 and len({c.signature() for _, c in seen}) == 3
+    (_, c0), (_, c1), (_, c2) = seen
+    assert c0.shapes == {"q_abs": (8, 16, 512), "q_rope": (8, 16, 64),
+                         "ckv": (8, 544, 512), "krope": (8, 544, 64)}
+    assert c1.shapes["ckv"] == (8, 1024, 512)
+    assert c2.dtype == "float32" and c0.dtype == "bfloat16"
+    assert all(set(kw) >= {"block_kv", "k_splits", "num_warps", "kv_len",
+                           "scale"} for kw in calls)
+    ops.latent_decode(*(FakeCuda(8, 16, 512),) * 4, tuner=tuner,
+                      config={"block_kv": 16, "k_splits": 4,
+                              "num_warps": 8})
+    assert len(seen) == 3 and calls[-1]["k_splits"] == 4
+    cfg = get_config("deepseek-v2-lite-16b")
+    kernel, ctx = serve.decode_context(cfg, 8, 544, torch.device("cuda"))
+    assert kernel is ops.MLA_DECODE and ctx.signature() == c0.signature()
+    monkeypatch.undo()
+    cpu = Autotuner(backend=_FakeBackend(lambda c: 1.0), on_miss="error")
+    out = ops.latent_decode(torch.randn(1, 4, 32), torch.randn(1, 4, 8),
+                            torch.randn(1, 6, 32), torch.randn(1, 6, 8),
+                            tuner=cpu)
+    assert out.shape == (1, 4, 32) and cpu.stats()["misses"] == 0
