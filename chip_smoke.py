@@ -12,8 +12,8 @@ Phases, each failing loudly:
      ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
      ``gqa_decode`` (which also serves ``decode_attention``),
      ``gqa_decode_kv8`` (the same kernel template built for int8 caches),
-     ``matmul_w8a8``, ``flash_attention`` and ``mla_decode``, and the
-     Triton compile of ``rms_norm``;
+     ``matmul_w8a8``, ``flash_attention``, ``flash_attention_bwd`` and
+     ``mla_decode``, and the Triton compile of ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
@@ -27,7 +27,11 @@ Phases, each failing loudly:
      ``flash_attention`` config (o and lse) at the serving prefill and at
      ragged lengths, groups 1, 3 and 4, D 96 and 120, windows, a query
      offset, non-causal, f32, and rows that see no key; every valid
-     ``mla_decode`` config at deepseek-v2-lite's widths (B 8, 16 heads,
+     ``flash_attention_bwd`` config (dq, dk and dv, two launches bit-equal)
+     at the training step's shape (B 4, 24/8 heads of 128, 512 tokens),
+     Sq 200, groups 1, 3 and 4 at D 96, 120 and 64, a window, a query
+     offset, non-causal, f32, and rows that see no key (dq exactly zero);
+     every valid ``mla_decode`` config at deepseek-v2-lite's widths (B 8, 16 heads,
      latent rank 512, RoPE keys of 64, T 544) in bf16 and f32 with
      ragged lengths (0 and past T: zeros and the whole cache), at the
      serving decode, and at 4 heads of rank 64 (rows padded to 16); then
@@ -45,7 +49,11 @@ Phases, each failing loudly:
      (prefill and decode rows, ``wi`` and ``wo``) tuned and timed beside
      the plain version, ``torch._int_mm`` and a bf16 ``torch.matmul``;
      the ``--attn-impl pallas`` prefill's ``flash_attention`` context
-     tuned and timed beside the plain version and SDPA; deepseek-v2-lite's
+     tuned and timed beside the plain version and SDPA; the train
+     launcher's ``--attn-impl pallas`` contexts (``flash_attention`` and
+     ``flash_attention_bwd`` at the training step) and the registry's
+     ``train4k`` tuned, the backward timed at both beside the plain
+     version, SDPA's backward and the bound; deepseek-v2-lite's
      ``mla_decode`` serving context and the registry's ``dsv2_32k`` tuned
      and timed beside the plain version and SDPA;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
@@ -101,7 +109,21 @@ Phases, each failing loudly:
      reference's own spread, and a profiled window of it; then the model
      in float32 (63 GB), where the streams of ``mla_decode`` and of the
      einsum are held equal up to a tie;
-  9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+  9. with every serving model released (the device memory allocated is
+     printed before phase 7 and here, and held under 1 GiB), training
+     phi4-mini-3.8b at full width (``launch.train --full-config --batch 4
+     --seq 512 --steps 4``, no checkpoint) by ``--attn-impl pallas``
+     (``flash_attention`` and ``flash_attention_bwd`` 32 times a step each:
+     128) and by ``chunked`` (none), step 1's loss held within 2e-2; that
+     first step again, its gradients held per leaf against chunked's within
+     the spread of the reference's own exact paths (``full`` and
+     ``chunked``), and ``flash_attention_bwd`` on each of its 32 layers'
+     inputs against the plain version; a profiled window of two training
+     steps; the model cut to 8 layers in float32, 4 steps by both paths,
+     losses within 1e-4 and parameters within F32_TOL; a checkpoint, an
+     injected failure and a resume at smoke widths, the restored state bit
+     for bit the saved one;
+ 10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -116,6 +138,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -163,6 +186,7 @@ def build_kernels() -> dict:
     rms_norm (on its first launch), started together; returns seconds per
     build."""
     from repro_torch.kernels import flash_attention as fa_kernel
+    from repro_torch.kernels import flash_attention_bwd as fab_kernel
     from repro_torch.kernels import gqa_decode as gqa_kernel
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.kernels import mla_decode as mla_kernel
@@ -173,7 +197,8 @@ def build_kernels() -> dict:
     libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
             "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8,
             "matmul_w8a8": mm8_kernel.LIB,
-            "flash_attention": fa_kernel.LIB, "mla_decode": mla_kernel.LIB}
+            "flash_attention": fa_kernel.LIB,
+            "flash_attention_bwd": fab_kernel.LIB, "mla_decode": mla_kernel.LIB}
 
     def nvcc(name):
         t = time.perf_counter()
@@ -580,6 +605,9 @@ def registry_sweep(chip) -> None:
     kernel's own ``operands`` function, entry point against reference."""
     from repro_torch.kernels.registry import list_kernels
     for spec in list_kernels():
+        if not spec.cases("host"):
+            print(f"registry sweep {spec.name}: no host bench case (its "
+                  f"cases are paper scale; phases 3-4 check and time it)")
         for case in spec.cases("host"):
             ctx = case.context(chip)
             tol = TOL[case.dtype]
@@ -587,13 +615,17 @@ def registry_sweep(chip) -> None:
             worst = 0.0
             for cfg in configs:
                 args, kw = spec.operands(ctx, cfg, "cuda")
-                got = spec.entry_point(*args, **kw, config=cfg).float()
-                want = spec.reference(*args, **kw).float()
-                err = float((got - want).abs().max())
-                if not torch.allclose(got, want, atol=tol, rtol=tol):
-                    raise AssertionError(f"registry sweep {spec.name}/"
-                                         f"{case.label} {cfg}: {err}")
-                worst = max(worst, err)
+                outs = spec.entry_point(*args, **kw, config=cfg)
+                wants = spec.reference(*args, **kw)
+                if isinstance(outs, torch.Tensor):   # else (dq, dk, dv)
+                    outs, wants = (outs,), (wants,)
+                for got, want in zip(outs, wants):
+                    got, want = got.float(), want.float()
+                    err = float((got - want).abs().max())
+                    if not torch.allclose(got, want, atol=tol, rtol=tol):
+                        raise AssertionError(f"registry sweep {spec.name}/"
+                                             f"{case.label} {cfg}: {err}")
+                    worst = max(worst, err)
             print(f"registry sweep {spec.name}/{case.label}: {len(configs)} "
                   f"configs ok, max_abs_err {worst:.3g} (tol {tol})")
 
@@ -999,6 +1031,157 @@ def time_flash(chip, cfg) -> dict:
         "library_ms": timer().time_runner(
             lambda: fn(q, k, v, is_causal=True, enable_gqa=True)) * 1e3,
         "bound_ms": bound_ms, "bound_by": by, "config": cfg}
+
+
+# flash_attention_bwd's cases, FLASH_CASES' columns: the training step's
+# shape (B 4, phi4-mini's 24/8 heads of 128, 512 tokens); Sq 200 (not a tile
+# multiple); groups 1, 3 and 4 at D 96, 120 and 64; a window; a query
+# offset; non-causal; f32; rows that see no key (their dq exactly zero)
+TRAIN_SHAPE = (4, 24, 8, 512, 512, 128)
+TRAIN4K = (8, 32, 8, 4096, 4096, 128)
+FLASH_BWD_CASES = [
+    ("training step", *TRAIN_SHAPE, torch.bfloat16, True, None, 0),
+    ("Sq 200 group 3", 2, 24, 8, 200, 200, 128, torch.bfloat16, True, None,
+     0),
+    ("group 1 D 96", 2, 8, 8, 333, 333, 96, torch.bfloat16, True, None, 0),
+    ("group 3 D 120 window 16", 2, 12, 4, 300, 300, 120, torch.bfloat16,
+     True, 16, 0),
+    ("group 4 D 64 q_offset 211 f32", 2, 8, 2, 77, 300, 64, torch.float32,
+     True, None, 211),
+    ("non-causal group 4 D 64", 2, 8, 2, 200, 333, 64, torch.bfloat16,
+     False, None, 0),
+    ("f32 D 128 window 100", 2, 8, 2, 200, 333, 128, torch.float32, True,
+     100, 0),
+    ("rows with no visible key", 1, 8, 2, 64, 40, 128, torch.bfloat16, True,
+     16, 40),
+]
+
+
+def check_flash_attention_bwd(chip) -> float:
+    """Every valid flash_attention_bwd config against the plain version on
+    the card at FLASH_BWD_CASES: dq, dk and dv each within the dtype's
+    tolerance (elementwise, atol and rtol), rows with no visible key
+    exactly zero in dq, two launches of one config bit-equal (no atomics).
+    Returns the worst absolute error."""
+    from repro_torch.kernels import flash_attention_bwd as fab_kernel
+    from repro_torch.kernels import ops, ref
+    worst_all = 0.0
+    for label, B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset \
+            in FLASH_BWD_CASES:
+        q, k, v = flash_case(Sq + D + 1, B, Hq, Hkv, Sq, Skv, D, dtype)
+        do = flash_case(Sq + D + 2, B, Hq, Hkv, Sq, Skv, D, dtype)[0]
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        o, lse = ref.flash_attention(q, k, v, return_lse=True, **kw)
+        want = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        empty = lse[0, 0] <= -1e30
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        ctx = ops.attention_context(chip, B, Hq, Hkv, Sq, Skv, D,
+                                    ops.dtype_name(dtype), causal, window)
+        configs = ops.FLASH_ATTENTION_BWD.space.valid_configs(ctx)
+        if not configs:
+            raise AssertionError(f"flash_attention_bwd {label}: no valid "
+                                 f"config")
+        worst, worst_rel = 0.0, 0.0
+        for cfg in configs:
+            got = fab_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw,
+                                                 **cfg)
+            again = fab_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   **kw, **cfg)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                if not torch.allclose(g.float(), w.float(), atol=tol,
+                                      rtol=tol):
+                    err = float((g.float() - w.float()).abs().max())
+                    raise AssertionError(f"flash_attention_bwd {label} "
+                                         f"{cfg}: {name} max abs err {err} "
+                                         f"over tolerance {tol}")
+            if got[0][:, :, empty].any():
+                raise AssertionError(f"flash_attention_bwd {label} {cfg}: "
+                                     f"rows that see no key have dq != 0")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {label} {cfg}: "
+                                     f"two launches differ")
+            for g, w in zip(got, want):
+                err = float((g.float() - w.float()).abs().max())
+                worst = max(worst, err)
+                worst_rel = max(worst_rel, err / float(w.float().abs().max()))
+        worst_all = max(worst_all, worst)
+        print(f"flash_attention_bwd {label} (B {B}, {Hq}/{Hkv} heads of {D}, "
+              f"Sq {Sq}, Skv {Skv}, {ops.dtype_name(dtype)}, causal "
+              f"{causal}, window {window}, q_offset {q_offset}; "
+              f"{int(empty.sum())} rows see no key): {len(configs)} configs "
+              f"ok, max_abs_err {worst:.3g} ({worst_rel:.3g} of the largest "
+              f"gradient; tol {tol}, elementwise)")
+    return worst_all
+
+
+def time_flash_bwd(chip, shape, cfg) -> dict:
+    """Kernel (under ``cfg``), plain version, the library yardstick and the
+    roofline bound of the causal backward at ``shape`` (B, Hq, Hkv, Sq,
+    Skv, D) in bf16, on the registry's operands (q, k, v, do as the
+    training step's (B, S, H, D) views, o and lse from the forward kernel).
+    Yardstick only, the port never calls it: ``torch.autograd.grad``
+    through SDPA with ``is_causal`` and GQA, its forward's graph retained,
+    so the backward alone is timed."""
+    from repro_torch.core import KernelWorkload
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.registry import get_kernel
+    B, Hq, Hkv, Sq, Skv, D = shape
+    ctx = ops.attention_context(chip, B, Hq, Hkv, Sq, Skv, D, "bfloat16")
+    (q, k, v, o, lse, do), kw = get_kernel("flash_attention_bwd").operands(
+        ctx, cfg, "cuda")
+    pairs = ops.attention_pairs(Sq, Skv, True)
+    bound_ms, by = bound(KernelWorkload(
+        ops.flash_attention_bwd_flops(B, Hq, D, pairs),
+        ops.flash_attention_bwd_bytes(B, Hq, Hkv, Sq, Skv, D, 2),
+        "bfloat16"), chip)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=True)
+    res = {
+        "kernel_ms": timer().time_runner(
+            lambda: ops.attention_bwd(q, k, v, o, lse, do, config=cfg,
+                                      **kw)) * 1e3,
+        "plain_ms": timer().time_runner(
+            lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)) * 1e3,
+        "library_ms": timer().time_runner(
+            lambda: torch.autograd.grad(out, leaves, do,
+                                        retain_graph=True)) * 1e3,
+        "bound_ms": bound_ms, "bound_by": by, "config": cfg}
+    del out, leaves
+    return res
+
+
+def tune_and_time_flash_bwd(tuner, chip, bwd_err: float) -> dict:
+    """The train launcher's ``--attn-impl pallas`` contexts at the training
+    step (``train.attention_contexts``: flash_attention and
+    flash_attention_bwd over B 4, 512 tokens) and the registry's
+    ``train4k`` tuned; the backward timed at both beside the plain version,
+    SDPA's backward and the bound. Returns the training shape's numbers
+    with ``train4k``'s beside them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.registry import get_kernel
+    from repro_torch.launch import train
+    t = time.perf_counter()
+    cfgs = [tuner.best_config(tunable, ctx) for tunable, ctx in
+            train.attention_contexts(get_config("phi4-mini-3.8b"), 4, 512,
+                                     torch.device("cuda"))]
+    ((case, ctx),) = [(c, c.context(chip)) for c in
+                      get_kernel("flash_attention_bwd").cases("paper")]
+    cfg4k = tuner.best_config(ops.FLASH_ATTENTION_BWD, ctx)
+    print(f"flash_attention and flash_attention_bwd at the training step, "
+          f"and flash_attention_bwd at {case.label}, tuned in "
+          f"{time.perf_counter() - t:.1f} s: {cfgs} {cfg4k}")
+    bwd = time_flash_bwd(chip, TRAIN_SHAPE, cfgs[1])
+    bwd["max_abs_err"] = bwd_err
+    print("flash_attention_bwd at the training step (B 4, 24/8 heads of "
+          "128, 512 tokens, bf16, causal): " + json.dumps(bwd))
+    big = time_flash_bwd(chip, TRAIN4K, cfg4k)
+    print(f"flash_attention_bwd at {case.label} ({dict(ctx.shapes)}, bf16, "
+          f"causal): " + json.dumps(big))
+    bwd[case.label] = big
+    ops.release_tuning_operands()
+    return bwd
 
 
 # mla_decode at deepseek-v2-lite's widths: B 8, 16 heads, latent rank 512,
@@ -2225,6 +2408,318 @@ def rejection_run(K: int = 4, page_size: int = 8, quant=None) -> None:
           f"accepted_per_step {sp['accepted_per_step']:.4f}")
 
 
+def _describe(obj) -> str:
+    import types
+    if isinstance(obj, types.FrameType):
+        return (f"frame of {obj.f_code.co_name} "
+                f"({os.path.basename(obj.f_code.co_filename)}:"
+                f"{obj.f_lineno})")
+    if isinstance(obj, dict):
+        if "__builtins__" in obj and "__name__" in obj:
+            return f"globals of module {obj['__name__']}"
+        return f"dict with keys {list(obj)[:8]}"
+    if isinstance(obj, (list, tuple, set)):
+        return f"{type(obj).__name__} of {len(obj)}"
+    return f"{type(obj).__module__}.{type(obj).__qualname__} " + \
+        getattr(obj, "__qualname__", "")
+
+
+def release(label: str) -> None:
+    """Free what the phases before left and print the device memory still
+    allocated; over 1 GiB, name the largest live tensors and the chain of
+    objects that hold the largest, and fail: the next phase needs the
+    card to itself."""
+    import types
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"device memory allocated {label}: {held / 2**30:.3f} GiB")
+    if held < 2**30:
+        return
+    live = sorted((t for t in gc.get_objects()
+                   if isinstance(t, torch.Tensor) and t.is_cuda),
+                  key=lambda t: -t.untyped_storage().nbytes())
+    print("  the largest live tensors: " + ", ".join(
+        f"{tuple(t.shape)} {t.dtype} "
+        f"({t.untyped_storage().nbytes() / 2**20:.0f} MiB)"
+        for t in live[:6]))
+    obj, here = live[0], sys._getframe()
+    del live
+    seen = {id(here)}
+    for depth in range(16):           # the chain of referrers up from it
+        seen.add(id(obj))
+        refs = [r for r in gc.get_referrers(obj) if id(r) not in seen]
+        if not refs:
+            print("  no further referrer the collector sees (a local of a "
+                  "running function, whose frame it cannot see)")
+            break
+        print(f"  [{depth}] held by " + "; ".join(_describe(r)
+                                                for r in refs[:4]))
+        # prefer what is not a frame's plain locals list
+        obj = next((r for r in refs if not isinstance(r, list)), refs[0])
+        del refs
+        if isinstance(obj, types.ModuleType) or (
+                isinstance(obj, dict) and "__builtins__" in obj):
+            break
+    raise AssertionError(f"{held / 2**30:.2f} GiB of device memory still "
+                         f"allocated {label}")
+
+
+def training_runs() -> dict:
+    """The launcher at full width: ``launch.train --full-config --batch 4
+    --seq 512 --steps 4`` by ``--attn-impl pallas`` (flash_attention and
+    flash_attention_bwd once a layer and step: 128 launches each) and by
+    ``chunked`` (none), the same seed, weights and batches, no checkpoint
+    written (``--ckpt-every 0``: the state is 46 GB). Step 1's loss held
+    within 2e-2 relative. Returns both reports."""
+    from repro_torch.launch import train
+    argv = ["--full-config", "--batch", "4", "--seq", "512", "--steps", "4",
+            "--ckpt-every", "0"]
+    reports = {}
+    for impl in ("pallas", "chunked"):
+        reports[impl] = train.main(argv + ["--attn-impl", impl])
+        release(f"after the --attn-impl {impl} training run")
+    p, c = reports["pallas"], reports["chunked"]
+    for impl, rep in reports.items():
+        print(f"training --attn-impl {impl}: losses {rep['losses']}, step "
+              f"ms {[round(t, 1) for t in rep['step_ms']]}, tokens/s "
+              f"{rep['tokens_per_s']:.1f}, peak memory "
+              f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+              f"{rep['launches']}")
+        assert rep["steps"] == 4 and all(np.isfinite(rep["losses"]))
+    assert p["params"] == c["params"] and p["params"] > 3.8e9
+    assert p["launches"] == {"flash_attention": 128,
+                             "flash_attention_bwd": 128}, p["launches"]
+    assert c["launches"] == {"flash_attention": 0,
+                             "flash_attention_bwd": 0}, c["launches"]
+    rel = abs(p["losses"][0] - c["losses"][0]) / abs(c["losses"][0])
+    print(f"step 1 loss, pallas vs chunked: {p['losses'][0]:.6f} / "
+          f"{c['losses'][0]:.6f}, relative difference {rel:.3g} (tol 2e-2)")
+    if rel > 2e-2:
+        raise AssertionError(f"step 1 loss differs by {rel} relative")
+    return reports
+
+
+def train_step_check() -> None:
+    """The full-width run's first step again (seed 0 weights, the stream's
+    first batch): its gradients by ``--attn-impl pallas`` held per leaf
+    against chunked's, by relative L2, within max(2%, 1.1x the spread
+    between the reference's two exact paths, ``full`` and ``chunked``, on
+    the same step); each of the 32 layers' flash_attention_bwd outputs on
+    the step's own (q, k, v, o, lse, do) held against the plain version.
+    Then a profiled window of two full training steps (AdamW included)
+    by pallas."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.optim import adamw
+    cfg = get_config("phi4-mini-3.8b")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda", trainable=True)
+    named = dict(model.named_parameters())
+    stream = iter(TokenStream(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=512, global_batch=4)))
+    batch = steps._to_device(next(stream), torch.device("cuda"))
+    captured = []
+    real_bwd = ops.attention_bwd
+
+    def capturing(q, k, v, o, lse, do, **kw):
+        out = real_bwd(q, k, v, o, lse, do, **kw)
+        captured.append(((q, k, v, o, lse, do), kw, out))
+        return out
+
+    def grads_of(impl):
+        loss, _ = lm.loss_fn(model, cfg, batch,
+                             lm.ForwardOpts(attn_impl=impl, attn_chunk=128))
+        loss.backward()
+        grads = {n: p.grad for n, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    loss_c, chunked = grads_of("chunked")
+    ops.attention_bwd = capturing
+    try:
+        loss_p, pallas = grads_of("pallas")
+    finally:
+        ops.attention_bwd = real_bwd
+    assert len(captured) == cfg.n_layers, len(captured)
+    worst = []
+    for args, kw, got in captured:
+        want = ref.flash_attention_bwd(*args, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = w.float().abs().max()
+            if not torch.allclose(g.float() / scale, w.float() / scale,
+                                  atol=BF16_TOL, rtol=BF16_TOL):
+                raise AssertionError(f"flash_attention_bwd at layer "
+                                     f"{len(worst)}: {name} off the plain "
+                                     f"version")
+        worst.append(max(rel_l2(g, w) for g, w in zip(got, want)))
+    del captured
+    print(f"flash_attention_bwd on the full-width step's own inputs, 32 "
+          f"layers: dq, dk, dv within {BF16_TOL} of the plain version "
+          f"(in units of each gradient's largest value); relative L2 at "
+          f"most {max(worst):.3g} (layer {int(np.argmax(worst))})")
+    p_err = {n: rel_l2(pallas[n], chunked[n]) for n in named}
+    del pallas
+    loss_f, full = grads_of("full")
+    spread = {n: rel_l2(full[n], chunked[n]) for n in named}
+    del full
+    over = {n: (p_err[n], spread[n]) for n in named
+            if p_err[n] > max(BF16_TOL, 1.1 * spread[n])}
+    top = sorted(named, key=lambda n: -p_err[n])[:4]
+    print(f"step 1 loss by pallas / chunked / full: {loss_p:.6f} / "
+          f"{loss_c:.6f} / {loss_f:.6f}; gradients, relative L2 per leaf "
+          f"against chunked's: pallas at most {max(p_err.values()):.4g}, "
+          f"the reference's full at most {max(spread.values()):.4g}; the "
+          f"largest: " + ", ".join(f"{n} {p_err[n]:.4g} (full "
+                                   f"{spread[n]:.4g})" for n in top))
+    if over:
+        raise AssertionError(f"gradients off chunked's beyond max(2%, 1.1x "
+                             f"the reference's spread): {over}")
+    del chunked
+    scfg = steps.StepConfig(
+        opts=lm.ForwardOpts(attn_impl="pallas", attn_chunk=128),
+        adamw=adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=8))
+    step = steps.make_train_step(cfg, scfg, model)
+    state = steps.init_opt_state(cfg, scfg, named)
+    batches = [next(stream) for _ in range(2)]
+
+    def one(i):
+        nonlocal state
+        _, state, _ = step(named, state, batches[i % 2])
+
+    profile_steps("training step (B 4 x 512 tokens, full width, --attn-impl "
+                  "pallas, AdamW)", one, 2)
+    print(f"  peak device memory of the training steps "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def train_f32() -> None:
+    """phi4-mini at full width cut to 8 layers, in float32 (seed 0): the
+    launcher's 4 steps (B 4 x 512) by ``--attn-impl pallas`` and by
+    ``chunked`` on the same weights and batches. Without bf16 roundings
+    the two paths part only at f32 level: losses held within 1e-4
+    relative, the parameters after the steps within F32_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.param import init_params
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=8,
+                              dtype="float32")
+    models, reports = {}, {}
+    for impl in ("pallas", "chunked"):
+        args = train.build_parser().parse_args(
+            ["--full-config", "--batch", "4", "--seq", "512", "--steps",
+             "4", "--ckpt-every", "0", "--attn-impl", impl])
+        models[impl] = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+            trainable=True)
+        reports[impl] = train.train(args, model=models[impl], cfg=cfg)
+    p, c = reports["pallas"], reports["chunked"]
+    assert p["launches"] == {"flash_attention": 32,
+                             "flash_attention_bwd": 32}, p["launches"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(p["losses"], c["losses"]))
+    worst, name = 0.0, ""
+    for (n, a), b in zip(models["pallas"].named_parameters(),
+                         models["chunked"].parameters()):
+        if not torch.allclose(a, b, atol=F32_TOL, rtol=F32_TOL):
+            raise AssertionError(f"f32 training: parameter {n} after 4 "
+                                 f"steps off chunked's beyond {F32_TOL}")
+        err = float((a - b).abs().max())
+        if err > worst:
+            worst, name = err, n
+    print(f"training in float32 (8 layers, full width): losses by pallas "
+          f"{p['losses']} / chunked {c['losses']}, largest relative "
+          f"difference {rel:.3g} (tol 1e-4); parameters after 4 steps within "
+          f"{F32_TOL} (max abs diff {worst:.3g} in {name}); step ms "
+          f"{[round(t, 1) for t in p['step_ms']]} / "
+          f"{[round(t, 1) for t in c['step_ms']]}")
+    if rel > 1e-4:
+        raise AssertionError(f"f32 losses differ by {rel} relative")
+
+
+def train_checkpoint(root: str) -> None:
+    """At smoke widths on the card (f32, --attn-impl pallas): a run that
+    checkpoints every 2 steps and fails at step 5 by injection; a fresh
+    trainer (other random weights) resumes from step 4, and its
+    parameters, AdamW moments, step and data position equal what was
+    saved bit for bit; it runs on to step 6, where its parameters equal
+    an uninterrupted run's within F32_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.param import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import InjectedFailure, Trainer, TrainerConfig
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    scfg = steps.StepConfig(
+        opts=lm.ForwardOpts(attn_impl="pallas", attn_chunk=128),
+        adamw=adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=6))
+
+    def make(seed, ckpt_dir, failure_at=None):
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), "cuda", trainable=True)
+        params = dict(model.named_parameters())
+        stream = TokenStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=32, global_batch=4))
+        return Trainer(
+            TrainerConfig(total_steps=6, ckpt_dir=ckpt_dir, ckpt_every=2,
+                          log_every=1, failure_at=failure_at),
+            steps.make_train_step(cfg, scfg, model), params,
+            steps.init_opt_state(cfg, scfg, params), iter(stream),
+            data_state_fn=stream.state, data_restore_fn=stream.restore)
+
+    def snapshot(t):
+        a = t.opt_state["adamw"]
+        return {"params": {k: v.clone() for k, v in t.params.items()},
+                "m": {k: v.clone() for k, v in a.m.items()},
+                "v": {k: v.clone() for k, v in a.v.items()},
+                "step": int(a.step), "trainer_step": t.step,
+                "data": t.data_state_fn()}
+
+    saved = {}
+    first = make(0, os.path.join(root, "run"), failure_at=5)
+    real_save = first.save
+
+    def save():
+        saved[first.step] = snapshot(first)
+        return real_save()
+
+    first.save = save
+    try:
+        first.run()
+        raise AssertionError("the injected failure did not fire")
+    except InjectedFailure:
+        pass
+    resumed = make(1, os.path.join(root, "run"))
+    assert resumed.maybe_resume() and resumed.step == 4
+    now, then = snapshot(resumed), saved[4]
+    for key in ("params", "m", "v"):
+        for k, t in then[key].items():
+            if not torch.equal(now[key][k], t):
+                raise AssertionError(f"resume: {key} {k} differs from the "
+                                     f"saved step 4")
+    assert (now["step"], now["trainer_step"], now["data"]) == \
+        (then["step"], then["trainer_step"], then["data"]), (now, then)
+    resumed.run()
+    straight = make(0, os.path.join(root, "straight"))
+    straight.run()
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(resumed.params.values(), straight.params.values()))
+    print(f"checkpoint at smoke widths on the card: saved at steps "
+          f"{sorted(saved)}, failure injected at 5, resumed at 4 with "
+          f"parameters, moments, step and data position ({now['data']}) "
+          f"equal to the saved ones bit for bit; after step 6 the "
+          f"parameters are {diff:.3g} from an uninterrupted run's (tol "
+          f"{F32_TOL})")
+    if diff > F32_TOL:
+        raise AssertionError(f"resumed run {diff} off the uninterrupted one")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2269,6 +2764,7 @@ def main(argv=None) -> int:
     pv8 = check_paged_verify_kv8(chip)
     w8_err = check_matmul_w8a8(chip)
     fa_err = check_flash_attention(chip)
+    fab_err = check_flash_attention_bwd(chip)
     mla_err = check_mla_decode(chip)
     off_space_err = off_space_layouts(chip)
     for out, name in ((pdk, "paged_decode"), (pvk, "paged_verify"),
@@ -2444,6 +2940,7 @@ def main(argv=None) -> int:
     fak["max_abs_err"] = fa_err
     print(f"flash_attention at the serving prefill (tuned in "
           f"{time.perf_counter() - t:.1f} s): " + json.dumps(fak))
+    fabk = tune_and_time_flash_bwd(tuner, chip, fab_err)
     mlak = tune_and_time_mla(tuner, chip, mla_err)
     ops.release_tuning_operands()
 
@@ -2530,22 +3027,12 @@ def main(argv=None) -> int:
     rejection_run(quant="kv8")
 
     phase(f"7. serving {DSV2} at full width (MLA + MoE) {elapsed()}")
-    # every phi4-mini model goes before the 31 GB of deepseek weights come
-    del engine, spec_engine, kv8_engine, kv8_spec_engine
+    # every phi4-mini model goes before the 31 GB of deepseek weights come;
+    # ``eng``, phase 5's loop variable, holds the speculative engine
+    del engine, spec_engine, kv8_engine, kv8_spec_engine, eng
     w8a8_model.cache_clear()
     ops.release_tuning_operands()
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = [t for t in gc.get_objects()
-            if isinstance(t, torch.Tensor) and t.is_cuda]
-    held.sort(key=lambda t: -t.untyped_storage().nbytes())
-    print(f"device memory held after releasing phi4-mini: "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; the largest "
-          f"live tensors: " + ", ".join(
-              f"{tuple(t.shape)} {t.dtype} "
-              f"({t.untyped_storage().nbytes() / 2**20:.0f} MiB)"
-              for t in held[:6]))
-    del held
+    release("before the deepseek phase")
     mla = mla_dense_serving(tuner)
 
     phase(f"8. a full-width {DSV2} decode step: mla_decode against the "
@@ -2556,10 +3043,19 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mla_f32_streams(tuner)
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    phase(f"9. summary {elapsed()}")
+    phase(f"9. training phi4-mini-3.8b at full width: flash_attention_bwd "
+          f"behind the autograd function {elapsed()}")
+    release("before the training phase")
+    train = training_runs()
+    train_step_check()
+    release("after the full-width step check")
+    train_f32()
+    release("after the float32 runs")
+    with tempfile.TemporaryDirectory() as root:
+        train_checkpoint(root)
+
+    phase(f"10. summary {elapsed()}")
 
     def entry(name, route, source, replaces, launches, out):
         return {"name": name, "route": route, "source": source,
@@ -2604,6 +3100,10 @@ def main(argv=None) -> int:
               "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:36",
               flash["launches"]["flash_attention"], fak),
+        entry("flash_attention_bwd", "cuda",
+              "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention_bwd.py:62 and :110",
+              train["pallas"]["launches"]["flash_attention_bwd"], fabk),
         entry("mla_decode", "cuda", "src/repro_torch/csrc/mla_decode.cu",
               "src/repro/kernels/mla_decode.py:43",
               mla["launches"]["mla_decode"], mlak),

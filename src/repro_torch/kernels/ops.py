@@ -11,8 +11,8 @@ For each of the port's kernels this module declares
 
 and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
 ``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)``,
-``matmul_w8a8(...)``, ``attention(...)``, ``latent_decode(...)`` and
-``rmsnorm(...)`` that resolve their config
+``matmul_w8a8(...)``, ``attention(...)``, ``attention_bwd(...)``,
+``latent_decode(...)`` and ``rmsnorm(...)`` that resolve their config
 through the tuner and dispatch. Every entry point accepts
 ``config=`` to bypass tuning. Tensors on the CPU need no config: the
 kernel wrappers run their plain versions there. A pool laid out with a
@@ -20,7 +20,7 @@ page size outside the space, or a verify deeper or shallower than the
 tuned depths, dispatches a fixed config with no tuning, as the reference
 does.
 
-Importing this module registers the nine kernels in ``kernels.registry``
+Importing this module registers the ten kernels in ``kernels.registry``
 under the reference's names, scenarios and bench cases.
 """
 
@@ -39,6 +39,7 @@ from repro_torch.core import (
 from repro_torch.core.config_space import dtype_bytes, smem_fits
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import flash_attention_bwd as fab_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
@@ -1178,6 +1179,135 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 
 # ===========================================================================
+# Flash attention backward (training): dq, dk, dv recomputed from the lse
+# ===========================================================================
+
+def _flash_bwd_smem(cfg: Config, ctx: TuningContext) -> int:
+    return fab_kernel.smem_bytes(ctx.shape("q")[3], dtype_bytes(ctx.dtype),
+                                 cfg["block_q"], cfg["block_kv"])
+
+
+def flash_attention_bwd_space() -> ConfigSpace:
+    """The reference's tunables (``block_q``, ``block_kv``) at the sizes a
+    Hopper block takes, with ``num_warps`` beside them, ``smem_fits`` in
+    place of ``vmem_fits`` and the register fit of both kernels (a warp
+    owns 16 or 32 keys in the dkv kernel and 16 or 32 query rows in the dq
+    kernel). Kept apart from the forward's space, as the reference keeps
+    it: the dkv kernel inverts the forward's reuse."""
+    sp = ConfigSpace(
+        "flash_attention_bwd",
+        [
+            Param("block_q", fab_kernel.BLOCK_Q),
+            Param("block_kv", fab_kernel.BLOCK_KV),
+            Param("num_warps", fab_kernel.NUM_WARPS),
+        ],
+        version=1,
+    )
+    sp.constrain("smem", smem_fits(_flash_bwd_smem))
+    sp.constrain("registers",
+                 lambda c, x: fab_kernel.regs_fit(x.shape("q")[3],
+                                                  c["block_q"], c["block_kv"],
+                                                  c["num_warps"]))
+    sp.constrain("block_q<=seq_q",
+                 lambda c, x: c["block_q"] <= max(16, _rup(x.shape("q")[2],
+                                                           16)))
+    sp.constrain("block_kv<=seq_kv",
+                 lambda c, x: c["block_kv"] <= max(16, _rup(x.shape("k")[2],
+                                                            16)))
+    return sp
+
+
+def flash_attention_bwd_bytes(B: int, Hq: int, Hkv: int, Sq: int, Skv: int,
+                              D: int, itemsize: int) -> float:
+    """HBM bytes of one call: q and do read and dq written (B·Hq·Sq·D
+    each), k and v read and dk and dv written (B·Hkv·Skv·D each), in
+    ``itemsize``, and the f32 lse and delta read."""
+    return (3.0 * B * Hq * Sq * D * itemsize
+            + 4.0 * B * Hkv * Skv * D * itemsize + 8.0 * B * Hq * Sq)
+
+
+def flash_attention_bwd_flops(B: int, Hq: int, D: int, pairs: int) -> float:
+    """The least work: five products (s, dp, dv, dk, dq) of 2 operations
+    per admitted (query, key) pair, head and dim."""
+    return 10.0 * B * Hq * D * pairs
+
+
+def _flash_bwd_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
+    B, Hq, Sq, D = ctx.shape("q")
+    Hkv, Skv = ctx.shape("k")[1], ctx.shape("k")[2]
+    causal, window = _flash_mask(ctx)
+    return KernelWorkload(
+        flops=flash_attention_bwd_flops(
+            B, Hq, D, attention_pairs(Sq, Skv, causal, window)),
+        hbm_bytes=flash_attention_bwd_bytes(B, Hq, Hkv, Sq, Skv, D,
+                                            dtype_bytes(ctx.dtype)),
+        dtype=ctx.dtype)
+
+
+def _flash_bwd_heuristic(ctx: TuningContext) -> Config:
+    """64 query rows and 64 keys over four warps (one 16-row tile a warp in
+    each kernel); 32 and 32 over two warps where D's accumulators leave no
+    room for that or the sequences are shorter."""
+    D = ctx.shape("q")[3]
+    for cfg in ({"block_q": 64, "block_kv": 64, "num_warps": 4},
+                {"block_q": 32, "block_kv": 32, "num_warps": 2}):
+        if FLASH_ATTENTION_BWD.space.is_valid(cfg, ctx):
+            return cfg
+    return {"block_q": 16, "block_kv": 16, "num_warps": 1}
+
+
+def _attention_bwd_operands(ctx: TuningContext,
+                            cfg: Optional[Config] = None, device="cuda"):
+    """q, k, v and do as (B, H, S, D) views of (B, S, H, D) tensors made
+    from seed 0, with o and lse from one forward call (the kernel on the
+    card, its plain version on the CPU) and the context's mask:
+    ((q, k, v, o, lse, do), {"causal", "window"})."""
+    (q, k, v), kw = _attention_operands(ctx, cfg, device)
+    B, Hq, Sq, D = ctx.shape("q")
+    gen = torch.Generator(device=device).manual_seed(1)
+    do = _randn((B, Sq, Hq, D), q.dtype, gen).transpose(1, 2)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+def _flash_bwd_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    args, kw = _memo_operands(("flash_attention_bwd", ctx.signature()),
+                              lambda: _attention_bwd_operands(ctx))
+    return KernelRunner(fab_kernel.flash_attention_bwd, *args, **kw, **cfg)
+
+
+FLASH_ATTENTION_BWD = TunableKernel(
+    name="flash_attention_bwd",
+    space=flash_attention_bwd_space(),
+    version=1,
+    workload_fn=_flash_bwd_workload,
+    make_runner=_flash_bwd_runner,
+    heuristic=_flash_bwd_heuristic,
+)
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  config: Optional[Config] = None,
+                  tuner: Optional[Autotuner] = None):
+    """Autotuned flash-attention gradients (dq, dk, dv). Layout (B, H, S,
+    D) as ``attention``'s, any strides with D contiguous; lse (B, Hq, Sq)
+    the forward's."""
+    if config is None and q.is_cuda:
+        tuner = tuner or default_tuner()
+        B, Hq, Sq, D = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        dt = dtype_name(q.dtype)
+        config = tuner.dispatch_config(
+            FLASH_ATTENTION_BWD, (B, Hq, Hkv, Sq, Skv, D, dt, bool(causal),
+                                  window or 0, q.device.index),
+            lambda: attention_context(device_chip(q.device.index), B, Hq,
+                                      Hkv, Sq, Skv, D, dt, causal, window))
+    return fab_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          window=window, **(config or {}))
+
+
+# ===========================================================================
 # MLA decode (absorbed latent attention over the compressed KV cache)
 # ===========================================================================
 
@@ -1426,6 +1556,20 @@ def _register_builtin_kernels() -> None:
                       extra={"causal": True, "window": 0}, scale="paper"),
             BenchCase("prefill32k",
                       {"q": (1, 32, 32768, 128), "k": (1, 8, 32768, 128)},
+                      dtype="bfloat16",
+                      extra={"causal": True, "window": 0}, scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=FLASH_ATTENTION_BWD,
+        scenarios=("training",),
+        reference=ref.flash_attention_bwd,
+        entry_point=attention_bwd,
+        operands=_attention_bwd_operands,
+        description="Flash attention backward (dq/dk/dv recompute)",
+        bench_cases=(
+            BenchCase("train4k",
+                      {"q": (8, 32, 4096, 128), "k": (8, 8, 4096, 128)},
                       dtype="bfloat16",
                       extra={"causal": True, "window": 0}, scale="paper"),
         ),

@@ -82,6 +82,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, lse) if return_lse else o
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0):
+    """The flash-attention backward kernels' function, the reference's
+    recompute in f32: q, o, do (B, Hq, Sq, D); k, v (B, Hkv, Skv, D); lse
+    (B, Hq, Sq) the forward's. p = exp(s - lse) over the pairs the mask
+    admits (the mask applied before the exp, so a row that sees no key
+    gives dq = 0 and adds nothing to dk and dv), delta = rowsum(do * o),
+    ds = p (do.v - delta) scale; dk and dv are summed over each KV head's
+    group. One batch row at a time, so the (Hq, Sq, Skv) f32 scores stay
+    one row's. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    mask = _attn_mask(Sq, Skv, causal=causal, window=window,
+                      q_offset=q_offset, kv_len=None, device=q.device)
+    delta = torch.sum(do.float() * o.float(), dim=-1, keepdim=True)
+    dq, dk, dv = [], [], []
+    for b in range(B):
+        qf, dof = q[b].float(), do[b].float()                # (Hq, Sq, D)
+        kq = torch.repeat_interleave(k[b], group, dim=0).float()
+        vq = torch.repeat_interleave(v[b], group, dim=0).float()
+        s = torch.einsum("hqd,hkd->hqk", qf, kq) * scale
+        p = torch.exp(torch.where(mask, s - lse[b, ..., None], NEG_INF))
+        dp = torch.einsum("hqd,hkd->hqk", dof, vq)
+        ds = p * (dp - delta[b]) * scale
+        dq.append(torch.einsum("hqk,hkd->hqd", ds, kq))
+        dk.append(torch.einsum("hqk,hqd->hkd", ds, qf)
+                  .reshape(Hkv, group, Skv, D).sum(1))
+        dv.append(torch.einsum("hqk,hqd->hkd", p, dof)
+                  .reshape(Hkv, group, Skv, D).sum(1))
+    return (torch.stack(dq).to(q.dtype), torch.stack(dk).to(k.dtype),
+            torch.stack(dv).to(v.dtype))
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Serving entry points of the port."""
+"""Serving and training entry points of the port."""

@@ -1,5 +1,6 @@
-"""GQA attention for serving: dense per-request caches (the static batch)
-and a paged KV pool (continuous batching).
+"""GQA attention for serving — dense per-request caches (the static batch)
+and a paged KV pool (continuous batching) — and for training
+(``attn_forward``, no cache).
 
 Layouts follow the reference: activations q (B, S, Hq, D), k/v
 (B, S, Hkv, D). A dense cache is (B, max_len, Hkv, D) per layer; a pool is
@@ -21,8 +22,11 @@ the compressed latents ``ckv`` (B, max_len, C) and the RoPE keys
 ``krope`` (B, max_len, R), written in place; the prompt attends through
 the decompressed K/V (``full`` or ``chunked``), a decode step through the
 absorbed query, by the ``mla_decode`` kernel or the reference's einsum.
-SWA ring caches, int8 latent caches, paged MLA and tensor parallelism are
-not ported and raise ``NotImplementedError``.
+Training differentiates through every attention impl; ``pallas`` through
+``_FlashAttention``, the ``flash_attention`` forward and the
+``flash_attention_bwd`` backward. SWA ring caches, int8 latent caches,
+paged MLA, MLA training and tensor parallelism are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -153,15 +157,43 @@ def chunked_attention(q, k, v, *, chunk_kv: int = 512) -> torch.Tensor:
     return o.transpose(1, 2).to(q.dtype)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Causal (or windowed) attention through the autotuned kernels, the
+    reference's ``custom_vjp`` around its Pallas pair: the forward is
+    ``flash_attention`` (``kernels.ops.attention`` with the lse), the
+    backward ``flash_attention_bwd`` (``kernels.ops.attention_bwd``),
+    which recomputes p from the saved lse; CUDA on the card, their plain
+    versions on the CPU. q (B, S, Hq, D), k and v (B, S, Hkv, D) go to the
+    kernels as (B, H, S, D) views, no copy; o and the gradients come back
+    in the callers' (B, S, H, D) layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        from repro_torch.kernels import ops as kops
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        o, lse = kops.attention(qt, kt, vt, causal=causal, window=window,
+                                return_lse=True)
+        ctx.save_for_backward(qt, kt, vt, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from repro_torch.kernels import ops as kops
+        qt, kt, vt, o, lse = ctx.saved_tensors
+        do = grad.contiguous().transpose(1, 2)
+        dq, dk, dv = kops.attention_bwd(qt, kt, vt, o, lse, do,
+                                        causal=ctx.causal, window=ctx.window)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), \
+            None, None
+
+
 def _pallas_attention(q, k, v) -> torch.Tensor:
-    """Causal attention through the autotuned ``flash_attention`` kernel
-    (``kernels.ops.attention``; CUDA on the card, its plain version on the
-    CPU): q, k, v handed over as (B, H, S, D) views, no copy, and o back
-    as (B, S, Hq, D). Serving only: the backward comes with training."""
-    from repro_torch.kernels import ops as kops
-    o = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), causal=True)
-    return o.transpose(1, 2)
+    """Causal attention through the autotuned ``flash_attention`` kernel,
+    differentiable through ``flash_attention_bwd`` (``_FlashAttention``):
+    the serving prefill (under ``no_grad``, the forward alone) and the
+    training forward."""
+    return _FlashAttention.apply(q, k, v, True, None)
 
 
 def run_attention(q, k, v, *, impl: str = "chunked",
@@ -180,6 +212,24 @@ def run_attention(q, k, v, *, impl: str = "chunked",
             "attention impl 'triangular': the reference's triangular "
             "prefill is not ported (full, chunked and pallas are)")
     raise ValueError(f"attention impl {impl!r} (full, chunked or pallas)")
+
+
+def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                 impl: str = "chunked", chunk: int = 512) -> torch.Tensor:
+    """Training / no-cache forward over x (B, S, d) at positions 0..S-1,
+    causal, the reference's ``attn_forward`` for GQA: attention by
+    ``impl`` (``full``, ``chunked``, or ``pallas`` through
+    ``_FlashAttention``). MLA is refused: its q.k and v head widths
+    differ, so ``flash_attention`` cannot take it, and its training path
+    is not ported."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"training {cfg.name!r}: MLA attention has no training path in "
+            f"the port (its q.k and v head widths differ, so "
+            f"flash_attention cannot take it)")
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    return _proj_out(p, run_attention(q, k, v, impl=impl, chunk=chunk), cfg)
 
 
 # --- dense KV cache (static-batch serving) ---------------------------------

@@ -1,4 +1,5 @@
-"""Language model for serving: embeddings → decoder layers → logits.
+"""Language model: embeddings → decoder layers → logits, for serving and
+training.
 
 The reference stacks repeating layer units and drives them with
 ``lax.scan``; eager PyTorch needs no stacking, so ``LM`` holds one
@@ -25,6 +26,19 @@ no window, learned positions or prefix embeddings (``_check_dense``); the
 paged path takes the dense GQA family only (``_check_paged``, as the
 reference's), while the dense path also serves MoE layers (``attn_moe``:
 ``models.moe``, the reference's index dispatch) and MLA attention.
+
+The training path (``repro.models.lm``'s ``forward`` and ``loss_fn``):
+    forward   — all-position f32 logits (B, S, vocab) and the aux loss,
+                differentiable; attention by ``ForwardOpts.attn_impl``
+                (``pallas``: flash_attention forward, flash_attention_bwd
+                backward), each layer recomputed in the backward under
+                ``remat="full"``
+    loss_fn   — masked cross entropy (labels −1 ignored) with the
+                reference's metrics ``ce``, ``aux``, ``acc`` and ``tokens``
+It trains what ``_check_train`` admits: the dense GQA archs, with the
+plain norm (the rms_norm kernel has no gradient, as the reference's Pallas
+norm has none), no quantization, no MoE (its training is not ported) and
+no MLA.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as ATT
@@ -64,6 +79,9 @@ class ForwardOpts:
     # kernel (CUDA on the card), the reference's names.
     quant: Optional[str] = None
     quant_impl: str = "sim"          # sim | pallas
+    # Training: activation recompute per layer, none | full (dots, the
+    # reference's dots_with_no_batch_dims_saveable policy, is not ported)
+    remat: str = "none"
 
     def kv_dtype(self) -> Optional[str]:
         pol = get_policy(self.quant)
@@ -114,6 +132,33 @@ def _check_dense(cfg: ModelConfig) -> None:
             f"ported")
 
 
+def _check_train(cfg: ModelConfig, opts: ForwardOpts) -> None:
+    """What the port trains: a dense GQA arch ``_check_dense`` admits, with
+    the plain norm, unquantized, remat ``none`` or ``full``. The rest is
+    refused by name."""
+    _check_dense(cfg)
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"training {cfg.name!r}: MoE training (the router's aux loss and "
+            f"the experts' gradients) is not ported")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"training {cfg.name!r}: MLA attention has no training path in "
+            f"the port")
+    if opts.remat == "dots":
+        raise NotImplementedError(
+            "remat 'dots' (the reference's dots_with_no_batch_dims_saveable "
+            "policy) is not ported; remat 'none' and 'full' are")
+    if opts.remat not in ("none", "full"):
+        raise ValueError(f"remat {opts.remat!r} (none, full or dots)")
+    if opts.norm_impl != "plain":
+        raise ValueError("training runs the plain norm: the rms_norm kernel "
+                         "has no gradient")
+    if opts.quant is not None:
+        raise NotImplementedError(
+            f"training under quant {opts.quant!r} is not ported")
+
+
 def _check_paged(cfg: ModelConfig) -> None:
     """Paged serving takes dense GQA archs only, as the reference's
     ``_check_paged``: no MoE family, no MLA (whose latent cache has no
@@ -155,6 +200,66 @@ def _ffn_residual(block: Block, h, cfg, opts):
     if isinstance(block.ffn, MoE):
         return h + apply_moe(block.ffn, hn, cfg)[0]
     return h + apply_mlp(block.ffn, hn, cfg, quant_impl=opts.quant_impl)
+
+
+def _block_train(block: Block, h: torch.Tensor, cfg: ModelConfig,
+                 opts: ForwardOpts) -> torch.Tensor:
+    hn = apply_norm(block.ln1, h, cfg)
+    h = h + ATT.attn_forward(block.mix, hn, cfg, impl=opts.attn_impl,
+                             chunk=opts.attn_chunk)
+    return _ffn_residual(block, h, cfg, opts)
+
+
+def _maybe_remat(fn, opts: ForwardOpts):
+    """``fn`` as it is (``remat="none"``) or recomputed in the backward
+    from its inputs (``"full"``, the reference's ``jax.checkpoint``:
+    ``torch.utils.checkpoint`` without reentrance)."""
+    if opts.remat == "none":
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            opts: ForwardOpts = ForwardOpts()):
+    """tokens (B, S) → (logits (B, S, vocab) f32, aux loss f32), the
+    training path: every position, differentiable, each layer through
+    ``_maybe_remat``. The aux loss is 0: the port trains no MoE layer."""
+    _check_train(cfg, opts)
+    h = embed_tokens(model.embed, tokens, cfg)
+    layer = _maybe_remat(_block_train, opts)
+    for block in model.layers:
+        h = layer(block, h, cfg, opts)
+    h = apply_norm(model.final_ln, h, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits_out(model.embed, h, cfg), aux
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            opts: ForwardOpts = ForwardOpts()):
+    """batch: tokens (B, S) and labels (B, S) integer (−1 = masked).
+    Returns (loss, metrics): the mean cross entropy over the valid labels
+    plus the aux loss times the MoE coefficient, and ``ce``, ``aux``,
+    ``acc`` (argmax accuracy over the valid labels) and ``tokens`` (their
+    count), as the reference's. The label's logit is gathered where the
+    reference contracts a one-hot (equal in f32; the one-hot exists there
+    to keep a vocab-sharded axis sharded)."""
+    logits, aux = forward(model, cfg, batch["tokens"], opts)
+    labels = batch["labels"]
+    valid = labels >= 0
+    labels_safe = torch.clamp(labels, min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    ce = torch.where(valid, lse - ll, 0.0)
+    n_valid = torch.clamp(valid.sum(), min=1)
+    ce_mean = ce.sum() / n_valid
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
+    loss = ce_mean + aux_coef * aux
+    with torch.no_grad():
+        acc = torch.where(valid, torch.argmax(logits, -1) == labels_safe,
+                          False).sum() / n_valid
+    return loss, {"ce": ce_mean.detach(), "aux": aux.detach(), "acc": acc,
+                  "tokens": n_valid.float()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",

@@ -10,9 +10,15 @@ creates them with ``empty_parameter``. From that single source:
     handed over as numpy arrays nested as ``lm_specs`` nests them, loaded
     into the port's modules (stacked scan units are unstacked per layer);
     the reference's quantized weights (QTensor leaves: values and scale)
-    become the port's ``QTensor``s, sliced per layer as well.
+    become the port's ``QTensor``s, sliced per layer as well;
+  * ``to_numpy_tree(model, cfg)`` — the inverse: the model's parameters
+    (or any tensors by parameter name, gradients say) restacked into the
+    reference's tree, so that they compare leaf by leaf with it;
+  * ``stacked_ndims(model, cfg)`` — each parameter's rank in the
+    reference's stacked tree, which AdamW's decay rule reads.
 
-Parameters are created with ``requires_grad=False``: the port serves.
+Parameters are created with ``requires_grad=False`` for serving;
+``trainable=True`` makes them leaves that take gradients, for training.
 """
 
 from __future__ import annotations
@@ -64,9 +70,10 @@ def _init_leaf_(p: torch.Tensor, spec: ParamSpec,
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda"):
+                device="cuda", trainable: bool = False):
     """Random weights for ``cfg`` made on ``device`` from ``generator``
-    (default: seed 0 on that device). Returns the port's ``lm.LM``."""
+    (default: seed 0 on that device). Returns the port's ``lm.LM``, its
+    parameters requiring gradients when ``trainable``."""
     from repro_torch.models.lm import LM
     device = torch.device(device)
     if generator is None:
@@ -76,7 +83,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         for mod in model.modules():
             for name, spec in getattr(mod, "param_specs", {}).items():
                 _init_leaf_(getattr(mod, name), spec, generator)
-    return model
+    return model.requires_grad_(trainable)
 
 
 def _to_tensor(a: Any) -> torch.Tensor:
@@ -118,7 +125,7 @@ def _load_module_(mod: nn.Module, tree: Dict[str, Any], index: Optional[int]):
 
 
 def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda"):
+                    device="cuda", trainable: bool = False):
     """Load the reference's parameter tree (numpy leaves, nested as
     ``repro.models.lm.lm_specs``: ``embed.tok``, ``final_ln.w``,
     ``u{i}.l{j}.{ln1,mix,ln2,ffn}``) into a new ``lm.LM``. A unit scanned
@@ -128,21 +135,87 @@ def from_numpy_tree(params_np: Dict[str, Any], cfg: ModelConfig,
     ``u1``); a MoE layer's ``ffn`` holds the router, the stacked experts
     and, under ``shared``, the shared experts' MLP. Quantized MLP weights
     (the reference's ``quantize_params``: QTensor leaves with numpy values
-    and scale) load as the port's ``QTensor``s."""
+    and scale) load as the port's ``QTensor``s. The parameters require
+    gradients when ``trainable``."""
     from repro_torch.models.lm import LM
     model = LM(cfg, device=torch.device(device))
     with torch.no_grad():
         _load_module_(model.embed, params_np["embed"], None)
         _load_module_(model.final_ln, params_np["final_ln"], None)
-        layer = 0
-        for ui, (unit, reps) in enumerate(cfg.scan_plan()):
-            unit_tree = params_np[f"u{ui}"]
-            for r in range(reps):
-                index = r if reps > 1 else None
-                for li in range(len(unit)):
-                    lt = unit_tree[f"l{li}"]
-                    block = model.layers[layer]
-                    for part in ("ln1", "mix", "ln2", "ffn"):
-                        _load_module_(getattr(block, part), lt[part], index)
-                    layer += 1
-    return model
+        for block, (ui, reps, r, li) in zip(model.layers, _unit_layers(cfg)):
+            lt = params_np[f"u{ui}"][f"l{li}"]
+            for part in ("ln1", "mix", "ln2", "ffn"):
+                _load_module_(getattr(block, part), lt[part],
+                              r if reps > 1 else None)
+    return model.requires_grad_(trainable)
+
+
+def _unit_layers(cfg: ModelConfig):
+    """(unit index, reps, repetition, index in the unit) of each layer in
+    order: the reference's ``u{i}.l{j}`` leaf a layer's parameters sit in
+    (at ``[r]`` of its stack when the unit repeats)."""
+    for ui, (unit, reps) in enumerate(cfg.scan_plan()):
+        for r in range(reps):
+            for li in range(len(unit)):
+                yield ui, reps, r, li
+
+
+def stacked_ndims(model: nn.Module, cfg: ModelConfig) -> Dict[str, int]:
+    """Each parameter's rank in the reference's tree, by the port's
+    parameter name: one more than its own in a unit scanned ``reps > 1``
+    times, whose leaves carry the stack axis (phi4-mini's per-layer norm
+    weights are (32, 3072) there), its own elsewhere."""
+    stacked = [reps > 1 for _, reps, _, _ in _unit_layers(cfg)]
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        extra = parts[0] == "layers" and stacked[int(parts[1])]
+        out[name] = p.dim() + int(extra)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """float32 for bf16 and f16 (exact: numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
+
+
+def to_numpy_tree(model: nn.Module, cfg: ModelConfig,
+                  tensors: Optional[Dict[str, torch.Tensor]] = None):
+    """The inverse of ``from_numpy_tree``: the reference's tree (nested as
+    ``lm_specs``) of numpy arrays, a scanned unit's layers stacked on a
+    leading axis. ``tensors`` maps the port's parameter names
+    (``model.named_parameters()``) to the tensors to convert — gradients,
+    optimizer moments — and defaults to the parameters. bf16 leaves come
+    as float32."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+
+    def tree(mod: nn.Module, prefix: str) -> Dict[str, Any]:
+        out = {name: _numpy(tensors[prefix + name])
+               for name in getattr(mod, "param_specs", {})}
+        for name, child in mod.named_children():
+            out[name] = tree(child, f"{prefix}{name}.")
+        return out
+
+    params = {"embed": tree(model.embed, "embed."),
+              "final_ln": tree(model.final_ln, "final_ln.")}
+    units: Dict[str, Any] = {}
+    for layer, (ui, reps, r, li) in enumerate(_unit_layers(cfg)):
+        block = model.layers[layer]
+        lt = {part: tree(getattr(block, part), f"layers.{layer}.{part}.")
+              for part in ("ln1", "mix", "ln2", "ffn")}
+        units.setdefault(f"u{ui}", {}).setdefault(f"l{li}", []).append(lt)
+    for ui, layers in units.items():
+        params[ui] = {
+            li: (trees[0] if len(trees) == 1 else _stack(trees))
+            for li, trees in layers.items()}
+    return params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

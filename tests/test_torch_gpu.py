@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import Autotuner, set_default_tuner
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import flash_attention_bwd as fab_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
@@ -969,6 +970,129 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         lse.data_ptr(), 1, 4, 2, 32, 32, 64, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0.125, 1, 0, 0,
         64, 256, 2, 1, stream) != 0
+
+
+# flash_attention_bwd's cases, FLASH_CASES' columns: phi4-mini's heads at a
+# short sequence; Sq 200 (not a tile multiple) at group 3; group 1 with D
+# 96 and a window; f32 group 4 with a query offset and Skv > Sq; D 120,
+# non-causal; D 64 with rows that see no key (exact zeros) inside running
+# tiles
+FLASH_BWD_CASES = [
+    ("bf16-causal", 2, 6, 2, 128, 128, 128, torch.bfloat16, True, None, 0),
+    ("bf16-ragged-g3", 1, 6, 2, 200, 200, 128, torch.bfloat16, True, None,
+     0),
+    ("bf16-g1-d96-window", 2, 4, 4, 150, 150, 96, torch.bfloat16, True, 40,
+     0),
+    ("f32-g4-offset", 2, 8, 2, 77, 300, 64, torch.float32, True, None, 211),
+    ("bf16-d120-noncausal", 1, 6, 2, 90, 130, 120, torch.bfloat16, False,
+     None, 0),
+    ("bf16-empty-rows", 1, 4, 2, 64, 40, 64, torch.bfloat16, True, 8, 40),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: c[0])
+def test_flash_attention_bwd_every_valid_config_matches_plain(cuda, case):
+    """Every valid config against the plain version: dq, dk and dv at the
+    dtype's tolerance (relative to each gradient's largest value), rows
+    that see no key exactly zero in dq, gradients in q's and k's layouts,
+    one launch a call, and two calls bit-equal (no atomics)."""
+    _, B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset = case
+    q, k, v = flash_operands(D + Sq + 1, B, Hq, Hkv, Sq, Skv, D, dtype, cuda)
+    do = flash_operands(D + Sq + 2, B, Hq, Hkv, Sq, Skv, D, dtype,
+                        cuda)[0]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = ref.flash_attention(q, k, v, return_lse=True, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    empty = lse[0, 0] <= -1e30
+    chip = ops.device_chip(cuda.index or 0)
+    ctx = ops.attention_context(chip, B, Hq, Hkv, Sq, Skv, D,
+                                ops.dtype_name(dtype), causal, window)
+    configs = ops.FLASH_ATTENTION_BWD.space.valid_configs(ctx)
+    assert configs
+    for cfg in configs:
+        before = fab_kernel.flash_attention_bwd.launches
+        got = fab_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw, **cfg)
+        torch.cuda.synchronize()
+        assert fab_kernel.flash_attention_bwd.launches == before + 1
+        for name, g, w, like in zip("qkv", got, want, (q, k, v)):
+            assert g.stride() == like.stride() and g.dtype == like.dtype
+            scale = float(w.float().abs().max())
+            torch.testing.assert_close(
+                g.float() / scale, w.float() / scale, atol=TOL[dtype],
+                rtol=TOL[dtype], msg=lambda m: f"d{name} {cfg}: {m}")
+        assert not got[0][:, :, empty].any()
+        again = fab_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw,
+                                               **cfg)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case[0] == "bf16-empty-rows":
+        assert empty.sum() == 57
+
+
+def test_flash_attention_bwd_rejects_what_it_does_not_take(cuda):
+    q, k, v = flash_operands(0, 1, 4, 2, 32, 32, 64, torch.bfloat16, cuda)
+    o, lse = ref.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head_dim 160"):
+        big = flash_operands(1, 1, 2, 1, 16, 16, 160, torch.bfloat16, cuda)
+        fab_kernel.flash_attention_bwd(*big, big[0], lse[:, :2, :16],
+                                       big[0])
+    with pytest.raises(ValueError, match="D must be contiguous"):
+        fab_kernel.flash_attention_bwd(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v, o, lse, o)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fab_kernel.flash_attention_bwd(q, k, v, o, lse, o.float())
+    with pytest.raises(ValueError, match="lse"):
+        fab_kernel.flash_attention_bwd(q, k, v, o, lse.bfloat16(), o)
+    with pytest.raises(ValueError, match="registers"):
+        fab_kernel.flash_attention_bwd(q, k, v, o, lse, o, block_q=64,
+                                       block_kv=32, num_warps=4)
+    lib = fab_kernel.LIB.load()
+    for D, item, bq, bkv in ((128, 2, 64, 64), (120, 2, 32, 16),
+                             (96, 4, 32, 32), (64, 4, 128, 128)):
+        assert lib.flash_attention_bwd_smem_bytes(D, item, bq, bkv) == \
+            fab_kernel.smem_bytes(D, item, bq, bkv)
+    # the C entry refuses what its templates do not instantiate (rt 1 with
+    # block_q 128 at D 128: 256 accumulators)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    delta = torch.zeros_like(lse)
+    assert lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dq.data_ptr(),
+        dq.data_ptr(), 1, 4, 2, 32, 32, 128, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], 0.1, 1, 0, 0, 128, 64, 4, 1,
+        stream) != 0
+
+
+def test_flash_autograd_function_on_card_matches_plain(cuda):
+    """The autograd function at phi4-mini's heads: one launch of each
+    kernel a forward and backward (the heuristic configs: no tuning
+    launches), gradients of every input in its own layout within the bf16
+    tolerance of torch autograd through the plain attention in f32."""
+    from repro_torch.models import attention as ATT
+    set_default_tuner(Autotuner(on_miss="heuristic"))
+    try:
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q, k, v = (torch.randn(2, 200, h, 128, generator=g, device=cuda)
+                   .to(torch.bfloat16) for h in (24, 8, 8))
+        dout = torch.randn(2, 200, 24, 128, generator=g, device=cuda)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (fa_kernel.flash_attention.launches,
+                  fab_kernel.flash_attention_bwd.launches)
+        out = ATT.run_attention(*leaves, impl="pallas")
+        out.backward(dout.to(out.dtype))
+        assert (fa_kernel.flash_attention.launches,
+                fab_kernel.flash_attention_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+    finally:
+        set_default_tuner(None)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ATT.full_attention(*ref_leaves).backward(dout)
+    for got, want in zip(leaves, ref_leaves):
+        assert got.grad.shape == got.shape and got.grad.dtype == got.dtype
+        scale = float(want.grad.abs().max())
+        torch.testing.assert_close(got.grad.float() / scale,
+                                   want.grad / scale, atol=2e-2, rtol=2e-2)
 
 
 # mla_decode's cases, (label, B, H, C, R, T, dtype, kv_len): deepseek-v2-lite's

@@ -1,4 +1,4 @@
-"""The port's kernel registry held against the reference's: the nine
+"""The port's kernel registry held against the reference's: the ten
 ported kernels under the same names, scenarios, precision and bench cases,
 and the registry's own rules."""
 
@@ -10,9 +10,9 @@ from repro.kernels import registry as jreg
 from repro_torch.core import TunableKernel, cpu_host
 from repro_torch.kernels import registry
 
-PORTED = ("decode_attention", "flash_attention", "gqa_decode_kv8",
-          "gqa_decode_ragged", "matmul_w8a8", "mla_decode", "paged_decode",
-          "paged_verify", "rms_norm")
+PORTED = ("decode_attention", "flash_attention", "flash_attention_bwd",
+          "gqa_decode_kv8", "gqa_decode_ragged", "matmul_w8a8", "mla_decode",
+          "paged_decode", "paged_verify", "rms_norm")
 INT8 = ("gqa_decode_kv8", "matmul_w8a8")
 
 
@@ -50,7 +50,7 @@ def test_list_kernels_is_a_subset_of_the_reference():
     assert registry.kernel_names(scenario="prefill") == \
         ["flash_attention", "matmul_w8a8", "rms_norm"]
     assert registry.kernel_names(scenario="training") == \
-        ["flash_attention", "matmul_w8a8", "rms_norm"]
+        ["flash_attention", "flash_attention_bwd", "matmul_w8a8", "rms_norm"]
     assert set(registry.kernel_names(scenario="training")) < \
         set(jreg.kernel_names(scenario="training"))
     assert set(registry.scenarios()) <= set(jreg.scenarios())

@@ -192,13 +192,17 @@ def test_oversized_request_fails_as_result(weights):
 def test_entry_points_default_to_the_card(weights):
     """Entry points run on the card unless the caller asks for the CPU:
     the model, the pools and the converted weights default to "cuda", the
-    engine follows its model's device, and the launcher raises without a
-    card (``test_serve_raises_without_a_gpu``)."""
+    engine follows its model's device, and the launchers raise without a
+    card (``test_serve_raises_without_a_gpu``; the train launcher's in
+    ``tests/test_torch_train.py``)."""
+    from repro_torch.launch import serve, train
     from repro_torch.models.param import init_params
     for fn in (lm.LM, lm.init_paged_cache, lm.init_cache, from_numpy_tree,
                init_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
+    for launcher in (serve, train):
+        assert launcher.build_parser().get_default("device") == "cuda"
     _, _, cfg, model = weights
     eng = ServingEngine(cfg, model, **ENGINE)
     assert eng.device == torch.device("cpu")
