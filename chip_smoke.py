@@ -12,8 +12,9 @@ Phases, each failing loudly:
      ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
      ``gqa_decode`` (which also serves ``decode_attention``),
      ``gqa_decode_kv8`` (the same kernel template built for int8 caches),
-     ``matmul_w8a8``, ``flash_attention``, ``flash_attention_bwd`` and
-     ``mla_decode``, and the Triton compile of ``rms_norm``;
+     ``matmul``, ``matmul_w8a8``, ``flash_attention``,
+     ``flash_attention_bwd`` and ``mla_decode``, and the Triton compile of
+     ``rms_norm``;
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
@@ -24,6 +25,8 @@ Phases, each failing loudly:
      ``matmul_w8a8`` config of each scale granularity on ragged shapes
      and the four w8a8 serving shapes (its epilogue configs also equal to
      the exact integer-grid product) and its refusals; every valid
+     ``matmul`` config in bf16 and f32 at ragged shapes (every edge
+     masked), decode-like rows and 256^3, and its refusals; every valid
      ``flash_attention`` config (o and lse) at the serving prefill and at
      ragged lengths, groups 1, 3 and 4, D 96 and 120, windows, a query
      offset, non-causal, f32, and rows that see no key; every valid
@@ -39,10 +42,11 @@ Phases, each failing loudly:
      kernel's host bench cases against its reference;
   4. tuning: the serve entry point's deployment lookups (``paged_decode``
      and ``paged_verify`` with the speculation depth free, float and,
-     under ``--quant kv8``, int8) and the contexts the plain, the
-     speculative, the kv8 and the kv8 speculative engine will dispatch,
-     tuned on the card; then every valid ``paged_decode`` (float and int8)
-     and ``paged_verify`` (float and int8) config at the pool layouts the
+     under ``--quant kv8``, int8), each a hit in the shipped H100 DB, and
+     the contexts the plain, the speculative, the kv8 and the kv8
+     speculative engine will dispatch, tuned on the card; then every
+     valid ``paged_decode`` (float and int8) and ``paged_verify`` (float
+     and int8) config at the pool layouts the
      tuning chose (the tuned ones among them) against the plain versions,
      and the tuned ones timed; the kv8 dense serving context tuned and
      timed; the four ``matmul_w8a8`` contexts of a w8a8 dense run
@@ -55,7 +59,9 @@ Phases, each failing loudly:
      ``train4k`` tuned, the backward timed at both beside the plain
      version, SDPA's backward and the bound; deepseek-v2-lite's
      ``mla_decode`` serving context and the registry's ``dsv2_32k`` tuned
-     and timed beside the plain version and SDPA;
+     and timed beside the plain version and SDPA; ``matmul`` at 8192^3
+     bf16 (``mm8k``, the shipped config) and 256^3 f32 (tuned) timed
+     beside the plain version, ``torch.matmul`` and the bound;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -123,7 +129,17 @@ Phases, each failing loudly:
      losses within 1e-4 and parameters within F32_TOL; a checkpoint, an
      injected failure and a resume at smoke widths, the restored state bit
      for bit the saved one;
- 10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+ 10. the shipped H100 tuning DB (``src/repro_torch/configs/
+     shipped_tuning_db.json``): every entry parses against the current
+     spaces and names this card; a fresh process with
+     ``REPRO_ON_MISS=error`` resolves every deployment lookup of the serve
+     launcher for each arch it pages (plain, ``--speculative``, ``--quant
+     kv8`` and both) and the ``mm8k`` matmul through ``default_tuner()``
+     with no tune, and launches ``ops.matmul`` once on that config against
+     the plain version; ``gen_shipped_db`` restricted to ``matmul`` and
+     ``matmul_w8a8`` runs into a temporary file (matmul's launches there
+     and in that process are its count);
+ 11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -188,6 +204,7 @@ def build_kernels() -> dict:
     from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.kernels import flash_attention_bwd as fab_kernel
     from repro_torch.kernels import gqa_decode as gqa_kernel
+    from repro_torch.kernels import matmul as mm_kernel
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.kernels import mla_decode as mla_kernel
     from repro_torch.kernels import paged_decode as pd_kernel
@@ -196,7 +213,7 @@ def build_kernels() -> dict:
     secs, errors = {}, []
     libs = {"paged_decode": pd_kernel.LIB, "paged_verify": pv_kernel.LIB,
             "gqa_decode": gqa_kernel.LIB, "gqa_decode_kv8": gqa_kernel.LIB_KV8,
-            "matmul_w8a8": mm8_kernel.LIB,
+            "matmul": mm_kernel.LIB, "matmul_w8a8": mm8_kernel.LIB,
             "flash_attention": fa_kernel.LIB,
             "flash_attention_bwd": fab_kernel.LIB, "mla_decode": mla_kernel.LIB}
 
@@ -924,6 +941,95 @@ def time_w8a8(chip, M, K, N, cfg) -> dict:
         "bf16_matmul_ms": timer().time_runner(lambda: xb @ wb) * 1e3,
         "bound_ms": bound_ms, "bound_by": by, "config": cfg}
     return out
+
+
+# matmul's cases, (M, K, N): ragged shapes (every edge masked: rows, columns
+# and K slices past the tile grid; K and N whose rows are only 2- or
+# 8-byte aligned in bf16), decode-like rows, and the registry's m256
+MATMUL_CASES = [(200, 300, 136), (37, 45, 29), (1000, 1030, 520),
+                (8, 3072, 64), (256, 256, 256)]
+MM8K = (8192, 8192, 8192)
+
+
+def mm_case(seed, M, K, N, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(M, K, generator=g, device="cuda").to(dtype),
+            torch.randn(K, N, generator=g, device="cuda").to(dtype))
+
+
+def check_matmul(chip) -> dict:
+    """Every valid matmul config against the plain version (an f32 product
+    with TF32 off, cast to x's dtype) at MATMUL_CASES, in bf16 at
+    BF16_TOL and in f32 at F32_TOL (atol and rtol: a bf16 output may
+    round the other way by one unit in the last place); the refusals, and
+    the C/Python shared-memory parity. Returns the worst error per
+    dtype."""
+    from repro_torch.kernels import matmul as mm_kernel
+    from repro_torch.kernels import ops, ref
+    worst_all = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[ops.dtype_name(dtype)]
+        for M, K, N in MATMUL_CASES:
+            x, y = mm_case(M + K + N, M, K, N, dtype)
+            want = ref.matmul(x, y).float()
+            ctx = ops.matmul_context(chip, M, K, N, ops.dtype_name(dtype))
+            configs = ops.MATMUL.space.valid_configs(ctx)
+            worst = 0.0
+            for cfg in configs:
+                got = ops.matmul(x, y, config=cfg)
+                assert got.dtype == dtype and got.shape == (M, N)
+                got = got.float()
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, atol=tol, rtol=tol):
+                    raise AssertionError(f"matmul {M}x{K}x{N} {dtype} {cfg}: "
+                                         f"max abs err {err} over tolerance "
+                                         f"{tol}")
+                worst = max(worst, err)
+            worst_all[ops.dtype_name(dtype)] = max(
+                worst_all.get(ops.dtype_name(dtype), 0.0), worst)
+            print(f"matmul {M}x{K}x{N} {ops.dtype_name(dtype)}: "
+                  f"{len(configs)} configs ok, max_abs_err {worst:.4g} "
+                  f"(atol and rtol {tol}; largest |out| "
+                  f"{float(want.abs().max()):.4g})")
+    x, y = mm_case(0, 64, 64, 64, torch.bfloat16)
+    for bad, match in (((x.half(), y.half()), "float16"),
+                       ((x, y.t()), "contiguous"),
+                       ((x, y.float()), "differ")):
+        try:
+            mm_kernel.matmul(*bad)
+        except ValueError as e:
+            assert match in str(e), e
+        else:
+            raise AssertionError(f"matmul took what it refuses ({match})")
+    lib = mm_kernel.LIB.load()
+    for args in ((2, 64, 64, 32, 2), (2, 256, 128, 64, 4),
+                 (4, 128, 256, 32, 3)):
+        assert lib.matmul_smem_bytes(*args) == mm_kernel.smem_bytes(*args)
+    print("matmul refusals ok (float16, a transposed y, mixed dtypes); C "
+          "and Python shared memory agree")
+    return worst_all
+
+
+def time_matmul(chip, M, K, N, dtype, cfg) -> dict:
+    """Kernel (under ``cfg``), plain version, the library yardstick and the
+    roofline bound at one shape; the yardstick, which the port never
+    calls, is ``torch.matmul`` (cuBLAS) on the same operands."""
+    from repro_torch.kernels import ops, ref
+    x, y = mm_case(7, M, K, N, dtype)
+    ctx = ops.matmul_context(chip, M, K, N, ops.dtype_name(dtype))
+    bound_ms, by = bound(ops.MATMUL.workload_fn(cfg, ctx), chip)
+    got = ops.matmul(x, y, config=cfg).float()
+    want = ref.matmul(x, y).float()
+    tol = TOL[ops.dtype_name(dtype)]
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"matmul {M}x{K}x{N} {cfg}: over tolerance")
+    return {
+        "kernel_ms": timer().time_runner(
+            lambda: ops.matmul(x, y, config=cfg)) * 1e3,
+        "plain_ms": timer().time_runner(lambda: ref.matmul(x, y)) * 1e3,
+        "library_ms": timer().time_runner(lambda: torch.matmul(x, y)) * 1e3,
+        "bound_ms": bound_ms, "bound_by": by, "config": cfg,
+        "max_abs_err": float((got - want).abs().max())}
 
 
 # flash_attention's cases, (label, B, Hq, Hkv, Sq, Skv, D, dtype, causal,
@@ -2720,6 +2826,125 @@ def train_checkpoint(root: str) -> None:
         raise AssertionError(f"resumed run {diff} off the uninterrupted one")
 
 
+# Run in a fresh process with REPRO_ON_MISS=error: every deployment lookup
+# the serve launcher makes for each arch it pages (plain, --speculative,
+# --quant kv8 and both: paged_decode's and paged_verify's deployment
+# contexts), then ops.matmul once at mm8k, all through default_tuner() and
+# the shipped DB; prints one JSON line
+DB_LOOKUPS = """
+import json, torch
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.core import default_tuner
+from repro_torch.kernels import matmul as mm_kernel
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve
+from repro_torch.models import lm
+torch.backends.cuda.matmul.allow_tf32 = False
+tuner = default_tuner()
+assert tuner.on_miss == "error", tuner.on_miss
+chip = ops.device_chip(0)
+found = {}
+for arch in ARCHS:
+    full = get_config(arch)
+    try:
+        lm._check_paged(full)
+    except NotImplementedError:
+        continue
+    for quant in (None, "kv8"):
+        found[f"{arch} paged_decode {quant}"] = tuner.best_config(
+            ops.PAGED_DECODE, serve.deployment_context(full, chip, quant))
+        found[f"{arch} paged_verify {quant}"] = tuner.best_config(
+            ops.PAGED_VERIFY, serve.verify_deployment_context(full, chip,
+                                                              quant))
+g = torch.Generator(device="cuda").manual_seed(11)
+x = torch.randn(8192, 8192, generator=g, device="cuda").bfloat16()
+y = torch.randn(8192, 8192, generator=g, device="cuda").bfloat16()
+found["matmul mm8k"] = tuner.best_config(
+    ops.MATMUL, ops.matmul_context(chip, 8192, 8192, 8192, "bfloat16"))
+mm_kernel.matmul.launches = 0
+out = ops.matmul(x, y, config=found["matmul mm8k"]).float()
+launches = mm_kernel.matmul.launches
+want = ref.matmul(x, y).float()
+print(json.dumps({"configs": found, "stats": tuner.stats(),
+                  "launches": launches,
+                  "max_abs_err": float((out - want).abs().max()),
+                  "close": bool(torch.allclose(out, want, atol=2e-2,
+                                               rtol=2e-2))}))
+"""
+
+
+def shipped_db_phase(chip) -> dict:
+    """(a) The committed DB: every entry parses against the current spaces
+    and names this card; (b) a fresh process with REPRO_ON_MISS=error
+    resolves the serve launcher's deployment lookups and the mm8k matmul
+    from it, no tune, and launches ops.matmul once; (c) the generator,
+    restricted to matmul and matmul_w8a8, into a temporary file. Returns
+    matmul's launches in (b) and (c)."""
+    from repro_torch.configs import gen_shipped_db
+    from repro_torch.core import TuningContext, get_chip, tuner as tuner_lib
+    from repro_torch.core.cache import CacheEntry, cache_key
+    from repro_torch.kernels import matmul as mm_kernel
+    from repro_torch.kernels.registry import get_kernel
+    with open(tuner_lib.SHIPPED_DB) as f:
+        db = json.load(f)
+    kernels = {}
+    for key, raw in db.items():
+        k = json.loads(key)
+        c = json.loads(k["ctx"])
+        assert c["chip"] == chip.name, (c["chip"], chip.name)
+        ctx = TuningContext(chip=get_chip(c["chip"]),
+                            shapes={n: tuple(v) for n, v in
+                                    c["shapes"].items()},
+                            dtype=c["dtype"], extra=c["extra"])
+        tunable = get_kernel(k["kernel"]).tunable
+        entry = CacheEntry.from_json(raw)
+        assert cache_key(tunable.name, tunable.version, tunable.space,
+                         ctx) == key, key
+        assert tunable.space.is_valid(entry.config, ctx), (key, entry)
+        assert entry.fingerprint["gpu"] == torch.cuda.get_device_name(0)
+        kernels[k["kernel"]] = kernels.get(k["kernel"], 0) + 1
+    print(f"(a) shipped DB: {len(db)} entries, every one parses against the "
+          f"current spaces and names {chip.name}: {json.dumps(kernels)}")
+    env = dict(os.environ, REPRO_ON_MISS="error",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", DB_LOOKUPS], env=env,
+                         capture_output=True, text=True, timeout=600,
+                         check=False)
+    if res.returncode != 0:
+        raise AssertionError(f"the lookup process failed:\n{res.stderr}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"(b) a fresh process, REPRO_ON_MISS=error "
+          f"({time.perf_counter() - t:.1f} s): " + json.dumps(got))
+    stats = got["stats"]
+    assert stats["tunes"] == stats["misses"] == 0, stats
+    assert stats["hits"] == len(got["configs"]) >= 13, stats
+    assert got["launches"] == 1 and got["close"], got
+    mm_kernel.matmul.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "db.json")
+        t = time.perf_counter()
+        rc = gen_shipped_db.main(["--kernels", "matmul,matmul_w8a8",
+                                  "--out", out])
+        with open(out) as f:
+            fresh = json.load(f)
+    launches = mm_kernel.matmul.launches
+    print(f"(c) gen_shipped_db --kernels matmul,matmul_w8a8 into a "
+          f"temporary file: rc {rc}, {len(fresh)} entries in "
+          f"{time.perf_counter() - t:.1f} s, matmul launched {launches} "
+          f"times")
+    assert rc == 0 and len(fresh) == 3 and set(fresh) <= set(db), fresh
+    assert launches > 0
+    for key, raw in fresh.items():
+        print(f"  {json.loads(key)['kernel']} "
+              f"{json.loads(json.loads(key)['ctx'])['shapes']}: "
+              f"{raw['config']} ({raw['metric'] * 1e3:.4f} ms) against the "
+              f"shipped {db[key]['config']} "
+              f"({db[key]['metric'] * 1e3:.4f} ms)")
+    return {"launches": launches + got["launches"],
+            "config": got["configs"]["matmul mm8k"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2729,6 +2954,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.core import default_tuner
+    from repro_torch.core.cache import cache_key
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_decode as pd_kernel
     from repro_torch.kernels import paged_verify as pv_kernel
@@ -2763,6 +2989,7 @@ def main(argv=None) -> int:
     pd8 = check_paged_decode_kv8(chip)
     pv8 = check_paged_verify_kv8(chip)
     w8_err = check_matmul_w8a8(chip)
+    mm_err = check_matmul(chip)
     fa_err = check_flash_attention(chip)
     fab_err = check_flash_attention_bwd(chip)
     mla_err = check_mla_decode(chip)
@@ -2776,6 +3003,7 @@ def main(argv=None) -> int:
           f"{elapsed()}")
     tuner = default_tuner()
     tuner.on_miss = "tune"
+    shipped = tuner.cache.entries()
     argv = ["--full-config", "--requests", "8", "--prompt-len", "512",
             "--min-prompt-len", "128", "--gen", "32", "--max-batch", "8",
             "--prefill-chunk", "256"]
@@ -2807,6 +3035,22 @@ def main(argv=None) -> int:
     print(f"the int8 paged_verify deployment entry "
           f"{kv8_spec_info['verify_deployment_config']} recommends draft_k "
           f"{K8}")
+    full_cfg = engine.cfg
+    deploy = [(ops.PAGED_DECODE, serve.deployment_context(full_cfg, chip, q))
+              for q in (None, "kv8")]
+    deploy += [(ops.PAGED_VERIFY,
+                serve.verify_deployment_context(full_cfg, chip, q))
+               for q in (None, "kv8")]
+    own = {json.dumps(k, sort_keys=True) for k, _ in tuner.cache.items()}
+    for kernel, ctx in deploy:
+        key = cache_key(kernel.name, kernel.version, kernel.space, ctx)
+        if key not in shipped or key in own:
+            raise AssertionError(f"the deployment lookup {kernel.name} "
+                                 f"{ctx.signature()} was tuned, not taken "
+                                 f"from the shipped DB")
+        print(f"deployment lookup {kernel.name} {ctx.dtype} "
+              f"{dict(ctx.extra)}: a hit in the shipped DB -> "
+              f"{shipped[key].config}")
     for k, entry in tuner.cache.items():
         ctx = json.loads(k["ctx"])
         print(f"tuned {k['kernel']} shapes {ctx['shapes']} extra "
@@ -2942,6 +3186,17 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t:.1f} s): " + json.dumps(fak))
     fabk = tune_and_time_flash_bwd(tuner, chip, fab_err)
     mlak = tune_and_time_mla(tuner, chip, mla_err)
+    # matmul: mm8k from the shipped DB (a hit, no tune), m256 in f32 tuned
+    mm8k_ctx = ops.matmul_context(chip, *MM8K, "bfloat16")
+    mm_cfg = tuner.best_config(ops.MATMUL, mm8k_ctx)
+    assert cache_key(ops.MATMUL.name, ops.MATMUL.version, ops.MATMUL.space,
+                     mm8k_ctx) in shipped
+    mmk = time_matmul(chip, *MM8K, torch.bfloat16, mm_cfg)
+    print("matmul mm8k (8192^3 bf16, the shipped config): "
+          + json.dumps(mmk))
+    m256 = time_matmul(chip, 256, 256, 256, torch.float32, tuner.best_config(
+        ops.MATMUL, ops.matmul_context(chip, 256, 256, 256, "float32")))
+    print("matmul m256 (256^3 f32, tuned): " + json.dumps(m256))
     ops.release_tuning_operands()
 
     phase(f"5. serving phi4-mini-3.8b at full width {elapsed()}")
@@ -3055,7 +3310,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as root:
         train_checkpoint(root)
 
-    phase(f"10. summary {elapsed()}")
+    phase(f"10. the shipped H100 tuning DB {elapsed()}")
+    db = shipped_db_phase(chip)
+    assert db["config"] == mm_cfg, (db["config"], mm_cfg)
+
+    phase(f"11. summary {elapsed()}")
 
     def entry(name, route, source, replaces, launches, out):
         return {"name": name, "route": route, "source": source,
@@ -3107,6 +3366,10 @@ def main(argv=None) -> int:
         entry("mla_decode", "cuda", "src/repro_torch/csrc/mla_decode.cu",
               "src/repro/kernels/mla_decode.py:43",
               mla["launches"]["mla_decode"], mlak),
+        entry("matmul", "cuda", "src/repro_torch/csrc/matmul.cu",
+              "src/repro/kernels/matmul.py:23", db["launches"],
+              dict(mmk, max_abs_err=max(mmk["max_abs_err"],
+                                        *mm_err.values()))),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)

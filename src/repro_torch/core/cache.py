@@ -4,8 +4,25 @@ An in-process ``TuningCache`` keyed by (kernel name, kernel version, space
 hash, context signature). Given a ``cache_dir`` it also persists to
 ``tuning_db.json`` there (atomic replace); point it at a git-ignored
 directory. Every entry records the environment it was measured in — the
-card's name, the NVIDIA driver version, CUDA, ``torch`` and ``triton`` —
-and a lookup from another environment is a miss, never a silent reuse.
+card's name, the NVIDIA driver version, CUDA, ``torch`` and ``triton``.
+
+Given an ``overlay_path`` it also reads a read-only overlay, the shipped
+tuning DB (``configs/shipped_tuning_db.json``): a lookup takes the
+process's own entry first, then the overlay's, and ``put`` never writes
+the overlay. The two follow different environment rules:
+
+  * an entry the process tuned (or loaded from ``cache_dir``) is a hit
+    only in the environment it was measured in — every fingerprint field
+    the lookup names must match, so a lookup from another driver, CUDA,
+    ``torch`` or ``triton`` is a miss, never a silent reuse;
+  * an overlay entry is a hit on the card it was tuned on and by the same
+    backend, as the reference matches its shipped entries: the card's
+    name is in the key (the context's chip), and of the fingerprint only
+    ``OVERLAY_MATCH`` must match. Its versions stay in the entry as a
+    record of where it was tuned; a driver or ``torch`` update does not
+    turn the whole DB cold.
+
+Either way the stored config must still be valid for the context.
 """
 
 from __future__ import annotations
@@ -27,6 +44,9 @@ import torch
 from repro_torch.core.config_space import Config, ConfigSpace, TuningContext
 
 _DB_BASENAME = "tuning_db.json"
+
+# The fingerprint fields an overlay entry must match (the card is the key's).
+OVERLAY_MATCH = ("backend",)
 
 
 @functools.lru_cache(maxsize=1)
@@ -97,18 +117,24 @@ def cache_key(kernel_name: str, kernel_version: int, space: ConfigSpace,
 
 
 class TuningCache:
-    """key -> CacheEntry, in process; persisted when ``cache_dir`` is set."""
+    """key -> CacheEntry, in process; persisted when ``cache_dir`` is set;
+    over a read-only overlay when ``overlay_path`` names a file."""
 
-    def __init__(self, cache_dir: Optional[str] = None):
+    def __init__(self, cache_dir: Optional[str] = None,
+                 overlay_path: Optional[str] = None):
         self.cache_dir = cache_dir
         self._lock = threading.Lock()
         self._db: Dict[str, Dict[str, Any]] = {}
+        self._overlay: Dict[str, Dict[str, Any]] = {}
         if cache_dir is not None:
             try:
                 with open(os.path.join(cache_dir, _DB_BASENAME)) as f:
                     self._db = json.load(f)
             except FileNotFoundError:
                 pass
+        if overlay_path is not None and os.path.exists(overlay_path):
+            with open(overlay_path) as f:
+                self._overlay = json.load(f)
 
     def _flush(self) -> None:
         os.makedirs(self.cache_dir, exist_ok=True)
@@ -126,21 +152,25 @@ class TuningCache:
             ctx: TuningContext, *,
             require_fingerprint: Optional[Dict[str, str]] = None
             ) -> Optional[CacheEntry]:
-        """The entry for this scenario, or None when it is missing, was
-        measured in another environment, or no longer fits the space."""
+        """The entry for this scenario: the process's own if it matches
+        every field of ``require_fingerprint``, else the overlay's if it
+        matches the ``OVERLAY_MATCH`` fields; None when neither does, or
+        when the config no longer fits the space."""
         key = cache_key(kernel_name, kernel_version, space, ctx)
+        need = require_fingerprint or {}
         with self._lock:
-            raw = self._db.get(key)
-        if raw is None:
-            return None
-        entry = CacheEntry.from_json(raw)
-        if require_fingerprint and any(
-                entry.fingerprint.get(k) != v
-                for k, v in require_fingerprint.items()):
-            return None
-        if not space.is_valid(entry.config, ctx):
-            return None
-        return entry
+            found = [(self._db.get(key), need),
+                     (self._overlay.get(key),
+                      {k: v for k, v in need.items() if k in OVERLAY_MATCH})]
+        for raw, fields in found:
+            if raw is None:
+                continue
+            entry = CacheEntry.from_json(raw)
+            if any(entry.fingerprint.get(k) != v for k, v in fields.items()):
+                continue
+            if space.is_valid(entry.config, ctx):
+                return entry
+        return None
 
     def put(self, kernel_name: str, kernel_version: int, space: ConfigSpace,
             ctx: TuningContext, entry: CacheEntry) -> None:
@@ -155,11 +185,19 @@ class TuningCache:
             return len(self._db)
 
     def items(self):
-        """(key fields, entry) for every stored scenario."""
+        """(key fields, entry) for every scenario the process stored (the
+        overlay's are not among them)."""
         with self._lock:
             raw = dict(self._db)
         return [(json.loads(k), CacheEntry.from_json(v))
                 for k, v in raw.items()]
+
+    def entries(self) -> Dict[str, CacheEntry]:
+        """key -> entry over the overlay and the process's own entries, its
+        own where both hold a key."""
+        with self._lock:
+            raw = {**self._overlay, **self._db}
+        return {k: CacheEntry.from_json(v) for k, v in raw.items()}
 
 
 def make_entry(config: Config, metric: float, n_evaluated: int,

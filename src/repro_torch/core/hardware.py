@@ -8,6 +8,11 @@ H100 with 132 SMs is the SXM part, one with 114 the PCIe part. Those peaks
 assume the card's full power limit; ``nvidia-smi`` reports the limit a
 card is actually set to.
 
+``get_chip(name)`` gives the data-sheet spec of a card by the name
+``chip_from_properties`` builds ("<device name> (SXM)" or "(PCIe)"), the
+name every tuning key carries: with it a CPU test rebuilds the context of
+a shipped DB key, as the reference's ``get_chip`` does for its TPUs.
+
 ``cpu_host()`` is the spec the CPU tests use: the port never measures or
 tunes on the CPU, but shapes and spaces are checked there.
 """
@@ -62,6 +67,29 @@ def chip_from_properties(name: str, sm_count: int, smem_per_block: int,
     return ChipSpec(name=f"{name} ({part})", sm_count=sm_count,
                     smem_per_block=smem_per_block, l2_bytes=l2_bytes,
                     hbm_bytes=hbm_bytes, **peaks)
+
+
+# What an H100 of either part lets one block and the card hold (data sheet):
+# 227 KB of shared memory a block opts into, a 50 MB L2, 80 GB of HBM.
+_H100_SMEM_PER_BLOCK = 232448
+_H100_L2_BYTES = 50 * 2**20
+_H100_HBM_BYTES = 80 * 10**9
+
+
+def get_chip(name: str) -> ChipSpec:
+    """The data-sheet spec of the card ``name`` names, as
+    ``chip_from_properties`` names it. The name, the peaks and the
+    shared-memory limit (what a key and a space's validity read) equal
+    ``current_chip()``'s on that card; the L2 and device memory are the
+    data sheet's, not the card's own readings."""
+    for sm_count, peaks in _H100_PEAKS.items():
+        suffix = f" ({peaks['part']})"
+        if "H100" in name and name.endswith(suffix):
+            return chip_from_properties(
+                name[:-len(suffix)], sm_count, _H100_SMEM_PER_BLOCK,
+                _H100_L2_BYTES, _H100_HBM_BYTES)
+    raise KeyError(f"no data-sheet spec for chip {name!r} (known: H100 "
+                   "\"... (SXM)\" and \"... (PCIe)\")")
 
 
 def current_chip(device=None) -> ChipSpec:

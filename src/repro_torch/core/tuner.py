@@ -11,8 +11,13 @@ default. ``Autotuner.best_config`` is what a kernel entry point calls:
 
 ``tune`` measures with the backend (CUDA events on the card by default),
 searches the space (timing each of a kernel's canonical configs once),
-and stores the winner. Background tuning, config
-portfolios, quarantine and drift retuning are not in the port.
+and stores the winner; ``tune_many`` tunes a list of (kernel, context)
+pairs one after the other on the one card. ``default_tuner()`` reads the
+shipped H100 tuning DB (``SHIPPED_DB``, written by
+``repro_torch.configs.gen_shipped_db``) as a read-only overlay, so a fresh
+process starts warm on the scenarios it holds. Background tuning, the
+reference's concurrent compile pool, config portfolios, quarantine and
+drift retuning are not in the port.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import logging
 import os
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Tuple,
+                    Union)
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import measure as measure_lib
@@ -104,6 +110,25 @@ class Autotuner:
                  entry.n_evaluated, seconds)
         return entry
 
+    def tune_many(self, items: Iterable[Tuple[TunableKernel, TuningContext]],
+                  return_exceptions: bool = False
+                  ) -> List[Union[cache_lib.CacheEntry, Exception]]:
+        """``tune`` each (kernel, context) pair in turn: one card times one
+        config at a time. Results align with the input; with
+        ``return_exceptions`` a pair that raises gives its exception and
+        the rest still run."""
+        out: List[Union[cache_lib.CacheEntry, Exception]] = []
+        for kernel, ctx in items:
+            try:
+                out.append(self.tune(kernel, ctx))
+            except Exception as e:   # noqa: BLE001 — returned to the caller
+                if not return_exceptions:
+                    raise
+                log.warning("tuning %s ctx=%s failed: %r", kernel.name,
+                            ctx.signature(), e)
+                out.append(e)
+        return out
+
     def best_config(self, kernel: TunableKernel,
                     ctx: TuningContext) -> Config:
         entry = self.cache.get(
@@ -158,15 +183,21 @@ def _dedupe(evaluate: Callable[[Config], float], kernel: TunableKernel,
 _DEFAULT: Optional[Autotuner] = None
 _DEFAULT_LOCK = threading.Lock()
 
+SHIPPED_DB = os.path.abspath(os.path.join(
+    os.path.dirname(__file__), os.pardir, "configs",
+    "shipped_tuning_db.json"))
+
 
 def default_tuner() -> Autotuner:
     """Process-wide tuner the kernel entry points use: CUDA-event timing,
-    exhaustive search, in-process cache, ``on_miss`` from
-    ``$REPRO_ON_MISS`` (default "tune")."""
+    exhaustive search, an in-process cache over the shipped DB
+    (``SHIPPED_DB``, read-only), ``on_miss`` from ``$REPRO_ON_MISS``
+    (default "tune")."""
     global _DEFAULT
     with _DEFAULT_LOCK:
         if _DEFAULT is None:
             _DEFAULT = Autotuner(
+                cache=cache_lib.TuningCache(overlay_path=SHIPPED_DB),
                 on_miss=os.environ.get("REPRO_ON_MISS", "tune"))
         return _DEFAULT
 

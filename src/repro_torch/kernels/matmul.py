@@ -1,0 +1,147 @@
+"""Blocked matmul: the wrapper around ``csrc/matmul.cu``.
+
+The CUDA C++ kernel replaces the TPU kernel ``_matmul_kernel`` of
+``src/repro/kernels/matmul.py``: x (M, K) @ y (K, N) with an f32
+accumulator, written in x's dtype. bf16 runs on the tensor cores
+(``mma.sync``), f32 by IEEE FMAs on the CUDA cores. The source's header
+note says what bounds it on Hopper and how its design answers that. It is
+built and loaded like the other kernels (``kernels.build``).
+
+Layout: x and y row-major and contiguous, of one dtype (bfloat16 or
+float32; any other is refused by name). Ragged M, N and K are masked
+inside the kernel, so no padded copy is made.
+
+Tunables (``kernels.ops.MATMUL``): ``block_m``, ``block_n``, ``block_k``
+(the reference's names), ``num_warps`` and ``num_stages`` (the depth of the
+``cp.async`` ring). Blocks are clamped to the shape before the launch (the
+kernel never stages a tile wider than the matrix rounded up to its tile
+grid), as ``ops`` canonicalises them. Tensors on the CPU take the plain
+version ``kernels.ref.matmul``; a CUDA tensor launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import KernelLibrary
+
+BLOCK_M = (64, 128, 256)
+BLOCK_N = (64, 128, 256)
+BLOCK_K = (32, 64)
+NUM_WARPS = (4, 8)
+NUM_STAGES = (2, 3, 4)
+MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.matmul_launch.argtypes = [vp] * 3 + [i32] * 11 + [vp]
+    lib.matmul_launch.restype = i32
+    lib.matmul_smem_bytes.argtypes = [i32] * 5
+    lib.matmul_smem_bytes.restype = i32
+
+
+LIB = KernelLibrary("matmul", _declare)
+
+
+def smem_bytes(itemsize: int, block_m: int, block_n: int, block_k: int,
+               num_stages: int) -> int:
+    """Dynamic shared memory of one launch — the same formula as
+    ``matmul_smem_bytes`` in the CUDA source: ``num_stages`` copies of a
+    block_m x block_k x tile and a block_k x block_n y tile, each row
+    padded by 16 bytes."""
+    pad = 16 // itemsize
+    tiles = block_m * (block_k + pad) + block_k * (block_n + pad)
+    return num_stages * tiles * itemsize
+
+
+def regs_fit(block_m: int, block_n: int, num_warps: int) -> bool:
+    """A thread's f32 accumulators stay within 128 registers — the tiles
+    the source instantiates."""
+    return block_m * block_n <= 4096 * num_warps
+
+
+def clamp_blocks(block_m: int, block_n: int, block_k: int, M: int, N: int,
+                 K: int) -> Tuple[int, int, int]:
+    """The tile the kernel launches: each block clamped to the smallest
+    value of its domain that covers its dimension (a 200-row x takes
+    block_m 256, a K of 16 block_k 32)."""
+    def cover(block, n, domain):
+        return min([block] + [v for v in domain if v >= n])
+    return (cover(block_m, M, BLOCK_M), cover(block_n, N, BLOCK_N),
+            cover(block_k, K, BLOCK_K))
+
+
+def _copy_bytes(row_elems: int, itemsize: int, ptr: int) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that divides a row's bytes and
+    the base pointer's alignment."""
+    return next(v for v in (16, 8, 4, 2, 1)
+                if (row_elems * itemsize) % v == 0 and ptr % v == 0)
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor, *, block_m: int = 128,
+           block_n: int = 128, block_k: int = 32, num_warps: int = 4,
+           num_stages: int = 3) -> torch.Tensor:
+    """x (M, K) @ y (K, N) -> (M, N) in x's dtype, f32 accumulation."""
+    errors = [
+        (x.dim() == 2 and y.dim() == 2, "x and y must be matrices"),
+        (x.dtype == y.dtype, f"x {x.dtype} and y {y.dtype} differ"),
+    ]
+    bad = [msg for ok, msg in errors if not ok]
+    if bad:
+        raise ValueError("matmul: " + "; ".join(bad))
+    M, K = x.shape
+    K2, N = y.shape
+    if K != K2:
+        raise ValueError(f"matmul: x (M, {K}) and y ({K2}, N) disagree on K")
+    if not x.is_cuda:
+        return ref.matmul(x, y)
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"matmul: dtype {x.dtype} is not supported on the "
+                         "card (bfloat16 or float32)")
+    bm, bn, bk = clamp_blocks(block_m, block_n, block_k, M, N, K)
+    itemsize = x.element_size()
+    vx = _copy_bytes(K, itemsize, x.data_ptr())
+    vy = _copy_bytes(N, itemsize, y.data_ptr())
+    errors = [
+        (M > 0 and N > 0 and K > 0, "an empty matrix"),
+        (x.is_contiguous() and y.is_contiguous(),
+         "x and y must be contiguous"),
+        (y.is_cuda and y.device == x.device, "y on x's device"),
+        (block_m in BLOCK_M, f"block_m {block_m} (of {BLOCK_M})"),
+        (block_n in BLOCK_N, f"block_n {block_n} (of {BLOCK_N})"),
+        (block_k in BLOCK_K, f"block_k {block_k} (of {BLOCK_K})"),
+        (num_warps in NUM_WARPS, f"num_warps {num_warps} (of {NUM_WARPS})"),
+        (num_stages in NUM_STAGES,
+         f"num_stages {num_stages} (of {NUM_STAGES})"),
+        (regs_fit(bm, bn, num_warps),
+         f"block_m {bm} x block_n {bn} accumulators over {num_warps} warps "
+         f"do not fit the registers"),
+        (vx >= 2 and vy >= 2, "base pointers must be 2-byte aligned"),
+    ]
+    bad = [msg for ok, msg in errors if not ok]
+    if bad:
+        raise ValueError("matmul: " + "; ".join(bad))
+    smem = smem_bytes(itemsize, bm, bn, bk, num_stages)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"matmul: {smem} bytes of shared memory > "
+                         f"{MAX_SMEM_BYTES}")
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = LIB.load().matmul_launch(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+        _DTYPE_CODE[x.dtype], bm, bn, bk, num_warps, num_stages, vx, vy,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"matmul launch failed: cudaError {err}")
+    matmul.launches += 1
+    return out
+
+
+matmul.launches = 0

@@ -11,8 +11,9 @@ For each of the port's kernels this module declares
 
 and the entry points ``paged_decode(...)``, ``paged_verify(...)``,
 ``decode(...)``, ``ragged_decode(...)``, ``ragged_decode_kv8(...)``,
-``matmul_w8a8(...)``, ``attention(...)``, ``attention_bwd(...)``,
-``latent_decode(...)`` and ``rmsnorm(...)`` that resolve their config
+``matmul(...)``, ``matmul_w8a8(...)``, ``attention(...)``,
+``attention_bwd(...)``, ``latent_decode(...)`` and ``rmsnorm(...)`` that
+resolve their config
 through the tuner and dispatch. Every entry point accepts
 ``config=`` to bypass tuning. Tensors on the CPU need no config: the
 kernel wrappers run their plain versions there. A pool laid out with a
@@ -20,7 +21,7 @@ page size outside the space, or a verify deeper or shallower than the
 tuned depths, dispatches a fixed config with no tuning, as the reference
 does.
 
-Importing this module registers the ten kernels in ``kernels.registry``
+Importing this module registers the eleven kernels in ``kernels.registry``
 under the reference's names, scenarios and bench cases.
 """
 
@@ -42,6 +43,7 @@ from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import flash_attention_bwd as fab_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
+from repro_torch.kernels import matmul as mm_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
 from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.kernels import paged_decode as pd_kernel
@@ -878,6 +880,117 @@ def ragged_decode_kv8(q, k, v, k_scale, v_scale, *, kv_len=None,
 
 
 # ===========================================================================
+# Blocked matmul
+# ===========================================================================
+
+def _mm_smem(cfg: Config, ctx: TuningContext) -> int:
+    return mm_kernel.smem_bytes(dtype_bytes(ctx.dtype), cfg["block_m"],
+                                cfg["block_n"], cfg["block_k"],
+                                cfg["num_stages"])
+
+
+def matmul_space() -> ConfigSpace:
+    """The reference's tunables (``block_m/n/k``) at Hopper sizes, with
+    ``num_warps`` and the ``cp.async`` ring's ``num_stages`` beside them,
+    under one block's shared memory (in the context's dtype) and
+    registers."""
+    sp = ConfigSpace(
+        "matmul",
+        [
+            Param("block_m", mm_kernel.BLOCK_M),
+            Param("block_n", mm_kernel.BLOCK_N),
+            Param("block_k", mm_kernel.BLOCK_K),
+            Param("num_warps", mm_kernel.NUM_WARPS),
+            Param("num_stages", mm_kernel.NUM_STAGES),
+        ],
+        version=1,
+    )
+    sp.constrain("smem", smem_fits(_mm_smem))
+    sp.constrain("registers",
+                 lambda c, x: mm_kernel.regs_fit(c["block_m"], c["block_n"],
+                                                 c["num_warps"]))
+    return sp
+
+
+def matmul_bytes(M: int, K: int, N: int, itemsize: int) -> float:
+    """x and y read once, the output written once, in x's dtype."""
+    return float(M * K + K * N + M * N) * itemsize
+
+
+def _mm_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
+    """2·M·K·N operations at the dtype's peak, over ``matmul_bytes``."""
+    M, K = ctx.shape("x")
+    N = ctx.shape("y")[1]
+    return KernelWorkload(flops=2.0 * M * K * N,
+                          hbm_bytes=matmul_bytes(M, K, N,
+                                                 dtype_bytes(ctx.dtype)),
+                          dtype=ctx.dtype)
+
+
+def _mm_canonical(cfg: Config, ctx: TuningContext) -> Config:
+    """The tile the kernel launches (``matmul.clamp_blocks``)."""
+    M, K = ctx.shape("x")
+    N = ctx.shape("y")[1]
+    c = dict(cfg)
+    c["block_m"], c["block_n"], c["block_k"] = mm_kernel.clamp_blocks(
+        cfg["block_m"], cfg["block_n"], cfg["block_k"], M, N, K)
+    return c
+
+
+def _mm_operands(ctx: TuningContext, cfg: Optional[Config] = None,
+                 device="cuda"):
+    """x (M, K) and y (K, N), standard normals in the context's dtype, as
+    the reference draws them. Returns ((x, y), {})."""
+    dtype = getattr(torch, ctx.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return (_randn(ctx.shape("x"), dtype, gen),
+            _randn(ctx.shape("y"), dtype, gen)), {}
+
+
+def _mm_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
+    x, y = _memo_operands(("matmul", ctx.signature()),
+                          lambda: _mm_operands(ctx)[0])
+    return KernelRunner(mm_kernel.matmul, x, y, **cfg)
+
+
+MATMUL = TunableKernel(
+    name="matmul",
+    space=matmul_space(),
+    version=1,
+    workload_fn=_mm_workload,
+    make_runner=_mm_runner,
+    # the reference's fixed 256^3 tile, as a Hopper port would hard-code it:
+    # a 128 x 128 tile of 32-deep slices, four warps, three stages
+    heuristic=lambda ctx: {"block_m": 128, "block_n": 128, "block_k": 32,
+                           "num_warps": 4, "num_stages": 3},
+    canonicalize=_mm_canonical,
+)
+
+
+def matmul_context(chip, M: int, K: int, N: int,
+                   dtype: str) -> TuningContext:
+    """Tuning scenario of x (M, K) @ y (K, N) in ``dtype``, the
+    reference's shapes."""
+    return TuningContext(chip=chip, shapes={"x": (M, K), "y": (K, N)},
+                         dtype=dtype)
+
+
+def matmul(x, y, *, config: Optional[Config] = None,
+           tuner: Optional[Autotuner] = None):
+    """Autotuned blocked matmul: x (M, K) @ y (K, N) -> (M, N) in x's
+    dtype, f32 accumulation."""
+    if config is None and x.is_cuda:
+        tuner = tuner or default_tuner()
+        M, K = x.shape
+        N = y.shape[1]
+        dt = dtype_name(x.dtype)
+        config = tuner.dispatch_config(
+            MATMUL, (M, K, N, dt, x.device.index),
+            lambda: matmul_context(device_chip(x.device.index), M, K, N, dt))
+    return mm_kernel.matmul(x, y, **(config or {}))
+
+
+# ===========================================================================
 # w8a8 GEMM: int8 x int8 -> int32 on the tensor cores, fused dequant
 # ===========================================================================
 
@@ -1665,6 +1778,19 @@ def _register_builtin_kernels() -> None:
                       {"q": (16, 32, 128), "k": (16, 8, 32768, 128)},
                       dtype="bfloat16", extra={"fill": 0.5, "draft_k": 4},
                       scale="paper"),
+        ),
+    ))
+    register(KernelSpec(
+        tunable=MATMUL,
+        scenarios=("prefill", "training"),
+        reference=ref.matmul,
+        entry_point=matmul,
+        operands=_mm_operands,
+        description="Blocked matmul",
+        bench_cases=(
+            BenchCase("m256", {"x": (256, 256), "y": (256, 256)}),
+            BenchCase("mm8k", {"x": (8192, 8192), "y": (8192, 8192)},
+                      dtype="bfloat16", scale="paper"),
         ),
     ))
     register(KernelSpec(

@@ -302,6 +302,13 @@ def matmul_w8a8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     return (x.float() * xs) @ (w.float() * ws)
 
 
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ y (K, N) multiplied in f32, cast to x's dtype. On the card
+    it is IEEE f32 only while ``torch.backends.cuda.matmul.allow_tf32``
+    stays off, PyTorch's default."""
+    return (x.float() @ y.float()).to(x.dtype)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS layer norm over the last axis, f32 inside, cast back."""

@@ -21,8 +21,9 @@ A kernel registers once, as a ``KernelSpec`` bundling
 Names, scenarios and bench cases are the reference's, so cache keys and the
 registry read the same in both packages. Registration happens at import of
 ``repro_torch.kernels.ops``; this module imports it on first use. Duplicate
-names are refused. The reference's ``tuning_pairs`` and ``warm_start`` wait
-for the shipped H100 tuning DB.
+names are refused. ``tuning_pairs`` lists every (kernel, bench-case
+context) for a chip and ``warm_start`` tunes them through
+``Autotuner.tune_many``, as the reference's do.
 """
 
 from __future__ import annotations
@@ -145,3 +146,33 @@ def scenarios() -> List[str]:
 def _ensure_builtins() -> None:
     """Importing ``kernels.ops`` registers the built-in kernels."""
     from repro_torch.kernels import ops  # noqa: F401  (import side effect)
+
+
+# ---------------------------------------------------------------------------
+# Registry-driven batch tuning (warm start)
+# ---------------------------------------------------------------------------
+
+def tuning_pairs(chip: ChipSpec, scale: Optional[str] = None,
+                 scenario: Optional[str] = None
+                 ) -> List[Tuple[str, TunableKernel, TuningContext]]:
+    """Every labelled (kernel, context) pair the registry's bench cases
+    define for a chip — the work-list for ``Autotuner.tune_many``. Labels
+    are "<kernel>/<case label>", as the reference's."""
+    pairs: List[Tuple[str, TunableKernel, TuningContext]] = []
+    for spec in list_kernels(scenario):
+        for case in spec.cases(scale):
+            pairs.append((f"{spec.name}/{case.label}", spec.tunable,
+                          case.context(chip)))
+    return pairs
+
+
+def warm_start(tuner, chip: ChipSpec, scale: Optional[str] = "host",
+               scenario: Optional[str] = None) -> Dict[str, Any]:
+    """Tune the registry's bench cases through ``tuner.tune_many`` so a
+    deployment starts with a populated cache instead of tuning on the
+    serving path. Returns ``{"<kernel>/<case label>": CacheEntry |
+    Exception}``."""
+    triples = tuning_pairs(chip, scale=scale, scenario=scenario)
+    entries = tuner.tune_many([(k, ctx) for _, k, ctx in triples],
+                              return_exceptions=True)
+    return {label: e for (label, _, _), e in zip(triples, entries)}

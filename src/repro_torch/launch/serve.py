@@ -60,8 +60,9 @@ the pool (``attn_prefill_paged``), so it refuses ``--attn-impl pallas``.
 The paged path: the pool's
 page size comes from the tuner's deployment-level ``paged_decode`` config:
 the canonical scenario (``q (16, Hq, D)``, ``k (16, Hkv, 32768, D)``,
-bfloat16, page size free) of the full config's head geometry, tuned on the
-card on a miss. The run then tunes the exact contexts the engine will
+bfloat16, page size free) of the full config's head geometry, which the
+shipped H100 DB holds (``configs.gen_shipped_db``), tuned on the card on a
+miss. The run then tunes the exact contexts the engine will
 dispatch (``ServingEngine`` kernels at its pool layout), serves the
 requests with the ``paged_decode`` CUDA kernel and the ``rms_norm`` Triton
 kernel on every layer, and prints one structured run report.
@@ -102,6 +103,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.gen_shipped_db import (
+    SHIP_DTYPE, paged_deployment_shapes,
+)
 from repro_torch.core.tuner import Autotuner, default_tuner
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
@@ -116,28 +120,29 @@ from repro_torch.models.param import init_params
 from repro_torch.quant import quantize_params
 from repro_torch.serving import Request, ServingEngine
 
-# The canonical deployment scenario of the reference's shipped DB
-# (``paged_deployment_shapes``): its lookup context, tuned for this card.
-DEPLOY_BATCH = 16
-DEPLOY_TOKENS = 32768
-DEPLOY_DTYPE = "bfloat16"
-
 
 def _deploy_dtype(quant: Optional[str]) -> str:
     """The pools' dtype of a deployment lookup: ``int8`` under kv8 (q stays
     in the shipped dtype), else the shipped dtype."""
-    return lm.ForwardOpts(quant=quant).kv_dtype() or DEPLOY_DTYPE
+    return lm.ForwardOpts(quant=quant).kv_dtype() or SHIP_DTYPE
+
+
+def _deploy_dims(full_cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
+    """(B, Hq, Hkv, D, tokens) of the shipped DB's deployment scenario
+    (``gen_shipped_db.paged_deployment_shapes``)."""
+    shapes = paged_deployment_shapes(full_cfg)
+    (B, Hq, D), (_, Hkv, T, _) = shapes["q"], shapes["k"]
+    return B, Hq, Hkv, D, T
 
 
 def deployment_context(full_cfg: ModelConfig, chip,
                        quant: Optional[str] = None):
-    """The canonical ``paged_decode`` deployment scenario; under kv8 the
-    same shapes at dtype ``int8`` with q in the shipped dtype, so int8
-    pools size by their own winner."""
+    """The canonical ``paged_decode`` deployment scenario, as the shipped
+    DB holds it; under kv8 the same shapes at dtype ``int8`` with q in the
+    shipped dtype, so int8 pools size by their own winner."""
     return ops.paged_decode_context(
-        chip, DEPLOY_BATCH, full_cfg.n_heads, full_cfg.n_kv_heads,
-        full_cfg.head_dim, DEPLOY_TOKENS, _deploy_dtype(quant),
-        q_dtype=DEPLOY_DTYPE)
+        chip, *_deploy_dims(full_cfg), _deploy_dtype(quant),
+        q_dtype=SHIP_DTYPE)
 
 
 def verify_deployment_context(full_cfg: ModelConfig, chip,
@@ -146,9 +151,8 @@ def verify_deployment_context(full_cfg: ModelConfig, chip,
     size free); under kv8 at dtype ``int8`` with q in the shipped dtype,
     as the reference looks both kernels up in one int8 context."""
     return ops.paged_verify_context(
-        chip, DEPLOY_BATCH, full_cfg.n_heads, full_cfg.n_kv_heads,
-        full_cfg.head_dim, DEPLOY_TOKENS, _deploy_dtype(quant),
-        q_dtype=DEPLOY_DTYPE)
+        chip, *_deploy_dims(full_cfg), _deploy_dtype(quant),
+        q_dtype=SHIP_DTYPE)
 
 
 def pool_page_size(deploy_page_size: int, max_seq_len: int) -> int:

@@ -18,7 +18,7 @@ import torch
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import ForwardOpts
-from repro_torch.models.param import stacked_ndims
+from repro_torch.models.param import reference_leaves, stacked_ndims
 from repro_torch.optim import adamw
 from repro_torch.runtime import compression
 
@@ -62,6 +62,7 @@ def make_train_step(cfg: ModelConfig, scfg: StepConfig, model: lm.LM):
     ocfg = scfg.adamw
     named = dict(model.named_parameters())
     ndims = stacked_ndims(model, cfg)
+    leaves = reference_leaves(model, cfg)
     device = next(iter(named.values())).device
 
     def grads_of(batch):
@@ -96,7 +97,8 @@ def make_train_step(cfg: ModelConfig, scfg: StepConfig, model: lm.LM):
         else:
             grads, metrics = grads_of(batch)
         if scfg.grad_compression:
-            grads, new_ef = compression.ef_compress(grads, opt_state["ef"])
+            grads, new_ef = compression.ef_compress(grads, opt_state["ef"],
+                                                    leaves)
         params, new_adamw, om = adamw.apply_updates(
             ocfg, params, grads, opt_state["adamw"], ndims)
         metrics.update(om)

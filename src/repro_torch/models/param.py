@@ -15,7 +15,9 @@ creates them with ``empty_parameter``. From that single source:
     (or any tensors by parameter name, gradients say) restacked into the
     reference's tree, so that they compare leaf by leaf with it;
   * ``stacked_ndims(model, cfg)`` — each parameter's rank in the
-    reference's stacked tree, which AdamW's decay rule reads.
+    reference's stacked tree, which AdamW's decay rule reads;
+  * ``reference_leaves(model, cfg)`` — the reference leaf each parameter
+    sits in, which gradient compression's per-tensor scale spans.
 
 Parameters are created with ``requires_grad=False`` for serving;
 ``trainable=True`` makes them leaves that take gradients, for training.
@@ -171,6 +173,23 @@ def stacked_ndims(model: nn.Module, cfg: ModelConfig) -> Dict[str, int]:
         parts = name.split(".")
         extra = parts[0] == "layers" and stacked[int(parts[1])]
         out[name] = p.dim() + int(extra)
+    return out
+
+
+def reference_leaves(model: nn.Module, cfg: ModelConfig) -> Dict[str, str]:
+    """Each parameter's leaf in the reference's tree, by the port's
+    parameter name: ``u{i}.l{j}.<path>`` for a layer's (the layers of a
+    unit scanned ``reps > 1`` times share one stacked leaf), its own name
+    elsewhere."""
+    units = list(_unit_layers(cfg))
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            ui, _, _, li = units[int(parts[1])]
+            out[name] = ".".join([f"u{ui}", f"l{li}"] + parts[2:])
+        else:
+            out[name] = name
     return out
 
 

@@ -12,12 +12,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import Autotuner, set_default_tuner
+from repro_torch.core import Autotuner, default_tuner, set_default_tuner
 from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import flash_attention_bwd as fab_kernel
 from repro_torch.kernels import gqa_decode as gqa_kernel
 from repro_torch.kernels import gqa_decode_kv8 as kv8_kernel
+from repro_torch.kernels import matmul as mm_kernel
 from repro_torch.kernels import matmul_w8a8 as mm8_kernel
 from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.kernels import ops, ref
@@ -1218,3 +1219,67 @@ def test_mla_moe_dense_serving_on_card_matches_cpu(cuda, arch):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     finally:
         set_default_tuner(None)
+
+
+@pytest.mark.parametrize("shape", [(200, 300, 136), (37, 45, 29),
+                                   (256, 256, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_matmul_configs_match_plain(cuda, shape, dtype):
+    """A spread of valid configs (every fourth) against the plain version,
+    atol and rtol at the dtype's tolerance (a bf16 output may round the
+    other way by one unit in the last place)."""
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    y = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+    want = ref.matmul(x, y).float()
+    ctx = ops.matmul_context(ops.device_chip(cuda.index or 0), M, K, N,
+                             ops.dtype_name(dtype))
+    for cfg in ops.MATMUL.space.valid_configs(ctx)[::4]:
+        before = mm_kernel.matmul.launches
+        out = ops.matmul(x, y, config=cfg)
+        torch.cuda.synchronize()
+        assert mm_kernel.matmul.launches == before + 1
+        assert out.shape == (M, N) and out.dtype == dtype
+        torch.testing.assert_close(out.float(), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype],
+                                   msg=lambda m: f"{cfg}: {m}")
+
+
+def test_matmul_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="float16"):
+        mm_kernel.matmul(x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        mm_kernel.matmul(x, x.t())
+    with pytest.raises(ValueError, match="block_m"):
+        mm_kernel.matmul(x, x, block_m=96)
+    with pytest.raises(ValueError, match="registers"):
+        mm_kernel.matmul(torch.randn(256, 64, device=cuda),
+                         torch.randn(64, 256, device=cuda), block_m=256,
+                         block_n=256, num_warps=8)
+
+
+def test_fresh_default_tuner_hits_mm8k_in_the_shipped_db(cuda):
+    """A fresh process's tuner resolves the mm8k matmul from the shipped
+    DB with no tune, and the config launches."""
+    set_default_tuner(None)
+    try:
+        tuner = default_tuner()
+        tuner.on_miss = "error"
+        ctx = ops.matmul_context(ops.device_chip(cuda.index or 0), 8192,
+                                 8192, 8192, "bfloat16")
+        cfg = tuner.best_config(ops.MATMUL, ctx)
+        assert tuner.stats()["hits"] == 1 and tuner.stats()["tunes"] == 0
+        x = torch.randn(8192, 8192, device=cuda).bfloat16()
+        y = torch.randn(8192, 8192, device=cuda).bfloat16()
+        out = ops.matmul(x, y)
+        assert tuner.stats()["hits"] == 2 and tuner.stats()["tunes"] == 0
+        torch.testing.assert_close(out.float(), ref.matmul(x, y).float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert ops.MATMUL.space.is_valid(cfg, ctx)
+    finally:
+        set_default_tuner(None)
+

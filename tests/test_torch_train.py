@@ -391,7 +391,8 @@ def test_ef_compress_matches_reference():
     jg, je = jcompression.ef_compress(grads, ef)
     tg, te = compression.ef_compress(
         {k: torch.from_numpy(v) for k, v in grads.items()},
-        {k: torch.from_numpy(v) for k, v in ef.items()})
+        {k: torch.from_numpy(v) for k, v in ef.items()},
+        {k: k for k in grads})
     for k in grads:
         np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]),
                                    rtol=1e-6, atol=1e-9)
@@ -401,6 +402,96 @@ def test_ef_compress_matches_reference():
     assert zeros["a"].dtype == torch.float32 and not zeros["a"].any()
     with pytest.raises(NotImplementedError, match="compressed_psum_mean"):
         compression.compressed_psum_mean(torch.ones(2), "data")
+
+
+# ---------------------------------------------------------------------------
+# make_train_step: micro-batching and gradient compression
+# ---------------------------------------------------------------------------
+
+STEP_ADAMW = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def _steps_pair(ref_weights, **fields):
+    """The reference's jitted make_train_step and the port's, from the
+    reference's weights, with the same StepConfig fields and AdamW."""
+    jcfg, jparams, tree, cfg = ref_weights
+    opts = dict(attn_impl="chunked", attn_chunk=8)
+    jscfg = jsteps.StepConfig(opts=jlm.ForwardOpts(**opts),
+                              adamw=jadamw.AdamWConfig(**STEP_ADAMW),
+                              **fields)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jscfg, make_local_mesh()))
+    scfg = steps.StepConfig(opts=lm.ForwardOpts(**opts),
+                            adamw=adamw.AdamWConfig(**STEP_ADAMW), **fields)
+    model = from_numpy_tree(tree, cfg, "cpu", trainable=True)
+    params = dict(model.named_parameters())
+    return ((jstep, jparams, jsteps.init_opt_state(jcfg, jscfg, jparams)),
+            (steps.make_train_step(cfg, scfg, model), model, params,
+             steps.init_opt_state(cfg, scfg, params)))
+
+
+@pytest.mark.parametrize("accum_dtype", ["float32", "bfloat16"])
+def test_micro_batched_train_step_matches_reference(ref_weights,
+                                                    accum_dtype):
+    """micro_batches 2 (B 4 cut into two of 2, gradients summed in
+    ``accum_dtype`` and halved, metrics averaged): three steps of the
+    port's make_train_step against the reference's on the same weights and
+    batches, the loss, the metrics and every parameter after each step."""
+    cfg = ref_weights[3]
+    (jstep, jp, jstate), (step, model, params, state) = _steps_pair(
+        ref_weights, micro_batches=2, accum_dtype=accum_dtype)
+    for i in range(3):
+        batch = _batch(cfg, B=4, S=16, seed=20 + i, masked=i == 1)
+        jp, jstate, jm = jstep(jp, jstate, batch)
+        params, state, m = step(params, state, batch)
+        for k in ("loss", "ce", "acc", "tokens", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       err_msg=f"step {i} {k}", **F32_TOL)
+        _assert_trees_close(to_numpy_tree(model, cfg),
+                            jax.tree.map(np.asarray, jp), **F32_TOL)
+
+
+def test_compressed_train_step_matches_reference_on_fed_gradients(
+        ref_weights, monkeypatch):
+    """grad_compression (int8 error feedback) with micro_batches 2, both
+    steps fed the same gradients: ``lm.loss_fn`` replaced on both sides by
+    a linear loss whose gradient is a fixed numpy tree, so the steps differ
+    only in what follows the gradients (accumulation, ef_compress, AdamW).
+    The parameters and the error-feedback state agree over three steps.
+    The int8 scale spans a leaf of the reference's stacked tree (both of
+    phi4-mini-smoke's layers): scaled per layer, the two steps' updates
+    part by lr where an element rounds to 0 on one side only. Real
+    gradients are not fed: the frameworks' last-bit differences can flip
+    an int8 rounding on their own (the masked batch of the micro-batched
+    test flips one in ``embed.tok``)."""
+    _, _, tree, cfg = ref_weights
+    gtree = _grad_tree(tree, 30, scale=0.5)
+    jg = jax.tree.map(jnp.asarray, gtree)
+    tg = dict(from_numpy_tree(gtree, cfg, "cpu").named_parameters())
+
+    def jax_loss(params, jcfg, batch, opts):
+        terms = jax.tree.map(lambda p, g: jnp.sum(p * g), params, jg)
+        return sum(jax.tree.leaves(terms)), {}
+
+    def port_loss(model, cfg_, batch, opts):
+        return sum((p * tg[k].detach()).sum()
+                   for k, p in model.named_parameters()), {}
+
+    monkeypatch.setattr(jlm, "loss_fn", jax_loss)
+    monkeypatch.setattr(lm, "loss_fn", port_loss)
+    (jstep, jp, jstate), (step, model, params, state) = _steps_pair(
+        ref_weights, micro_batches=2, grad_compression=True)
+    for i in range(3):
+        batch = _batch(cfg, B=4, S=16, seed=40 + i)
+        jp, jstate, jm = jstep(jp, jstate, batch)
+        params, state, m = step(params, state, batch)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       err_msg=f"step {i} {k}", **F32_TOL)
+        _assert_trees_close(to_numpy_tree(model, cfg),
+                            jax.tree.map(np.asarray, jp), **F32_TOL)
+        _assert_trees_close(to_numpy_tree(model, cfg, state["ef"]),
+                            jax.tree.map(np.asarray, jstate["ef"]),
+                            **F32_TOL)
 
 
 # ---------------------------------------------------------------------------
