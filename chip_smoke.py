@@ -242,6 +242,9 @@ def build_kernels() -> dict:
                  if "registers" in ln or "spill" in ln]
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
                 if "Used " in ln]
+        if not regs:            # built by an earlier process: no log here
+            print(f"ptxas ({name}): built before this run")
+            continue
         print(f"ptxas ({name}, {len(regs)} instantiations): {max(regs)} "
               f"registers at most; spills: "
               f"{sorted({ln.strip() for ln in lines if 'spill' in ln})}")
@@ -1113,15 +1116,15 @@ def check_flash_attention(chip) -> float:
     return worst_all
 
 
-def time_flash(chip, cfg) -> dict:
+def time_flash(chip, cfg, shape=FLASH_SERVING) -> dict:
     """Kernel (under ``cfg``), plain version, the library yardstick and the
-    roofline bound at the serving prefill: B 8, 24/8 heads of 128, Sq =
-    Skv = 512, bf16, causal, q, k, v as the prefill's views. Yardstick
-    only, the port never calls it: SDPA with ``is_causal`` and GQA on the
-    same views."""
+    roofline bound of the causal forward at ``shape`` (B, Hq, Hkv, Sq, Skv,
+    D; by default the serving prefill: B 8, 24/8 heads of 128, Sq = Skv =
+    512), bf16, q, k, v as the prefill's views. Yardstick only, the port
+    never calls it: SDPA with ``is_causal`` and GQA on the same views."""
     from repro_torch.core import KernelWorkload
     from repro_torch.kernels import ops, ref
-    B, Hq, Hkv, Sq, Skv, D = FLASH_SERVING
+    B, Hq, Hkv, Sq, Skv, D = shape
     q, k, v = flash_case(3, B, Hq, Hkv, Sq, Skv, D, torch.bfloat16)
     bound_ms, by = bound(KernelWorkload(
         ops.flash_attention_flops(B, Hq, D,
@@ -1129,11 +1132,19 @@ def time_flash(chip, cfg) -> dict:
         ops.flash_attention_bytes(B, Hq, Hkv, Sq, Skv, D, 2), "bfloat16"),
         chip)
     fn = torch.nn.functional.scaled_dot_product_attention
+
+    def plain():
+        # one call, or one batch row a call where the f32 scores of the
+        # whole batch would not fit the card beside the rest (train4k)
+        if B * Hq * Sq * Skv * 4 <= 4 << 30:
+            return ref.flash_attention(q, k, v)
+        return [ref.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+                for b in range(B)]
+
     return {
         "kernel_ms": timer().time_runner(
             lambda: ops.attention(q, k, v, config=cfg)) * 1e3,
-        "plain_ms": timer().time_runner(
-            lambda: ref.flash_attention(q, k, v)) * 1e3,
+        "plain_ms": timer().time_runner(plain) * 1e3,
         "library_ms": timer().time_runner(
             lambda: fn(q, k, v, is_causal=True, enable_gqa=True)) * 1e3,
         "bound_ms": bound_ms, "bound_by": by, "config": cfg}
@@ -1261,9 +1272,10 @@ def tune_and_time_flash_bwd(tuner, chip, bwd_err: float) -> dict:
     """The train launcher's ``--attn-impl pallas`` contexts at the training
     step (``train.attention_contexts``: flash_attention and
     flash_attention_bwd over B 4, 512 tokens) and the registry's
-    ``train4k`` tuned; the backward timed at both beside the plain version,
-    SDPA's backward and the bound. Returns the training shape's numbers
-    with ``train4k``'s beside them."""
+    ``train4k`` tuned for both kernels; the backward and the forward timed
+    at both beside the plain version, SDPA and the bound. Returns the
+    backward's numbers at the training shape with ``train4k``'s beside
+    them."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.registry import get_kernel
@@ -1286,6 +1298,14 @@ def tune_and_time_flash_bwd(tuner, chip, bwd_err: float) -> dict:
     print(f"flash_attention_bwd at {case.label} ({dict(ctx.shapes)}, bf16, "
           f"causal): " + json.dumps(big))
     bwd[case.label] = big
+    # the forward at the same two shapes: the training step's tuned config
+    # and train4k's, tuned here
+    print("flash_attention at the training step (B 4, 24/8 heads of 128, "
+          "512 tokens, bf16, causal): "
+          + json.dumps(time_flash(chip, cfgs[0], TRAIN_SHAPE)))
+    fwd4k = tuner.best_config(ops.FLASH_ATTENTION, ctx)
+    print(f"flash_attention at {case.label} ({dict(ctx.shapes)}, bf16, "
+          f"causal): " + json.dumps(time_flash(chip, fwd4k, TRAIN4K)))
     ops.release_tuning_operands()
     return bwd
 

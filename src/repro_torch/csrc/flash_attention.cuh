@@ -1,10 +1,12 @@
-// Device helpers shared by the flash-attention kernels (flash_attention.cu,
-// the forward, and flash_attention_bwd.cu): 16-byte cp.async staging of
-// (rows, D) tiles into shared memory with the ragged edge zero-filled, and
-// the mma.sync m16n8k16 bf16 products (with their IEEE-FMA f32
-// counterparts) in the accumulator-fragment layout both kernels keep: a
-// warp holds 16 rows, lane (g, t) = (lane / 4, lane % 4) rows g and g + 8
-// at columns 8 j + 2t and + 1 of each 8-column tile j.
+// Device helpers of the f32 branch of the flash-attention kernels
+// (flash_attention.cu, the forward, and flash_attention_bwd.cu): 16-byte
+// cp.async staging of (rows, D) tiles into shared memory with the ragged
+// edge zero-filled, and the products q.k and p.v with IEEE fmaf on the CUDA
+// cores in the mma.sync accumulator-fragment layout: a warp holds 16 rows,
+// lane (g, t) = (lane / 4, lane % 4) rows g and g + 8 at columns 8 j + 2t
+// and + 1 of each 8-column tile j. The bf16 branch's wgmma, TMA and
+// mbarrier helpers are in hopper.cuh; the row reductions and stores below
+// serve both.
 
 #pragma once
 
@@ -56,65 +58,6 @@ __device__ __forceinline__ void stage(T* dst, const T* src, long long stride,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
-// row l % 8 of matrix l / 8 and receives, of each matrix, row l / 4 at
-// columns 2 (l % 4) and + 1 (with .trans: column l / 4 at rows 2 (l % 4)
-// and + 1), the mma.sync fragment layouts.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// s (16 rows x NT 8-key tiles, accumulator layout) = q rows . k rows, over
-// the dp staged columns. Lane (g, t) = (lane / 4, lane % 4) holds rows g
-// and g + 8 at keys j * 8 + 2t and + 1 of tile j.
-template <int NT>
-__device__ __forceinline__ void qk(float (&s)[NT][4], const bf16* qs,
-                                   const bf16* ks, int rs, int dp, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-  // q: matrices rows 0-7 and 8-15 at columns k0 and k0 + 8 (a0..a3); k:
-  // keys j*8 and (j+1)*8 + 0..7 at columns k0 and k0 + 8 (b of tiles j and
-  // j + 1)
-  const bf16* qrow = qs + ((mi & 1) * 8 + ri) * rs + (mi >> 1) * 8;
-  const bf16* krow = ks + ((mi >> 1) * 8 + ri) * rs + (mi & 1) * 8;
-  for (int k0 = 0; k0 < dp; k0 += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, qrow + k0);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, krow + j * 8 * rs + k0);
-      mma_bf16(s[j], a, b);
-      mma_bf16(s[j + 1], a, b + 2);
-    }
-  }
-}
-
 template <int NT>
 __device__ __forceinline__ void qk(float (&s)[NT][4], const float* qs,
                                    const float* ks, int rs, int dp,
@@ -142,43 +85,6 @@ __device__ __forceinline__ void qk(float (&s)[NT][4], const float* qs,
 
 // o (16 rows x DT 8-column tiles of D, accumulator layout) += p . v, p the
 // probabilities in s's layout.
-// x and y rounded to bf16 (hi) and what the rounding left (lo), packed.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const float xh = __bfloat162float(__float2bfloat16_rn(x));
-  const float yh = __bfloat162float(__float2bfloat16_rn(y));
-  hi = pack_bf16(xh, yh);
-  lo = pack_bf16(x - xh, y - yh);
-}
-
-template <int NT, int DT>
-__device__ __forceinline__ void pv(float (&o)[DT][4], const float (&s)[NT][4],
-                                   const bf16* vs, int rs, int dp, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {  // 16 keys a step
-    uint32_t hi[4], lo[4];
-    split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-    split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-    split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-    // matrices: keys kk*16 + 0..7 and + 8..15, columns n0 + 0..7 and + 8..15
-    const bf16* vrow = vs + (kk * 16 + (mi & 1) * 8 + ri) * rs + (mi >> 1) * 8;
-#pragma unroll
-    for (int np = 0; np < DT / 2; ++np) {
-      if (np * 16 < dp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, vrow + np * 16);
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(o[2 * np], hi, b0);
-        mma_bf16(o[2 * np], lo, b0);
-        mma_bf16(o[2 * np + 1], hi, b1);
-        mma_bf16(o[2 * np + 1], lo, b1);
-      }
-    }
-  }
-}
-
 template <int NT, int DT>
 __device__ __forceinline__ void pv(float (&o)[DT][4], const float (&s)[NT][4],
                                    const float* vs, int rs, int dp, int lane) {

@@ -1140,37 +1140,52 @@ def matmul_w8a8(x, w, x_scale, w_scale, *, config: Optional[Config] = None,
 
 def _flash_smem(cfg: Config, ctx: TuningContext) -> int:
     return fa_kernel.smem_bytes(ctx.shape("q")[3], dtype_bytes(ctx.dtype),
-                                cfg["block_q"], cfg["block_kv"])
+                                cfg["block_q"], cfg["block_kv"],
+                                cfg["num_stages"])
+
+
+def _stages_fit(cfg: Config, ctx: TuningContext) -> bool:
+    """bf16 rings take 2 to 4 stages; the f32 kernels double-buffer."""
+    return dtype_bytes(ctx.dtype) == 2 or cfg["num_stages"] == 2
 
 
 def flash_attention_space() -> ConfigSpace:
     """The reference's tunables (``block_q``, ``block_kv``) at the sizes a
-    Hopper block takes, with ``num_warps`` beside them (each warp owns 16
-    or 32 of the block's rows) and ``smem_fits`` in place of
-    ``vmem_fits``. The TPU's ``pad_head_dim`` is a lane-padding rule that
-    does not carry over: the kernel masks D itself."""
+    Hopper block takes, with ``num_warps`` and ``num_stages`` beside them
+    and ``smem_fits`` in place of ``vmem_fits``. bf16 (wgmma): a
+    warpgroup of 4 warps per 64 rows (``block_q`` 64 or 128, ``num_warps``
+    block_q / 16), ``block_kv`` 64 or 128, a ring of 2-4 K/V stages. f32
+    (IEEE FMAs): each warp owns 16 or 32 of the block's rows, two stages.
+    The TPU's ``pad_head_dim`` is a lane-padding rule that does not carry
+    over: the kernels mask D themselves."""
     sp = ConfigSpace(
         "flash_attention",
         [
             Param("block_q", fa_kernel.BLOCK_Q),
             Param("block_kv", fa_kernel.BLOCK_KV),
             Param("num_warps", fa_kernel.NUM_WARPS),
+            Param("num_stages", fa_kernel.NUM_STAGES),
         ],
-        version=1,
+        version=2,
     )
     sp.constrain("smem", smem_fits(_flash_smem))
     sp.constrain("registers",
                  lambda c, x: fa_kernel.regs_fit(x.shape("q")[3],
                                                  c["block_q"], c["block_kv"],
-                                                 c["num_warps"]))
-    # Tiles past the sequences (rounded up to the smallest tile) only add
-    # masked rows and keys, as the reference's block<=seq constraints say.
+                                                 c["num_warps"],
+                                                 dtype_bytes(x.dtype)))
+    sp.constrain("stages", _stages_fit)
+    # Tiles past the sequences (rounded up to the smallest tile the dtype
+    # takes) only add masked rows and keys, as the reference's block<=seq
+    # constraints say.
     sp.constrain("block_q<=seq_q",
-                 lambda c, x: c["block_q"] <= max(16, _rup(x.shape("q")[2],
-                                                           16)))
+                 lambda c, x: c["block_q"] <= max(
+                     64 if dtype_bytes(x.dtype) == 2 else 16,
+                     _rup(x.shape("q")[2], 16)))
     sp.constrain("block_kv<=seq_kv",
-                 lambda c, x: c["block_kv"] <= max(32, _rup(x.shape("k")[2],
-                                                            32)))
+                 lambda c, x: c["block_kv"] <= max(
+                     64 if dtype_bytes(x.dtype) == 2 else 32,
+                     _rup(x.shape("k")[2], 32)))
     return sp
 
 
@@ -1221,9 +1236,19 @@ def _flash_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
 
 
 def _flash_heuristic(ctx: TuningContext) -> Config:
-    """What a port of the flash_attn-v2 default tile would hard-code: 64
-    query rows over four warps, 64 keys a tile."""
-    return {"block_q": 64, "block_kv": 64, "num_warps": 4}
+    """bf16: 128 rows over two warpgroups and 128 keys a tile in a
+    two-stage ring (the fastest on the card at the prefill, the training
+    step and ``train4k``), where D's accumulators leave room and the
+    sequences are that long; else 64 and 64. f32: what a port of
+    the flash_attn-v2 default tile would hard-code, 64 query rows over four
+    warps, 64 keys a tile."""
+    if dtype_bytes(ctx.dtype) == 2:
+        for bq, bkv in ((128, 128), (128, 64), (64, 128)):
+            cfg = {"block_q": bq, "block_kv": bkv, "num_warps": bq // 16,
+                   "num_stages": 2}
+            if FLASH_ATTENTION.space.is_valid(cfg, ctx):
+                return cfg
+    return {"block_q": 64, "block_kv": 64, "num_warps": 4, "num_stages": 2}
 
 
 def _attention_operands(ctx: TuningContext, cfg: Optional[Config] = None,
@@ -1251,7 +1276,7 @@ def _flash_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
 FLASH_ATTENTION = TunableKernel(
     name="flash_attention",
     space=flash_attention_space(),
-    version=1,
+    version=2,
     workload_fn=_flash_workload,
     make_runner=_flash_runner,
     heuristic=_flash_heuristic,
@@ -1297,36 +1322,45 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 def _flash_bwd_smem(cfg: Config, ctx: TuningContext) -> int:
     return fab_kernel.smem_bytes(ctx.shape("q")[3], dtype_bytes(ctx.dtype),
-                                 cfg["block_q"], cfg["block_kv"])
+                                 cfg["block_q"], cfg["block_kv"],
+                                 cfg["num_stages"])
 
 
 def flash_attention_bwd_space() -> ConfigSpace:
     """The reference's tunables (``block_q``, ``block_kv``) at the sizes a
-    Hopper block takes, with ``num_warps`` beside them, ``smem_fits`` in
-    place of ``vmem_fits`` and the register fit of both kernels (a warp
+    Hopper block takes, with ``num_warps`` and ``num_stages`` beside them,
+    ``smem_fits`` in place of ``vmem_fits`` and the register fit of both
+    kernels. bf16 (wgmma): ``block_q`` and ``block_kv`` 64 or 128 (a
+    warpgroup of 4 warps per 64 keys in the dkv kernel and per 64
+    rows in the dq kernel), a ring of 2-4 stages. f32 (IEEE FMAs): a warp
     owns 16 or 32 keys in the dkv kernel and 16 or 32 query rows in the dq
-    kernel). Kept apart from the forward's space, as the reference keeps
-    it: the dkv kernel inverts the forward's reuse."""
+    kernel, two stages. Kept apart from the forward's space, as the
+    reference keeps it: the dkv kernel inverts the forward's reuse."""
     sp = ConfigSpace(
         "flash_attention_bwd",
         [
             Param("block_q", fab_kernel.BLOCK_Q),
             Param("block_kv", fab_kernel.BLOCK_KV),
             Param("num_warps", fab_kernel.NUM_WARPS),
+            Param("num_stages", fab_kernel.NUM_STAGES),
         ],
-        version=1,
+        version=2,
     )
     sp.constrain("smem", smem_fits(_flash_bwd_smem))
     sp.constrain("registers",
                  lambda c, x: fab_kernel.regs_fit(x.shape("q")[3],
                                                   c["block_q"], c["block_kv"],
-                                                  c["num_warps"]))
+                                                  c["num_warps"],
+                                                  dtype_bytes(x.dtype)))
+    sp.constrain("stages", _stages_fit)
     sp.constrain("block_q<=seq_q",
-                 lambda c, x: c["block_q"] <= max(16, _rup(x.shape("q")[2],
-                                                           16)))
+                 lambda c, x: c["block_q"] <= max(
+                     64 if dtype_bytes(x.dtype) == 2 else 16,
+                     _rup(x.shape("q")[2], 16)))
     sp.constrain("block_kv<=seq_kv",
-                 lambda c, x: c["block_kv"] <= max(16, _rup(x.shape("k")[2],
-                                                            16)))
+                 lambda c, x: c["block_kv"] <= max(
+                     64 if dtype_bytes(x.dtype) == 2 else 16,
+                     _rup(x.shape("k")[2], 16)))
     return sp
 
 
@@ -1358,15 +1392,18 @@ def _flash_bwd_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
 
 
 def _flash_bwd_heuristic(ctx: TuningContext) -> Config:
-    """64 query rows and 64 keys over four warps (one 16-row tile a warp in
-    each kernel); 32 and 32 over two warps where D's accumulators leave no
-    room for that or the sequences are shorter."""
-    D = ctx.shape("q")[3]
-    for cfg in ({"block_q": 64, "block_kv": 64, "num_warps": 4},
-                {"block_q": 32, "block_kv": 32, "num_warps": 2}):
+    """bf16: 64 query rows and 64 keys (one warpgroup in each kernel, two
+    blocks an SM), two stages, the fastest on the card at the training
+    step and ``train4k``. f32: 64 and 64 over four warps (one 16-row tile
+    a warp in each kernel); 32 and 32 over two warps where D's
+    accumulators leave no room for that or the sequences are shorter."""
+    cands = ({"block_q": 64, "block_kv": 64, "num_warps": 4},
+             {"block_q": 32, "block_kv": 32, "num_warps": 2})
+    for cfg in cands:
+        cfg = dict(cfg, num_stages=2)
         if FLASH_ATTENTION_BWD.space.is_valid(cfg, ctx):
             return cfg
-    return {"block_q": 16, "block_kv": 16, "num_warps": 1}
+    return {"block_q": 16, "block_kv": 16, "num_warps": 1, "num_stages": 2}
 
 
 def _attention_bwd_operands(ctx: TuningContext,
@@ -1392,7 +1429,7 @@ def _flash_bwd_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
 FLASH_ATTENTION_BWD = TunableKernel(
     name="flash_attention_bwd",
     space=flash_attention_bwd_space(),
-    version=1,
+    version=2,
     workload_fn=_flash_bwd_workload,
     make_runner=_flash_bwd_runner,
     heuristic=_flash_bwd_heuristic,

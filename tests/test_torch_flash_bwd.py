@@ -150,30 +150,37 @@ def test_flash_function_matches_reference_and_autograd():
 def test_space_bounds_and_heuristic():
     """The space's valid configs are the ones the kernels instantiate
     (the register fit of both kernels, shared memory within the card's
-    limit, tiles within the sequences), none at D past 128; the heuristic
-    is valid; the bound's formulas at ``train4k``."""
+    limit, tiles within the sequences, two stages in f32), none at D past
+    128; the heuristic is valid; the bound's formulas at ``train4k``."""
     chip = cpu_host()
+    assert ops.FLASH_ATTENTION_BWD.space.version == 2
     for D, dt in ((128, "bfloat16"), (96, "bfloat16"), (64, "float32"),
                   (120, "float32")):
         ctx = ops.attention_context(chip, 4, 24, 8, 512, 512, D, dt)
         configs = ops.FLASH_ATTENTION_BWD.space.valid_configs(ctx)
         assert configs
+        item = 2 if dt == "bfloat16" else 4
         for cfg in configs:
             assert fab_kernel.regs_fit(D, cfg["block_q"], cfg["block_kv"],
-                                       cfg["num_warps"])
+                                       cfg["num_warps"], item)
             assert fab_kernel.smem_bytes(
-                D, 2 if dt == "bfloat16" else 4, cfg["block_q"],
-                cfg["block_kv"]) <= chip.smem_per_block
+                D, item, cfg["block_q"], cfg["block_kv"],
+                cfg["num_stages"]) <= chip.smem_per_block
+            assert item == 2 or cfg["num_stages"] == 2
         heur = ops.FLASH_ATTENTION_BWD.default_config(ctx)
         assert heur in configs
     ctx = ops.attention_context(chip, 4, 24, 8, 512, 512, 128, "bfloat16")
-    assert {"block_q": 64, "block_kv": 64, "num_warps": 4} in \
-        ops.FLASH_ATTENTION_BWD.space.valid_configs(ctx)
+    assert ops.FLASH_ATTENTION_BWD.default_config(ctx) == {
+        "block_q": 64, "block_kv": 64, "num_warps": 4, "num_stages": 2}
     big = ops.attention_context(chip, 1, 2, 1, 64, 64, 160, "bfloat16")
     assert not ops.FLASH_ATTENTION_BWD.space.valid_configs(big)
-    short = ops.attention_context(chip, 1, 2, 1, 20, 20, 64, "bfloat16")
+    short = ops.attention_context(chip, 1, 2, 1, 20, 20, 64, "float32")
     assert all(c["block_q"] <= 32 and c["block_kv"] <= 32 for c in
                ops.FLASH_ATTENTION_BWD.space.valid_configs(short))
+    short16 = ops.attention_context(chip, 1, 2, 1, 20, 20, 64, "bfloat16")
+    assert {(c["block_q"], c["block_kv"]) for c in
+            ops.FLASH_ATTENTION_BWD.space.valid_configs(short16)} == \
+        {(64, 64)}
     pairs = ops.attention_pairs(4096, 4096, True)
     assert pairs == 8390656
     assert ops.flash_attention_bwd_flops(8, 32, 128, pairs) == \

@@ -957,11 +957,22 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         fa_kernel.flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="registers"):
         fa_kernel.flash_attention(q, k, v, block_q=128, num_warps=1)
+    with pytest.raises(ValueError, match="registers"):
+        fa_kernel.flash_attention(q, k, v, block_kv=32)
+    with pytest.raises(ValueError, match="num_stages"):
+        fa_kernel.flash_attention(q.float(), k.float(), v.float(),
+                                  num_stages=3)
+    # a row stride TMA cannot take (a (B, S, H, D + 4) buffer cut to D)
+    padded = torch.zeros(1, 32, 4, 68, dtype=torch.bfloat16,
+                         device=cuda)[..., :64].transpose(1, 2)
+    with pytest.raises(ValueError, match="q: strides"):
+        fa_kernel.flash_attention(padded, k, v)
     lib = fa_kernel.LIB.load()
-    for D, item, bq, bkv in ((128, 2, 64, 64), (120, 2, 128, 128),
-                             (96, 4, 32, 32), (256, 2, 16, 32)):
-        assert lib.flash_attention_smem_bytes(D, item, bq, bkv) == \
-            fa_kernel.smem_bytes(D, item, bq, bkv)
+    for D, item, bq, bkv, st in ((128, 2, 64, 64, 2), (120, 2, 128, 128, 3),
+                                 (96, 4, 32, 32, 2), (256, 2, 64, 64, 4),
+                                 (160, 2, 128, 64, 3)):
+        assert lib.flash_attention_smem_bytes(D, item, bq, bkv, st) == \
+            fa_kernel.smem_bytes(D, item, bq, bkv, st)
     # the C entry refuses what its templates do not instantiate
     o = torch.empty_like(q)
     lse = torch.empty(1, 4, 32, device=cuda)
@@ -970,7 +981,7 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), 1, 4, 2, 32, 32, 64, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 0.125, 1, 0, 0,
-        64, 256, 2, 1, stream) != 0
+        64, 256, 4, 2, 1, stream) != 0
 
 
 # flash_attention_bwd's cases, FLASH_CASES' columns: phi4-mini's heads at a
@@ -1046,23 +1057,34 @@ def test_flash_attention_bwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="registers"):
         fab_kernel.flash_attention_bwd(q, k, v, o, lse, o, block_q=64,
                                        block_kv=32, num_warps=4)
+    with pytest.raises(ValueError, match="num_stages"):
+        fab_kernel.flash_attention_bwd(q, k, v, o, lse, o, num_stages=5)
+    # a row stride TMA cannot take (a (B, S, H, D + 4) buffer cut to D)
+    padded = torch.zeros(1, 32, 4, 68, dtype=torch.bfloat16,
+                         device=cuda)[..., :64].transpose(1, 2)
+    with pytest.raises(ValueError, match="do: strides"):
+        fab_kernel.flash_attention_bwd(q, k, v, o, lse, padded)
     lib = fab_kernel.LIB.load()
-    for D, item, bq, bkv in ((128, 2, 64, 64), (120, 2, 32, 16),
-                             (96, 4, 32, 32), (64, 4, 128, 128)):
-        assert lib.flash_attention_bwd_smem_bytes(D, item, bq, bkv) == \
-            fab_kernel.smem_bytes(D, item, bq, bkv)
-    # the C entry refuses what its templates do not instantiate (rt 1 with
-    # block_q 128 at D 128: 256 accumulators)
-    dq = torch.empty_like(q)
+    for D, item, bq, bkv, st in ((128, 2, 64, 64, 2), (120, 2, 64, 128, 3),
+                                 (96, 4, 32, 32, 2), (64, 4, 128, 128, 2),
+                                 (64, 2, 128, 128, 4)):
+        assert lib.flash_attention_bwd_smem_bytes(D, item, bq, bkv, st) == \
+            fab_kernel.smem_bytes(D, item, bq, bkv, st)
+    # the C entry refuses what its templates do not instantiate (block_q
+    # 128 at D 128: the dkv kernel's dk, dv, s^T and dp^T past 192)
+    q2, k2, v2 = flash_operands(2, 1, 4, 2, 32, 32, 128, torch.bfloat16,
+                                cuda)
+    o2, lse2 = ref.flash_attention(q2, k2, v2, return_lse=True)
+    dq = torch.empty_like(q2)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    delta = torch.zeros_like(lse)
+    delta = torch.zeros_like(lse2)
     assert lib.flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dq.data_ptr(),
-        dq.data_ptr(), 1, 4, 2, 32, 32, 128, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], 0.1, 1, 0, 0, 128, 64, 4, 1,
-        stream) != 0
+        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), o2.data_ptr(),
+        lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dq.data_ptr(),
+        dq.data_ptr(), 1, 4, 2, 32, 32, 128, *q2.stride()[:3],
+        *k2.stride()[:3], *v2.stride()[:3], *o2.stride()[:3],
+        *q2.stride()[:3], *k2.stride()[:3], *v2.stride()[:3], 32, 0.1, 1, 0,
+        0, 128, 64, 4, 2, 1, stream) != 0
 
 
 def test_flash_autograd_function_on_card_matches_plain(cuda):

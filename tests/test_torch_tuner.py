@@ -867,32 +867,39 @@ def test_matmul_w8a8_operands_and_the_scale_gran_pin(monkeypatch):
 
 
 def test_flash_attention_space_workload_and_bound():
-    """flash_attention's Hopper space: at the serving prefill (B 8, 24/8
-    heads of 128, 512 tokens, bf16) 15 valid configs, each within shared
-    memory and the registers the source instantiates (a warp owns 16 or
-    32 rows); the byte bound of 0.0201 ms and 12.91 GFLOP the causal mask
-    admits (PERF.md row 9); f32 and D 96, 120 and 256 contexts; blocks
-    past short sequences pruned."""
+    """flash_attention's Hopper space (version 2): at the serving prefill
+    (B 8, 24/8 heads of 128, 512 tokens, bf16) 10 valid configs of the
+    wgmma kernel (a consumer warpgroup per 64 rows, 64- or 128-key tiles,
+    2-4 stages), each within shared memory and the registers the source
+    instantiates; the byte bound of 0.0201 ms and 12.91 GFLOP the causal
+    mask admits (PERF.md row 9); f32 (one warp per 16 or 32 rows, two
+    stages) and D 96, 120, 160 and 256 contexts; blocks past short
+    sequences pruned down to the dtype's smallest tile."""
     from repro_torch.kernels import flash_attention as fa_kernel
     space = ops.FLASH_ATTENTION.space
+    assert space.version == ops.FLASH_ATTENTION.version == 2
     ctx = ops.attention_context(H100_SXM, 8, 24, 8, 512, 512, 128,
                                 "bfloat16")
     assert ctx.extra == {"causal": True, "window": 0}
     valid = space.valid_configs(ctx)
     assert valid == _valid_by_brute_force(space, ctx)
-    assert len(valid) == 15
+    assert len(valid) == 10
     for c in valid:
         assert ops._flash_smem(c, ctx) <= H100_SXM.smem_per_block
         assert fa_kernel.regs_fit(128, c["block_q"], c["block_kv"],
-                                  c["num_warps"])
-        assert c["block_q"] // c["num_warps"] in (16, 32)
-    assert {c["block_kv"] for c in valid} == {32, 64, 128}
+                                  c["num_warps"], 2)
+        assert c["num_warps"] == c["block_q"] // 16
+    assert {c["block_kv"] for c in valid} == {64, 128}
+    assert {c["num_stages"] for c in valid} == {2, 3, 4}
     heur = ops.FLASH_ATTENTION.default_config(ctx)
-    assert heur == {"block_q": 64, "block_kv": 64, "num_warps": 4}
-    assert space.why_invalid(dict(heur, block_kv=256), ctx) in (
-        "smem", "registers")
-    assert space.why_invalid(dict(heur, num_warps=1), ctx) == "registers"
-    assert fa_kernel.smem_bytes(128, 2, 64, 64) == (64 + 256) * 272
+    assert heur == {"block_q": 128, "block_kv": 128, "num_warps": 8,
+                    "num_stages": 2}
+    assert space.why_invalid(dict(heur, num_stages=4), ctx) == "smem"
+    assert space.why_invalid(dict(heur, num_warps=4), ctx) == "registers"
+    assert space.why_invalid(dict(heur, block_kv=32), ctx) == "registers"
+    assert fa_kernel.smem_bytes(128, 2, 128, 128, 3) == \
+        1280 + 2 * 128 * (128 + 6 * 128) == 230656
+    assert fa_kernel.smem_bytes(128, 4, 64, 64) == (64 + 256) * 528
     assert fa_kernel.smem_bytes(120, 4, 16, 32) == (16 + 128) * 528
     w = ops.FLASH_ATTENTION.workload_fn(heur, ctx)
     assert w.hbm_bytes == ops.flash_attention_bytes(8, 24, 8, 512, 512, 128,
@@ -901,23 +908,33 @@ def test_flash_attention_space_workload_and_bound():
     assert w.flops == 4 * 8 * 24 * 128 * 131328 == 12910067712
     t, by = roofline_seconds(w, H100_SXM)
     assert by == "bytes" and t * 1e3 == pytest.approx(0.0201498, rel=1e-5)
-    # the registry's f32 s512 case, and the head dims of phi3-mini (96)
-    # and h2o-danube (120), unpadded
+    # the registry's f32 s512 case, the head dims of phi3-mini (96) and
+    # h2o-danube (120), unpadded, stablelm's 160 and 256 (64-key tiles
+    # only: the o accumulators leave no room for 128)
     for shapes, dtype, n in (((1, 4, 512, 128, 1), "float32", 11),
-                             ((8, 32, 512, 96, 32), "bfloat16", 15),
-                             ((2, 32, 300, 120, 8), "bfloat16", 15),
-                             ((1, 8, 64, 256, 8), "float32", 3)):
+                             ((8, 32, 512, 96, 32), "bfloat16", 10),
+                             ((2, 32, 300, 120, 8), "bfloat16", 10),
+                             ((8, 32, 4096, 160, 8), "bfloat16", 5),
+                             ((1, 8, 64, 256, 8), "float32", 3),
+                             ((1, 8, 512, 256, 8), "bfloat16", 3)):
         B, Hq, S, D, Hkv = shapes
         c2 = ops.attention_context(H100_SXM, B, Hq, Hkv, S, S, D, dtype)
         got = space.valid_configs(c2)
         assert len(got) == n, (shapes, dtype, got)
         assert got == _valid_by_brute_force(space, c2)
+        assert ops.FLASH_ATTENTION.default_config(c2) in got
+        if dtype == "float32":
+            assert {c["num_stages"] for c in got} == {2}
     short = ops.attention_context(H100_SXM, 1, 4, 1, 20, 40, 64, "float32",
                                   window=8)
     assert short.extra == {"causal": True, "window": 8}
     assert {(c["block_q"], c["block_kv"])
             for c in space.valid_configs(short)} <= {(16, 32), (16, 64),
                                                      (32, 32), (32, 64)}
+    short16 = ops.attention_context(H100_SXM, 1, 4, 1, 20, 40, 64,
+                                    "bfloat16", window=8)
+    assert {(c["block_q"], c["block_kv"])
+            for c in space.valid_configs(short16)} == {(64, 64)}
 
 
 @pytest.mark.parametrize("Sq,Skv,causal,window,q_offset", [
