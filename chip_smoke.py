@@ -1037,9 +1037,10 @@ def time_matmul(chip, M, K, N, dtype, cfg) -> dict:
 
 # flash_attention's cases, (label, B, Hq, Hkv, Sq, Skv, D, dtype, causal,
 # window, q_offset): the serving prefill, ragged lengths, groups 1, 3 and 4,
-# D 96 and 120, windows of 16 and 100, a query offset, non-causal, f32 at
-# F32_TOL (TF32 off), and rows that see no key inside running tiles; every
-# case with its lse
+# D 96 and 120, D 160 at stablelm's 32/8 heads and D 256 (three and four
+# 64-column blocks of D, TMA zero-filling D 160's last), windows of 16 and
+# 100, a query offset, non-causal, f32 at F32_TOL (TF32 off), and rows that
+# see no key inside running tiles; every case with its lse
 FLASH_SERVING = (8, 24, 8, 512, 512, 128)
 FLASH_CASES = [
     ("serving", *FLASH_SERVING, torch.bfloat16, True, None, 0),
@@ -1057,6 +1058,9 @@ FLASH_CASES = [
      torch.float32, False, 100, 30),
     ("rows with no visible key", 1, 8, 2, 64, 40, 128, torch.bfloat16, True,
      16, 40),
+    ("stablelm D 160 ragged", 1, 32, 8, 300, 300, 160, torch.bfloat16, True,
+     None, 0),
+    ("D 256 group 2", 1, 4, 2, 200, 200, 256, torch.bfloat16, True, None, 0),
 ]
 
 

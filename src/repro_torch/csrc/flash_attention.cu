@@ -80,7 +80,6 @@ constexpr int kMaxSmem = 232448;  // 227 KB opt-in per block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kEmptyLse = -1e30f;  // lse of a row with no visible key
-constexpr int kPTerms = 2;           // bf16 terms of P in p.v
 
 // ------------------------------------------------------------- f32 branch
 
@@ -507,12 +506,7 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
   };
-  auto pack = [&] {  // P's A fragments, two bf16 terms (or one)
-    if constexpr (kPTerms == 2)
-      split_frags<BKV>(sacc, phi, plo);
-    else
-      term_frags<BKV>(sacc, phi, 0);
-  };
+  auto pack = [&] { split_frags<BKV>(sacc, phi, plo); };  // P's two terms
   // o += p.v of tile it, issued and committed
   auto issue_pv = [&](int it) {
     mbar_wait(v_full + it % a.stages, (it / a.stages) & 1);
@@ -524,7 +518,7 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1)
       for (int c = 0; c < NB; ++c) {
         const uint64_t dv = desc_mnmajor(v_base + c * BKV * 128 + kk * 2048);
         wgmma_rs64(o[c], phi[kk], dv);
-        if constexpr (kPTerms == 2) wgmma_rs64(o[c], plo[kk], dv);
+        wgmma_rs64(o[c], plo[kk], dv);
       }
     wgmma_commit();
   };

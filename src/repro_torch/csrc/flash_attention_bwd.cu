@@ -81,7 +81,6 @@ namespace {
 
 constexpr int kMaxSmem = 232448;  // 227 KB opt-in per block
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kPTerms = 2;  // bf16 terms of p and ds in their products
 
 // ------------------------------------------------------------- f32 branch
 
@@ -694,10 +693,7 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1)
       auto product = [&](const float (&x)[NS], float (&acc)[NB][32],
                          uint32_t b_base) {
         uint32_t fh[BQ / 16][4], fl[BQ / 16][4];
-        if constexpr (kPTerms == 2)
-          split_frags<BQ>(x, fh, fl);
-        else
-          term_frags<BQ>(x, fh, 0);
+        split_frags<BQ>(x, fh, fl);
 #pragma unroll
         for (int c = 0; c < NB; ++c) fence_acc(acc[c]);
         wgmma_fence();
@@ -708,7 +704,7 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1)
             const uint64_t db =
                 desc_mnmajor(b_base + c * BQ * 128 + kk * 2048);
             wgmma_rs64(acc[c], fh[kk], db);
-            if constexpr (kPTerms == 2) wgmma_rs64(acc[c], fl[kk], db);
+            wgmma_rs64(acc[c], fl[kk], db);
           }
         wgmma_commit();
         wgmma_wait<0>();
@@ -912,7 +908,7 @@ __global__ void __launch_bounds__(128 * W, W == 1 ? 2 : 1)
       // dq += ds.k, one product group a bf16 term of ds, so one term's
       // fragments are live at a time
 #pragma unroll
-      for (int term = 0; term < kPTerms; ++term) {
+      for (int term = 0; term < 2; ++term) {
         uint32_t f[BKV / 16][4];
         term_frags<BKV>(dpa, f, term);
 #pragma unroll

@@ -891,7 +891,9 @@ def test_w8a8_dense_serving_on_card_matches_cpu(cuda):
 # (label, B, Hq, Hkv, Sq, Skv, D, dtype, causal, window, q_offset): bf16
 # causal at phi4-mini's heads; f32 with a window on ragged lengths (group
 # 4); D 120 with a window of 16 (group 3); f32 D 96 with a query offset;
-# bf16 rows past a window's reach (no visible key) inside running tiles
+# bf16 rows past a window's reach (no visible key) inside running tiles;
+# bf16 D 160 at stablelm's 32/8 heads and D 256 on ragged lengths (three
+# and four 64-column blocks of D)
 FLASH_CASES = [
     ("bf16-causal", 2, 6, 2, 256, 256, 128, torch.bfloat16, True, None, 0),
     ("f32-window", 2, 4, 1, 200, 333, 64, torch.float32, True, 100, 0),
@@ -899,6 +901,8 @@ FLASH_CASES = [
      0),
     ("f32-d96-offset", 2, 3, 3, 77, 300, 96, torch.float32, True, None, 211),
     ("bf16-empty-rows", 1, 4, 2, 64, 40, 64, torch.bfloat16, True, 8, 40),
+    ("bf16-d160", 1, 32, 8, 300, 300, 160, torch.bfloat16, True, None, 0),
+    ("bf16-d256", 1, 4, 2, 200, 200, 256, torch.bfloat16, True, None, 0),
 ]
 
 

@@ -109,9 +109,9 @@ def test_every_entry_parses_against_the_current_spaces(db):
 # which config wins (a comment), update the digest alone.
 KERNEL_SOURCES = {
     "decode_attention": (2, ("csrc/gqa_decode.cu",), "2abf051c8f7540de"),
-    "flash_attention": (2, ("csrc/flash_attention.cu",), "f8b5bfd76d5e3afa"),
+    "flash_attention": (2, ("csrc/flash_attention.cu",), "077db1659d4c7cc7"),
     "flash_attention_bwd": (2, ("csrc/flash_attention_bwd.cu",),
-                            "ec4538c2b1bf22b4"),
+                            "e30dcb0c97bd53a2"),
     "gqa_decode_kv8": (1, ("csrc/gqa_decode_kv8.cu",), "119b40526bc0644d"),
     "gqa_decode_ragged": (1, ("csrc/gqa_decode.cu",), "2abf051c8f7540de"),
     "matmul": (1, ("csrc/matmul.cu",), "894a4aae4af34d6d"),
