@@ -24,9 +24,12 @@ Phases, each failing loudly:
      verify at depth 5 over float and int8 pools); every valid
      ``matmul_w8a8`` config of each scale granularity on ragged shapes
      and the four w8a8 serving shapes (its epilogue configs also equal to
-     the exact integer-grid product) and its refusals; every valid
-     ``matmul`` config in bf16 and f32 at ragged shapes (every edge
-     masked), decode-like rows and 256^3, and its refusals; every valid
+     the exact integer-grid product, split-K bit-equal to one split at
+     decode wo; the path each case takes printed: K 200 on ``mma.sync``,
+     the serving shapes asserted on ``wgmma``) and its refusals; every
+     valid ``matmul`` config in bf16 and f32 at ragged shapes (every edge
+     masked; rows TMA cannot read on ``mma.sync``), decode-like rows and
+     256^3 (bf16 asserted on ``wgmma``), and its refusals; every valid
      ``flash_attention`` config (o and lse) at the serving prefill and at
      ragged lengths, groups 1, 3 and 4, D 96 and 120, windows, a query
      offset, non-causal, f32, and rows that see no key; every valid
@@ -60,8 +63,9 @@ Phases, each failing loudly:
      version, SDPA's backward and the bound; deepseek-v2-lite's
      ``mla_decode`` serving context and the registry's ``dsv2_32k`` tuned
      and timed beside the plain version and SDPA; ``matmul`` at 8192^3
-     bf16 (``mm8k``, the shipped config) and 256^3 f32 (tuned) timed
-     beside the plain version, ``torch.matmul`` and the bound;
+     bf16 (``mm8k``, the shipped config, asserted on ``wgmma``) and 256^3
+     f32 (tuned) timed beside the plain version, ``torch.matmul`` and the
+     bound;
   5. serving phi4-mini-3.8b at full width (32 layers, bf16, random weights
      from a seed): 8 requests of 128-512 prompt tokens and 32 new tokens,
      prefill chunks of 256, once by plain decode and once by speculative
@@ -81,11 +85,11 @@ Phases, each failing loudly:
      with ``--quant kv8`` (int8 caches, ``gqa_decode_kv8``), and how many
      of its streams equal the bf16 run's; then ``--quant w8a8`` (int8 MLP
      weights, per-token int8 activations) with ``--quant-impl pallas``
-     (every MLP GEMM through ``matmul_w8a8``) and ``sim``, streams equal
-     8/8 up to a tie, and by ``--decode-impl full``; then ``--decode-impl
-     pallas --attn-impl pallas`` (the prefill through ``flash_attention``,
-     32 launches, none in the chunked runs), streams equal the chunked
-     run's up to a tie;
+     (every MLP GEMM through ``matmul_w8a8``, all on its ``wgmma`` path)
+     and ``sim``, streams equal 8/8 up to a tie, and by ``--decode-impl
+     full``; then ``--decode-impl pallas --attn-impl pallas`` (the
+     prefill through ``flash_attention``, 32 launches, none in the
+     chunked runs), streams equal the chunked run's up to a tie;
   6. one full-width decode step (float pools and int8 pools) and one
      full-width verify step (float pools and int8 pools) through the
      kernels against the same step through the plain versions on the same
@@ -93,7 +97,8 @@ Phases, each failing loudly:
      and one through ``gqa_decode_kv8`` (int8 caches) against the plain
      einsum, and one w8a8 dense step through ``matmul_w8a8`` against the
      sim GEMMs, with the residual stream compared layer by layer, and a
-     profiled window of each (wall time, device time, device busy share);
+     profiled window of each (wall time, device time, device busy share),
+     and one profiled w8a8 prefill of the 8 prompts by each;
      one full-width dense prefill through ``flash_attention`` against the
      chunked prefill (KV chunks of 64), logits held, and a profile of
      each;
@@ -853,9 +858,12 @@ def check_matmul_w8a8(chip) -> float:
     granularity against the plain version (dequantize, then an f32
     product) at INT8_TOL, atol and rtol, on the ragged shapes and the four
     serving shapes; the epilogue configs also equal the exact
-    integer-grid product bit for bit (the sim path's arithmetic). Then the
-    refusals, with the C/Python shared-memory parity. Returns the worst
-    error."""
+    integer-grid product bit for bit (the sim path's arithmetic). Each
+    case prints the kernel it took (``matmul_w8a8.path``): K 200 the
+    mma.sync kernel, K 3072 and 8192 the wgmma one, asserted for the
+    serving shapes. At decode wo, epilogue split_k 8 equals split_k 1 bit
+    for bit. Then the refusals, with the C/Python shared-memory parity.
+    Returns the worst error."""
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.kernels import ops, ref
     worst_all = 0.0
@@ -871,6 +879,8 @@ def check_matmul_w8a8(chip) -> float:
                 acc * xs * ws
             ctx = ops.matmul_w8a8_context(chip, M, K, N, gran)
             configs = ops.MATMUL_W8A8.space.valid_configs(ctx)
+            route = mm8_kernel.path(K, xq.data_ptr(), wq.data_ptr())
+            before = dict(mm8_kernel.matmul_w8a8.path_launches)
             worst, n_exact = 0.0, 0
             for cfg in configs:
                 got = ops.matmul_w8a8(*args, config=cfg)
@@ -888,11 +898,24 @@ def check_matmul_w8a8(chip) -> float:
                             f"product")
                     n_exact += 1
                 worst = max(worst, err)
+            ran = mm8_kernel.matmul_w8a8.path_launches[route] - before[route]
+            assert ran == len(configs), (label, route, ran)
+            assert route == "wgmma" or not label.startswith("serving"), label
             worst_all = max(worst_all, worst)
-            print(f"matmul_w8a8 {label} {gran}: {len(configs)} configs ok, "
-                  f"max_abs_err {worst:.3g} (tol {INT8_TOL}); {n_exact} "
-                  f"epilogue configs equal the exact product")
+            print(f"matmul_w8a8 {label} {gran} ({route}): {len(configs)} "
+                  f"configs ok, max_abs_err {worst:.3g} (tol {INT8_TOL}); "
+                  f"{n_exact} epilogue configs equal the exact product")
             del args, xq, wq, want, acc, exact
+    args = w8a8_case(5, *W8A8_SERVING["decode wo"], "per_channel")
+    cfg = {"block_m": 8, "block_n": 128, "block_k": 128, "num_stages": 4,
+           "dequant": "epilogue"}
+    one = mm8_kernel.matmul_w8a8(*args, split_k=1, **cfg)
+    eight = mm8_kernel.matmul_w8a8(*args, split_k=8, **cfg)
+    if not torch.equal(one, eight):
+        raise AssertionError("matmul_w8a8 decode wo: epilogue split_k 8 "
+                             "differs from split_k 1")
+    print("matmul_w8a8 decode wo: epilogue split_k 8 equals split_k 1 bit "
+          "for bit")
     x, w, xs, ws = w8a8_case(0, 16, 64, 64, "per_channel")
     for bad, match in (((x, w.contiguous(), xs, ws), "K-major"),
                        ((x.float(), w, xs, ws), "int8"),
@@ -908,8 +931,14 @@ def check_matmul_w8a8(chip) -> float:
     for bm, bn, bk in ((16, 64, 64), (128, 256, 128), (64, 128, 64)):
         assert lib.matmul_w8a8_smem_bytes(bm, bn, bk) == \
             mm8_kernel.smem_bytes(bm, bn, bk)
+    for bm, bn, st in ((8, 64, 8), (128, 256, 4), (64, 128, 2)):
+        assert lib.matmul_w8a8_wgmma_smem_bytes(bm, bn, st) == \
+            mm8_kernel.wgmma_smem_bytes(bm, bn, st)
+    for K, sk in ((8192, 8), (3072, 16), (200, 4)):
+        assert lib.matmul_w8a8_splits(K, sk) == \
+            mm8_kernel.effective_splits(K, sk)
     print("matmul_w8a8 refusals ok (a row-major w, float x, scales of the "
-          "wrong size); C and Python shared memory agree")
+          "wrong size); C and Python shared memory and splits agree")
     return worst_all
 
 
@@ -920,6 +949,7 @@ def time_w8a8(chip, M, K, N, cfg) -> dict:
     (it refuses fewer than 17 rows: decode's 8 are timed padded to 32),
     and ``torch.matmul`` of the unquantized bf16 operands, which is what
     w8a8 replaces."""
+    from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     from repro_torch.kernels import ops, ref
     args = w8a8_case(M * 7 + N, M, K, N, "per_channel")
     xq, wq, xs, ws = args
@@ -942,7 +972,9 @@ def time_w8a8(chip, M, K, N, cfg) -> dict:
             lambda: torch._int_mm(xl, wq).float() * xsl * ws) * 1e3,
         "library": f"torch._int_mm plus the scale epilogue at M {m_lib}",
         "bf16_matmul_ms": timer().time_runner(lambda: xb @ wb) * 1e3,
-        "bound_ms": bound_ms, "bound_by": by, "config": cfg}
+        "bound_ms": bound_ms, "bound_by": by, "config": cfg,
+        "path": mm8_kernel.path(K, xq.data_ptr(), wq.data_ptr())}
+    assert out["path"] == "wgmma", out
     return out
 
 
@@ -977,6 +1009,8 @@ def check_matmul(chip) -> dict:
             want = ref.matmul(x, y).float()
             ctx = ops.matmul_context(chip, M, K, N, ops.dtype_name(dtype))
             configs = ops.MATMUL.space.valid_configs(ctx)
+            route = mm_kernel.path(dtype, K, N, x.data_ptr(), y.data_ptr())
+            before = mm_kernel.matmul.path_launches[route]
             worst = 0.0
             for cfg in configs:
                 got = ops.matmul(x, y, config=cfg)
@@ -990,7 +1024,12 @@ def check_matmul(chip) -> dict:
                 worst = max(worst, err)
             worst_all[ops.dtype_name(dtype)] = max(
                 worst_all.get(ops.dtype_name(dtype), 0.0), worst)
-            print(f"matmul {M}x{K}x{N} {ops.dtype_name(dtype)}: "
+            assert mm_kernel.matmul.path_launches[route] - before == \
+                len(configs), route
+            ragged = (K * 2) % 16 or (N * 2) % 16
+            assert route == ("fma" if dtype == torch.float32 else
+                             "mma_sync" if ragged else "wgmma"), route
+            print(f"matmul {M}x{K}x{N} {ops.dtype_name(dtype)} ({route}): "
                   f"{len(configs)} configs ok, max_abs_err {worst:.4g} "
                   f"(atol and rtol {tol}; largest |out| "
                   f"{float(want.abs().max()):.4g})")
@@ -1008,6 +1047,9 @@ def check_matmul(chip) -> dict:
     for args in ((2, 64, 64, 32, 2), (2, 256, 128, 64, 4),
                  (4, 128, 256, 32, 3)):
         assert lib.matmul_smem_bytes(*args) == mm_kernel.smem_bytes(*args)
+    for args in ((64, 64, 2), (128, 256, 3), (128, 128, 4)):
+        assert lib.matmul_wgmma_smem_bytes(*args) == \
+            mm_kernel.wgmma_smem_bytes(*args)
     print("matmul refusals ok (float16, a transposed y, mixed dtypes); C "
           "and Python shared memory agree")
     return worst_all
@@ -1017,6 +1059,7 @@ def time_matmul(chip, M, K, N, dtype, cfg) -> dict:
     """Kernel (under ``cfg``), plain version, the library yardstick and the
     roofline bound at one shape; the yardstick, which the port never
     calls, is ``torch.matmul`` (cuBLAS) on the same operands."""
+    from repro_torch.kernels import matmul as mm_kernel
     from repro_torch.kernels import ops, ref
     x, y = mm_case(7, M, K, N, dtype)
     ctx = ops.matmul_context(chip, M, K, N, ops.dtype_name(dtype))
@@ -1032,7 +1075,8 @@ def time_matmul(chip, M, K, N, dtype, cfg) -> dict:
         "plain_ms": timer().time_runner(lambda: ref.matmul(x, y)) * 1e3,
         "library_ms": timer().time_runner(lambda: torch.matmul(x, y)) * 1e3,
         "bound_ms": bound_ms, "bound_by": by, "config": cfg,
-        "max_abs_err": float((got - want).abs().max())}
+        "max_abs_err": float((got - want).abs().max()),
+        "path": mm_kernel.path(dtype, K, N, x.data_ptr(), y.data_ptr())}
 
 
 # flash_attention's cases, (label, B, Hq, Hkv, Sq, Skv, D, dtype, causal,
@@ -1844,8 +1888,12 @@ def w8a8_dense_serving(tuner, n_layers: int, bf16_tokens) -> dict:
         args = serve.build_parser().parse_args(argv + extra)
         for fn in counters.values():
             fn.launches = 0
+        wgmma = mm8_kernel.matmul_w8a8.path_launches["wgmma"]
         report = serve.serve_dense(args, tuner)
         launches = {k: fn.launches for k, fn in counters.items()}
+        # every serving GEMM (K 3072 and 8192) takes the wgmma kernel
+        assert mm8_kernel.matmul_w8a8.path_launches["wgmma"] - wgmma == \
+            launches["matmul_w8a8"], label
         runs[label] = (report, launches)
         torch.cuda.empty_cache()
         print(f"w8a8 dense run report ({' '.join(extra)}): "
@@ -1940,7 +1988,8 @@ def w8a8_step_check(steps: int = 8) -> None:
     matmul_w8a8 against the same step through the sim GEMMs, on clones of
     one cache (attention through gqa_decode on both): logits held by
     ``hold_logits``, the residual stream compared layer by layer; then a
-    profiled window of kernel steps."""
+    profiled window of kernel steps, and of sim steps; then one profiled
+    full-width prefill of the 8 prompts by each."""
     from repro_torch.models import lm
     model, cfg = w8a8_model()
     rng = np.random.default_rng(9)
@@ -1974,6 +2023,14 @@ def w8a8_step_check(steps: int = 8) -> None:
         "dense decode step (8 rows, full width, --quant w8a8, sim GEMMs)",
         lambda i: lm.decode_step(model, cfg, tok, caches["sim"], 513 + i,
                                  sim), steps)
+    del caches, cache
+    for impl in ("pallas", "sim"):
+        opts = lm.ForwardOpts(attn_chunk=64, quant="w8a8", quant_impl=impl)
+        profile_steps(
+            f"dense prefill (8 prompts of 512, full width, --quant w8a8, "
+            f"{'matmul_w8a8' if impl == 'pallas' else 'sim GEMMs'})",
+            lambda i: lm.prefill(model, cfg, prompts, max_len=512 + 2,
+                                 opts=opts), 1)
 
 
 def dense_serving(tuner, n_layers: int, quant: str = "none") -> dict:
@@ -3216,6 +3273,7 @@ def main(argv=None) -> int:
     assert cache_key(ops.MATMUL.name, ops.MATMUL.version, ops.MATMUL.space,
                      mm8k_ctx) in shipped
     mmk = time_matmul(chip, *MM8K, torch.bfloat16, mm_cfg)
+    assert mmk["path"] == "wgmma", mmk
     print("matmul mm8k (8192^3 bf16, the shipped config): "
           + json.dumps(mmk))
     m256 = time_matmul(chip, 256, 256, 256, torch.float32, tuner.best_config(

@@ -10,39 +10,67 @@
 //   out  (M, N)  x's dtype, row-major
 //
 // Bound: at 8192^3 bf16 (`mm8k`) operations, 2 M K N = 1.10 TFLOP at
-// 989 TFLOP/s (1.11 ms) against 403 MB at 3.35 TB/s (0.12 ms); in f32
+// 989 TFLOP/s (1.1117 ms) against 403 MB at 3.35 TB/s (0.12 ms); in f32
 // (`m256`) operations too, at the CUDA cores' 67 TFLOP/s. So the design
 // keeps the tensor cores fed from shared memory and reads each operand
-// from HBM as few times as the tiles allow. Simple and right first:
+// from HBM as few times as the tiles allow. Three kernels, chosen by the
+// wrapper from the dtype and the layout:
 //
-//   * One block per block_m x block_n output tile; the TPU grid's sequential
-//     K axis becomes a loop inside the block over slices of block_k, fed by
-//     a ring of num_stages cp.async stages (slice kt + stages - 1 is copied
-//     while slice kt is multiplied). Blocks are handed out in groups of 8
-//     row panels, column-major inside a group, so the y panels a wave reads
+// bf16 where TMA can read x and y (rows of 16-byte multiples, 16-byte
+// aligned bases): matmul_wgmma, the tools of gemm.cuh and hopper.cuh.
+//
+//   * A persistent grid, one block per SM (more where the shared memory
+//     allows), walks the block_m x block_n output tiles in groups of 8 row
+//     panels, column-major inside a group, so the y panels a wave reads
 //     stay in L2 across the group's rows.
-//   * Copies of 16 bytes (8, 4, or 2 by plain loads, where K or N or a base
-//     pointer allows no wider copy), one row chunk each. Rows past M,
-//     columns past N and slices past K are zero-filled by the copy itself
-//     (src-size 0), so ragged edges need no padded copy of x or y (the
-//     reference pads with jnp.pad) and add zeros to the sums.
-//   * bf16: mma.sync m16n8k16 with f32 accumulators in registers; each warp
-//     owns a (block_m / warps_m) x (block_n / warps_n) sub-tile. A comes
-//     from the row-major x tile through ldmatrix, B from the row-major
-//     (K, N) y tile through ldmatrix.trans: a 16-bit y needs no K-major
-//     copy. Staged rows carry 16 bytes of padding, so the eight 16-byte
-//     rows of each ldmatrix fall on distinct banks.
-//   * f32: IEEE FMAs on the CUDA cores (TF32 would miss the reference's
-//     1e-4), each thread a register tile of rows and columns strided across
-//     the block, so a warp's shared-memory reads broadcast or fall on
-//     consecutive banks and its stores are coalesced.
+//   * One producer warp keeps a ring of num_stages K slices in flight by
+//     TMA (128-byte swizzle): a slice is x's block_m rows and y's 64 rows
+//     of block_n, 64 values of K each; each slice's arrival completes a
+//     full mbarrier, every consumer warp's release an empty one. It runs
+//     ahead across tiles, so the next tile's first slices load while the
+//     consumers store the last one. Rows, columns and K past the matrices
+//     are zero-filled by TMA: ragged M, N and K need no padded copy.
+//   * One or two consumer warpgroups of 64 rows each issue wgmma
+//     m64n{block_n}k16 from shared memory: x K-major, y MN-major (the
+//     transpose bit of 16-bit types), so y needs no transposed copy. Slice
+//     t is issued, then wgmma.wait_group 1 lets slice t - 1's products
+//     finish and its stage is released while slice t runs: the tensor cores
+//     never wait on a release. The f32 accumulators (64 x block_n a
+//     warpgroup: 128 registers a thread at block_n 256) stay in registers
+//     across K.
+//   * The epilogue rounds them to bf16 into a 128-byte-swizzled staging
+//     tile (conflict-free 4-byte writes) and stores it by TMA, which drops
+//     what falls past M and N; the staging tile is reused once the previous
+//     tile's store has read it.
 //
-// wgmma, TMA, warp-specialised producers and persistent blocks are left for
-// a later change.
+// bf16 that TMA cannot read (K or N rows not 16-byte multiples, as K 300,
+// 45 and 1030 or N 29; a base off 16 bytes): tile_bf16, one block per
+// tile, mma.sync m16n8k16 fed by a cp.async ring:
+//
+//   * the TPU grid's sequential K axis is a loop over slices of block_k,
+//     a ring of num_stages cp.async stages (slice kt + stages - 1 is copied
+//     while slice kt is multiplied); blocks in the grouped order above;
+//   * copies of 16 bytes (8, 4, or 2 by plain loads, where K or N or a base
+//     pointer allows no wider copy), one row chunk each; rows past M,
+//     columns past N and slices past K are zero-filled by the copy itself
+//     (src-size 0);
+//   * each warp owns a (block_m / warps_m) x (block_n / warps_n) sub-tile;
+//     A comes from the row-major x tile through ldmatrix, B from the
+//     row-major (K, N) y tile through ldmatrix.trans; staged rows carry 16
+//     bytes of padding, so the eight 16-byte rows of each ldmatrix fall on
+//     distinct banks.
+//
+// f32: tile_f32, IEEE FMAs on the CUDA cores (wgmma has no IEEE f32, and
+// TF32 would miss the reference's 1e-4), each thread a register tile of
+// rows and columns strided across the block, so a warp's shared-memory
+// reads broadcast or fall on consecutive banks and its stores are
+// coalesced; the same cp.async ring as tile_bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm.cuh"
 
 namespace {
 
@@ -371,14 +399,9 @@ template <typename T, int BM, int BN, int BK, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32) matmul_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  // grouped order: kGroupM row panels at a time, column-major inside
-  const int pid_m_n = (a.M + BM - 1) / BM, pid_n_n = (a.N + BN - 1) / BN;
-  const int pid = blockIdx.x;
-  const int in_group = kGroupM * pid_n_n;
-  const int first_m = (pid / in_group) * kGroupM;
-  const int group_m = min(pid_m_n - first_m, kGroupM);
-  const int pid_m = first_m + (pid % in_group) % group_m;
-  const int pid_n = (pid % in_group) / group_m;
+  int pid_m, pid_n;
+  gemm::tile_coords(blockIdx.x, (a.M + BM - 1) / BM, (a.N + BN - 1) / BN,
+                    kGroupM, pid_m, pid_n);
   if constexpr (sizeof(T) == 2) {
     tile_bf16<BM, BN, BK, WARPS>(a, smem, pid_m * BM, pid_n * BN);
   } else {
@@ -440,6 +463,169 @@ cudaError_t by_bm(int bm, int bn, int bk, int warps, const Args& a, int smem,
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ wgmma branch
+
+// Shared memory of matmul_wgmma: 1024 bytes of alignment slack, 256 of
+// mbarriers, `stages` K slices of an x tile (bm rows) and a y tile (64 rows
+// of bn), 128 bytes a row, and the bf16 staging tile of the epilogue.
+int wgmma_smem(int bm, int bn, int stages) {
+  return 1024 + 256 + stages * (bm + bn) * 128 + bm * bn * 2;
+}
+
+struct WArgs {
+  int M, N, K, stages;
+};
+
+// W: consumer warpgroups (64 rows each); BN: columns a tile. Warpgroup W
+// (threads 128 W ...) is the producer warp.
+template <int W, int BN>
+__global__ void __launch_bounds__(128 * W + 32, 1)
+    matmul_wgmma(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap ty,
+                 const __grid_constant__ CUtensorMap to, const WArgs a) {
+  using namespace hopper;
+  using namespace gemm;
+  constexpr int BM = 64 * W;
+  constexpr int XBYTES = BM * 128;             // a slice of the x tile
+  constexpr int STAGE = XBYTES + BN * 128;     // and of the y tile
+  constexpr int NC = BN / 64;                  // 64-column blocks
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* ring = align1024(smem_wg);
+  unsigned char* stage_out = ring + a.stages * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_out + BM * BN * 2);
+  uint64_t* empty = full + a.stages;
+
+  const int tiles_m = (a.M + BM - 1) / BM, tiles_n = (a.N + BN - 1) / BN;
+  const int tiles = tiles_m * tiles_n;
+  const int n_k = (a.K + 63) / 64;
+  const int wg = warpgroup();
+
+  if (threadIdx.x == 0) {
+    tma_prefetch(&tx);
+    tma_prefetch(&ty);
+    tma_prefetch(&to);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * W);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == W) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == 128 * W) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int pm, pn;
+        tile_coords(tile, tiles_m, tiles_n, kGroupM, pm, pn);
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int s = it % a.stages;
+          mbar_wait(empty + s, ((it / a.stages) & 1) ^ 1);
+          mbar_expect_tx(full + s, STAGE);
+          unsigned char* st = ring + s * STAGE;
+          tma_row(st, &tx, kt * 64, pm * BM, full + s);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            tma_row(st + XBYTES + c * 8192, &ty, pn * BN + c * 64, kt * 64,
+                    full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool leader = threadIdx.x % 128 == 0;
+  unsigned char* my_out = stage_out + wg * NC * 8192;
+  float acc[BN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int pm, pn;
+    tile_coords(tile, tiles_m, tiles_n, kGroupM, pm, pn);
+    for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const int s = it % a.stages;
+      mbar_wait(full + s, (it / a.stages) & 1);
+      const uint32_t xa = smem_u32(ring + s * STAGE) + wg * 8192;
+      const uint32_t ya = smem_u32(ring + s * STAGE + XBYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16<BN>(acc, desc_kmajor(xa + kk * 32),
+                       desc_mn(ya + kk * 2048, 8192), (kt | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // slice kt - 1's products are done: free its stage
+      if (kt > 0 && lane == 0) mbar_arrive(empty + (it - 1) % a.stages);
+    }
+    wgmma_wait<0>();
+    hopper::fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty + (it - 1) % a.stages);
+
+    // The warpgroup's 64 rows, rounded to bf16 into its staging tile (NC
+    // blocks of 64 x 64, swizzled as the map stores them), then stored by
+    // its first thread, one TMA box a block.
+    if (leader) bulk_wait_read();  // the last tile's store has read it
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        const int c = (8 * j) % 64 + 2 * t;  // column in block j / 8
+        *reinterpret_cast<uint32_t*>(
+            my_out + (j / 8) * 8192 + r * 128 +
+            ((((c * 2) >> 4) ^ (r & 7)) << 4) + ((c * 2) & 15)) =
+            pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    fence_async_smem();
+    named_sync(1 + wg, 128);
+    if (leader) {
+      const int r0 = pm * BM + 64 * wg;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (r0 < a.M && pn * BN + c * 64 < a.N)
+          tma_store(&to, my_out + c * 8192, pn * BN + c * 64, r0);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait();
+}
+
+template <int W, int BN>
+cudaError_t launch_wgmma(const CUtensorMap* maps, const WArgs& a, int smem,
+                         cudaStream_t stream) {
+  auto kern = matmul_wgmma<W, BN>;
+  static int configured = 48 * 1024;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kern, 128 * W + 32, smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = static_cast<long long>((a.M + 64 * W - 1) /
+                                                 (64 * W)) *
+                          ((a.N + BN - 1) / BN);
+  const long long slots =
+      static_cast<long long>(gemm::sm_count()) * (per_sm > 0 ? per_sm : 1);
+  const int grid = static_cast<int>(tiles < slots ? tiles : slots);
+  if (grid <= 0) return cudaErrorInvalidValue;
+  kern<<<grid, 128 * W + 32, smem, stream>>>(maps[0], maps[1], maps[2], a);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t wgmma_by_bn(int bn, const CUtensorMap* maps, const WArgs& a,
+                        int smem, cudaStream_t s) {
+  if (bn == 64) return launch_wgmma<W, 64>(maps, a, smem, s);
+  if (bn == 128) return launch_wgmma<W, 128>(maps, a, smem, s);
+  if (bn == 256) return launch_wgmma<W, 256>(maps, a, smem, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -476,6 +662,36 @@ int matmul_launch(const void* x, const void* y, void* out, int M, int N,
   if (dtype == 1)
     return by_bm<bf16>(block_m, block_n, block_k, num_warps, a, smem, s);
   return by_bm<float>(block_m, block_n, block_k, num_warps, a, smem, s);
+}
+
+// Dynamic shared memory of one matmul_wgmma launch.
+int matmul_wgmma_smem_bytes(int block_m, int block_n, int num_stages) {
+  return wgmma_smem(block_m, block_n, num_stages);
+}
+
+// bf16 through wgmma and TMA: block_m 64 or 128 (one or two consumer
+// warpgroups), block_n 64, 128 or 256, K slices of 64, num_stages 2 to 4;
+// K and N multiples of 8 (16-byte rows), x, y and out 16-byte aligned.
+// Returns a cudaError_t (0 = launched); a tile the kernel does not
+// instantiate or a tensor map TMA refuses returns cudaErrorInvalidValue.
+int matmul_wgmma_launch(const void* x, const void* y, void* out, int M,
+                        int N, int K, int block_m, int block_n,
+                        int num_stages, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 ||
+      (block_m != 64 && block_m != 128) || num_stages < 2 || num_stages > 4)
+    return cudaErrorInvalidValue;
+  const int smem = wgmma_smem(block_m, block_n, num_stages);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap maps[3];
+  if (!gemm::map2d(&maps[0], bf, 2, x, M, K, block_m, 64) ||
+      !gemm::map2d(&maps[1], bf, 2, y, K, N, 64, 64) ||
+      !gemm::map2d(&maps[2], bf, 2, out, M, N, 64, 64))
+    return cudaErrorInvalidValue;
+  const WArgs a{M, N, K, num_stages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_m == 64) return wgmma_by_bn<1>(block_n, maps, a, smem, s);
+  return wgmma_by_bn<2>(block_n, maps, a, smem, s);
 }
 
 }  // extern "C"

@@ -883,17 +883,40 @@ def ragged_decode_kv8(q, k, v, k_scale, v_scale, *, kv_len=None,
 # Blocked matmul
 # ===========================================================================
 
+def _mm_path(ctx: TuningContext) -> str:
+    """The kernel the context's operands take (``matmul.path``: fma, wgmma
+    or mma_sync), contiguous operands assumed."""
+    K, N = ctx.shape("y")
+    return mm_kernel.path(getattr(torch, ctx.dtype), K, N)
+
+
 def _mm_smem(cfg: Config, ctx: TuningContext) -> int:
+    if _mm_path(ctx) == "wgmma":
+        return mm_kernel.wgmma_smem_bytes(cfg["block_m"], cfg["block_n"],
+                                          cfg["num_stages"])
     return mm_kernel.smem_bytes(dtype_bytes(ctx.dtype), cfg["block_m"],
                                 cfg["block_n"], cfg["block_k"],
                                 cfg["num_stages"])
 
 
+def _mm_tile_fits(cfg: Config, ctx: TuningContext) -> bool:
+    """wgmma: one or two consumer warpgroups of 64 rows (``num_warps``
+    block_m / 16), K slices of 64; the other kernels: a thread's f32
+    accumulators within 128 registers."""
+    if _mm_path(ctx) == "wgmma":
+        return mm_kernel.wgmma_tile_ok(cfg["block_m"], cfg["block_k"],
+                                       cfg["num_warps"])
+    return mm_kernel.regs_fit(cfg["block_m"], cfg["block_n"],
+                              cfg["num_warps"])
+
+
 def matmul_space() -> ConfigSpace:
     """The reference's tunables (``block_m/n/k``) at Hopper sizes, with
-    ``num_warps`` and the ``cp.async`` ring's ``num_stages`` beside them,
-    under one block's shared memory (in the context's dtype) and
-    registers."""
+    ``num_warps`` and the ring's ``num_stages`` beside them, under one
+    block's shared memory (in the context's dtype) and registers. Version
+    2: where the operands take the wgmma kernel (bf16, rows of 16-byte
+    multiples) a tile is one or two warpgroups of 64 rows and K slices of
+    64, so ``num_warps`` and ``block_k`` follow ``block_m``."""
     sp = ConfigSpace(
         "matmul",
         [
@@ -903,12 +926,10 @@ def matmul_space() -> ConfigSpace:
             Param("num_warps", mm_kernel.NUM_WARPS),
             Param("num_stages", mm_kernel.NUM_STAGES),
         ],
-        version=1,
+        version=2,
     )
     sp.constrain("smem", smem_fits(_mm_smem))
-    sp.constrain("registers",
-                 lambda c, x: mm_kernel.regs_fit(c["block_m"], c["block_n"],
-                                                 c["num_warps"]))
+    sp.constrain("registers", _mm_tile_fits)
     return sp
 
 
@@ -928,13 +949,30 @@ def _mm_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
 
 
 def _mm_canonical(cfg: Config, ctx: TuningContext) -> Config:
-    """The tile the kernel launches (``matmul.clamp_blocks``)."""
+    """The tile the kernel launches (``matmul.clamp_blocks`` on the
+    context's path); on the wgmma path ``num_warps`` follows the clamped
+    block_m, as the kernel reads it."""
     M, K = ctx.shape("x")
     N = ctx.shape("y")[1]
+    route = _mm_path(ctx)
     c = dict(cfg)
     c["block_m"], c["block_n"], c["block_k"] = mm_kernel.clamp_blocks(
-        cfg["block_m"], cfg["block_n"], cfg["block_k"], M, N, K)
+        cfg["block_m"], cfg["block_n"], cfg["block_k"], M, N, K, route)
+    if route == "wgmma":
+        c["num_warps"] = c["block_m"] // 16
     return c
+
+
+def _mm_heuristic(ctx: TuningContext) -> Config:
+    """wgmma: 128 x 256 tiles over two warpgroups, three stages (what a
+    Hopper GEMM commonly hard-codes). Otherwise the reference's fixed 256^3
+    tile as a port would hard-code it: 128 x 128 of 32-deep slices, four
+    warps, three stages."""
+    if _mm_path(ctx) == "wgmma":
+        return {"block_m": 128, "block_n": 256, "block_k": 64,
+                "num_warps": 8, "num_stages": 3}
+    return {"block_m": 128, "block_n": 128, "block_k": 32, "num_warps": 4,
+            "num_stages": 3}
 
 
 def _mm_operands(ctx: TuningContext, cfg: Optional[Config] = None,
@@ -956,13 +994,10 @@ def _mm_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
 MATMUL = TunableKernel(
     name="matmul",
     space=matmul_space(),
-    version=1,
+    version=2,
     workload_fn=_mm_workload,
     make_runner=_mm_runner,
-    # the reference's fixed 256^3 tile, as a Hopper port would hard-code it:
-    # a 128 x 128 tile of 32-deep slices, four warps, three stages
-    heuristic=lambda ctx: {"block_m": 128, "block_n": 128, "block_k": 32,
-                           "num_warps": 4, "num_stages": 3},
+    heuristic=_mm_heuristic,
     canonicalize=_mm_canonical,
 )
 
@@ -994,33 +1029,82 @@ def matmul(x, y, *, config: Optional[Config] = None,
 # w8a8 GEMM: int8 x int8 -> int32 on the tensor cores, fused dequant
 # ===========================================================================
 
+def _w8a8_path(ctx: TuningContext) -> str:
+    """The kernel the context's operands take (``matmul_w8a8.path``: wgmma
+    or mma_sync), aligned operands assumed."""
+    return mm8_kernel.path(ctx.shape("x")[1])
+
+
 def _w8a8_smem(cfg: Config, ctx: TuningContext) -> int:
+    if _w8a8_path(ctx) == "wgmma":
+        return mm8_kernel.wgmma_smem_bytes(cfg["block_m"], cfg["block_n"],
+                                           cfg["num_stages"])
     return mm8_kernel.smem_bytes(cfg["block_m"], cfg["block_n"],
                                  cfg["block_k"])
 
 
+def _w8a8_regs(cfg: Config, ctx: TuningContext) -> bool:
+    if _w8a8_path(ctx) == "wgmma":
+        return mm8_kernel.wgmma_regs_fit(cfg["block_m"], cfg["block_n"],
+                                         cfg["dequant"])
+    return mm8_kernel.regs_fit(cfg["block_m"], cfg["block_n"],
+                               cfg["num_warps"], cfg["dequant"])
+
+
+def _w8a8_tile(cfg: Config, ctx: TuningContext) -> bool:
+    """The tiles each kernel takes at the context's rows. wgmma: the
+    operands swap roles (block_m 8, 16 or 32: the smallest that covers
+    M) exactly where M <= 32, and only there K splits; ``num_warps`` is
+    the consumer warpgroups', block_k one TMA row (128). mma.sync: block_m
+    from 16, one split (its two stages are the "stages" constraint)."""
+    M, K = ctx.shape("x")
+    bm, bk = cfg["block_m"], cfg["block_k"]
+    if _w8a8_path(ctx) == "mma_sync":
+        return bm in mm8_kernel.MMA_BLOCK_M and cfg["split_k"] == 1
+    if M <= 32:
+        fits = bm == min(v for v in mm8_kernel.SWAP_BLOCK_M if v >= M)
+    else:
+        fits = not mm8_kernel.swapped(bm) and cfg["split_k"] == 1
+    return fits and mm8_kernel.wgmma_tile_ok(bm, cfg["block_n"], bk,
+                                             cfg["num_warps"])
+
+
+def _w8a8_split(cfg: Config, ctx: TuningContext) -> bool:
+    """No more splits than K has slices of block_k."""
+    return cfg["split_k"] <= -(-ctx.shape("x")[1] // cfg["block_k"])
+
+
+def _w8a8_stages(cfg: Config, ctx: TuningContext) -> bool:
+    """The mma.sync kernel double-buffers; the wgmma ring takes 2-8."""
+    return _w8a8_path(ctx) == "wgmma" or cfg["num_stages"] == 2
+
+
 def matmul_w8a8_space() -> ConfigSpace:
     """The reference's tunables (``block_m/n/k``, ``dequant``,
-    ``scale_gran``) cut to what ``mma.sync`` tiles (16-row, 8-column,
-    32-deep) and one block's shared memory and registers take, with
-    ``num_warps`` beside them."""
+    ``scale_gran``) cut to what the Hopper kernels tile and one block's
+    shared memory and registers take, with ``num_warps``, ``num_stages``
+    and ``split_k`` beside them. Version 2: where TMA reads the operands
+    (K a multiple of 16) the wgmma kernel's tiles, split-K at decode;
+    elsewhere the mma.sync kernel's (16-row, 8-column, 32-deep)."""
     sp = ConfigSpace(
         "matmul_w8a8",
         [
             Param("block_m", mm8_kernel.BLOCK_M),
             Param("block_n", mm8_kernel.BLOCK_N),
-            Param("block_k", (64, 128)),
+            Param("block_k", mm8_kernel.BLOCK_K),
             Param("num_warps", mm8_kernel.NUM_WARPS),
+            Param("num_stages", mm8_kernel.NUM_STAGES),
+            Param("split_k", mm8_kernel.SPLIT_K),
             Param("dequant", ("epilogue", "inline")),
             Param("scale_gran", ("per_channel", "per_tensor")),
         ],
-        version=1,
+        version=2,
     )
     sp.constrain("smem", smem_fits(_w8a8_smem))
-    sp.constrain("registers",
-                 lambda c, x: mm8_kernel.regs_fit(c["block_m"], c["block_n"],
-                                                  c["num_warps"],
-                                                  c["dequant"]))
+    sp.constrain("registers", _w8a8_regs)
+    sp.constrain("tile", _w8a8_tile)
+    sp.constrain("split_k<=slices", _w8a8_split)
+    sp.constrain("stages", _w8a8_stages)
     # Runtime operands arrive calibrated at a fixed granularity (their
     # scale shapes), pinning the tunable, as a deployed pool pins
     # paged_decode's page_size; offline sweeps (no extra) leave it free.
@@ -1050,21 +1134,41 @@ def _w8a8_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
 
 
 def _w8a8_heuristic(ctx: TuningContext) -> Config:
-    """What a port of the reference's default would hard-code: a mid-size
-    tile, epilogue dequant, the operands' granularity."""
-    return {"block_m": 64, "block_n": 128, "block_k": 64, "num_warps": 4,
-            "dequant": "epilogue",
-            "scale_gran": ctx.extra.get("scale_gran", "per_channel")}
+    """What a port of the reference's default would hard-code, epilogue
+    dequant at the operands' granularity. wgmma: at decode (M <= 32) 128 w
+    rows a block, x's rows padded to 8, 16 or 32, split four ways where K
+    has the slices; at prefill 128 x 128 tiles; four stages of 128 bytes
+    of K. mma.sync: a mid-size 64 x 128 tile, 64 deep, four warps."""
+    M, K = ctx.shape("x")
+    cfg = {"block_m": 64, "block_n": 128, "block_k": 64, "num_warps": 4,
+           "num_stages": 2, "split_k": 1, "dequant": "epilogue",
+           "scale_gran": ctx.extra.get("scale_gran", "per_channel")}
+    if _w8a8_path(ctx) == "mma_sync":
+        return cfg
+    if M <= 32:
+        cfg.update(block_m=min(v for v in mm8_kernel.SWAP_BLOCK_M if v >= M),
+                   split_k=4 if K >= 4 * 128 else 1)
+    else:
+        cfg.update(block_m=128)
+    return dict(cfg, block_k=128, num_warps=8, num_stages=4)
 
 
 def _w8a8_canonical(cfg: Config, ctx: TuningContext) -> Config:
-    """The tile the kernel launches (``matmul_w8a8.clamp_blocks``);
+    """The tile the kernel launches (``matmul_w8a8.clamp_blocks`` on the
+    context's path); on the wgmma path ``split_k`` as the splits that run
+    (``matmul_w8a8.effective_splits``: down where K is too short to
+    split), and on the mma.sync path none of the wgmma kernel's knobs.
     dequant stays (int32 or f32 accumulators are distinct programs)."""
     M, K = ctx.shape("x")
     N = ctx.shape("y")[1]
+    route = _w8a8_path(ctx)
     c = dict(cfg)
     c["block_m"], c["block_n"], c["block_k"] = mm8_kernel.clamp_blocks(
-        cfg["block_m"], cfg["block_n"], cfg["block_k"], M, N, K)
+        cfg["block_m"], cfg["block_n"], cfg["block_k"], M, N, K, route)
+    if route == "wgmma":
+        c["split_k"] = mm8_kernel.effective_splits(K, cfg["split_k"])
+    else:
+        c["num_stages"], c["split_k"] = 2, 1
     return c
 
 
@@ -1096,7 +1200,7 @@ def _w8a8_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
 MATMUL_W8A8 = TunableKernel(
     name="matmul_w8a8",
     space=matmul_w8a8_space(),
-    version=1,
+    version=2,
     workload_fn=_w8a8_workload,
     make_runner=_w8a8_runner,
     heuristic=_w8a8_heuristic,

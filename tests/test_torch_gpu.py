@@ -820,23 +820,91 @@ def test_matmul_w8a8_rejects_what_it_does_not_take(cuda):
         mm8_kernel.matmul_w8a8(x, w, xs, ws, block_m=48)
     with pytest.raises(ValueError, match="block_k"):
         mm8_kernel.matmul_w8a8(x, w, xs, ws, block_k=48)
-    big = w8a8_operands(1, 128, 64, 256, "per_channel", cuda)
+    # K 72: rows of no 16-byte multiple, the mma.sync kernel's registers
+    big = w8a8_operands(1, 128, 72, 256, "per_channel", cuda)
+    assert mm8_kernel.path(72) == "mma_sync"
     with pytest.raises(ValueError, match="registers"):
         mm8_kernel.matmul_w8a8(*big, block_m=128, block_n=256, num_warps=4)
     with pytest.raises(ValueError, match="registers"):
         mm8_kernel.matmul_w8a8(*big, block_m=128, block_n=128, num_warps=4,
                                dequant="inline")
+    # K 64: the wgmma kernel's registers (inline at 256 columns) and tiles
+    big = w8a8_operands(1, 128, 64, 256, "per_channel", cuda)
+    with pytest.raises(ValueError, match="registers"):
+        mm8_kernel.matmul_w8a8(*big, block_m=128, block_n=256,
+                               dequant="inline")
+    with pytest.raises(ValueError, match="wgmma kernel takes block_k"):
+        mm8_kernel.matmul_w8a8(*big, block_k=64)
+    with pytest.raises(ValueError, match="num_stages"):
+        mm8_kernel.matmul_w8a8(*big, num_stages=5)
+    with pytest.raises(ValueError, match="split_k"):
+        mm8_kernel.matmul_w8a8(*big, split_k=3)
     lib = mm8_kernel.LIB.load()
     for bm, bn, bk in ((16, 64, 64), (128, 256, 128), (64, 128, 32),
                        (32, 256, 96)):
         assert lib.matmul_w8a8_smem_bytes(bm, bn, bk) == \
             mm8_kernel.smem_bytes(bm, bn, bk)
-    # the C entry refuses what its templates do not instantiate
+    for bm, bn, st in ((8, 128, 8), (128, 256, 2), (64, 64, 3)):
+        assert lib.matmul_w8a8_wgmma_smem_bytes(bm, bn, st) == \
+            mm8_kernel.wgmma_smem_bytes(bm, bn, st)
+    for K, sk in ((8192, 16), (3072, 16), (256, 8)):
+        assert lib.matmul_w8a8_splits(K, sk) == \
+            mm8_kernel.effective_splits(K, sk)
+    # the C entries refuse what their templates do not instantiate
     out = torch.empty(16, 64, device=cuda)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert lib.matmul_w8a8_launch(
         x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         out.data_ptr(), 16, 64, 64, 128, 256, 64, 4, 0, 16, 0, stream) != 0
+    assert lib.matmul_w8a8_wgmma_launch(
+        x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), None, None, 16, 64, 64, 16, 256, 4, 1, 0, 0,
+        stream) != 0
+
+
+# phi4-mini's decode wo (8 x 8192 x 3072) and prefill wo (4096 x 8192 x
+# 3072): the wgmma kernel, swapped at decode
+W8A8_SERVING = [(8, 8192, 3072), (4096, 8192, 3072)]
+
+
+@pytest.mark.parametrize("shape", W8A8_SERVING,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_matmul_w8a8_wgmma_at_the_serving_shapes(cuda, shape):
+    """Every fourth valid config at one serving shape on the wgmma path
+    against the plain version, epilogue configs equal to the exact
+    integer-grid product."""
+    M, K, N = shape
+    args = w8a8_operands(M + N, M, K, N, "per_channel", cuda)
+    xq, wq, xs, ws = args
+    want = ref.matmul_w8a8(*args)
+    exact = (xq.float() @ wq.float()) * xs * ws
+    ctx = ops.matmul_w8a8_context(ops.device_chip(cuda.index or 0), M, K, N)
+    for cfg in ops.MATMUL_W8A8.space.valid_configs(ctx)[::4]:
+        before = mm8_kernel.matmul_w8a8.path_launches["wgmma"]
+        out = ops.matmul_w8a8(*args, config=cfg)
+        torch.cuda.synchronize()
+        assert mm8_kernel.matmul_w8a8.path_launches["wgmma"] == before + 1
+        torch.testing.assert_close(out, want, atol=W8A8_TOL, rtol=W8A8_TOL,
+                                   msg=lambda m: f"{cfg}: {m}")
+        if cfg["dequant"] == "epilogue":
+            assert torch.equal(out, exact), cfg
+
+
+def test_matmul_w8a8_split_k_is_exact_and_repeatable(cuda):
+    """At decode wo, epilogue dequant over 8 splits is bit-equal to one
+    split (int32 partials sum exactly), and inline dequant over 8 splits
+    gives the same bits on two launches (f32 partials in split order)."""
+    args = w8a8_operands(3, 8, 8192, 3072, "per_channel", cuda)
+    cfg = {"block_m": 8, "block_n": 128, "block_k": 128, "num_stages": 4}
+    one = mm8_kernel.matmul_w8a8(*args, split_k=1, **cfg)
+    eight = mm8_kernel.matmul_w8a8(*args, split_k=8, **cfg)
+    assert torch.equal(one, eight)
+    a = mm8_kernel.matmul_w8a8(*args, split_k=8, dequant="inline", **cfg)
+    b = mm8_kernel.matmul_w8a8(*args, split_k=8, dequant="inline", **cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, ref.matmul_w8a8(*args), atol=W8A8_TOL,
+                               rtol=W8A8_TOL)
 
 
 def test_w8a8_dense_serving_on_card_matches_cpu(cuda):
@@ -1274,6 +1342,25 @@ def test_matmul_configs_match_plain(cuda, shape, dtype):
                                    msg=lambda m: f"{cfg}: {m}")
 
 
+def test_matmul_wgmma_at_a_serving_shape(cuda):
+    """Every valid bf16 config at 2048^3 on the wgmma path, and (8, 3072)
+    x (3072, 64), against the plain version."""
+    chip = ops.device_chip(cuda.index or 0)
+    for M, K, N in ((2048, 2048, 2048), (8, 3072, 64)):
+        g = torch.Generator(device=cuda).manual_seed(M + K + N)
+        x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+        y = torch.randn(K, N, generator=g, device=cuda).bfloat16()
+        want = ref.matmul(x, y).float()
+        ctx = ops.matmul_context(chip, M, K, N, "bfloat16")
+        for cfg in ops.MATMUL.space.valid_configs(ctx):
+            before = mm_kernel.matmul.path_launches["wgmma"]
+            out = ops.matmul(x, y, config=cfg)
+            torch.cuda.synchronize()
+            assert mm_kernel.matmul.path_launches["wgmma"] == before + 1
+            torch.testing.assert_close(out.float(), want, atol=2e-2,
+                                       rtol=2e-2, msg=lambda m: f"{cfg}: {m}")
+
+
 def test_matmul_rejects_what_it_does_not_take(cuda):
     x = torch.randn(64, 64, device=cuda)
     with pytest.raises(ValueError, match="float16"):
@@ -1286,6 +1373,13 @@ def test_matmul_rejects_what_it_does_not_take(cuda):
         mm_kernel.matmul(torch.randn(256, 64, device=cuda),
                          torch.randn(64, 256, device=cuda), block_m=256,
                          block_n=256, num_warps=8)
+    xb = torch.randn(256, 64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="wgmma kernel takes block_m"):
+        mm_kernel.matmul(xb, xb.t().contiguous(), block_k=32)
+    lib = mm_kernel.LIB.load()
+    for bm, bn, st in ((64, 64, 2), (128, 256, 3), (128, 128, 4)):
+        assert lib.matmul_wgmma_smem_bytes(bm, bn, st) == \
+            mm_kernel.wgmma_smem_bytes(bm, bn, st)
 
 
 def test_fresh_default_tuner_hits_mm8k_in_the_shipped_db(cuda):

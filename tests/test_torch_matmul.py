@@ -7,7 +7,11 @@ ragged f32 case and one bf16 case. Then what the CPU can check of the
 Hopper kernel around it: its space keeps the reference's tunable names and
 every valid config fits one block's shared memory and registers,
 ``canonicalize`` clamps blocks to the shape, the workload counts 2·M·K·N
-operations, and a CPU tensor takes the plain version. Tolerances: the
+operations, and a CPU tensor takes the plain version; the version-2 space's
+fits equal the CUDA source's formulas (read out of ``csrc/matmul.cu``),
+each shape chip_smoke and the shipped DB use has valid configs and a valid
+heuristic, and the layout rule sends each to its kernel (wgmma, mma.sync
+or the f32 FMAs). Tolerances: the
 reference's (``tests/test_kernel_oracles.py`` ``_tol``): f32 1e-4, bf16
 2e-2. The CUDA kernel is held against the plain version on the card in
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -26,6 +30,8 @@ from repro.kernels.matmul import matmul as jax_matmul
 from repro_torch.core import cpu_host, get_chip, roofline_seconds
 from repro_torch.kernels import matmul as mm_kernel
 from repro_torch.kernels import ops, ref
+
+from test_torch_flash_hopper import c_function
 
 H100 = get_chip("NVIDIA H100 80GB HBM3 (SXM)")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -72,29 +78,52 @@ def test_space_keeps_the_reference_names_and_fits_the_card():
     theirs = [p.name for p in jops.MATMUL.space.params]
     assert names[:3] == theirs == ["block_m", "block_n", "block_k"]
     assert names[3:] == ["num_warps", "num_stages"]
+    assert ops.MATMUL.version == ops.MATMUL.space.version == 2
     for dtype, itemsize in (("bfloat16", 2), ("float32", 4)):
-        for M, K, N in ((8192, 8192, 8192), (256, 256, 256)):
+        for M, K, N in ((8192, 8192, 8192), (256, 256, 256), (200, 300, 136)):
             ctx = ops.matmul_context(H100, M, K, N, dtype)
             valid = ops.MATMUL.space.valid_configs(ctx)
             every = list(ops.MATMUL.space.iter_all())
             assert 0 < len(valid) < len(every)
+            wgmma = dtype == "bfloat16" and K % 8 == 0
             for cfg in every:
-                fits = (mm_kernel.smem_bytes(
-                    itemsize, cfg["block_m"], cfg["block_n"],
-                    cfg["block_k"], cfg["num_stages"]) <= H100.smem_per_block
-                    and cfg["block_m"] * cfg["block_n"]
-                    <= 4096 * cfg["num_warps"])
+                if wgmma:
+                    fits = (mm_kernel.wgmma_smem_bytes(
+                        cfg["block_m"], cfg["block_n"], cfg["num_stages"])
+                        <= H100.smem_per_block
+                        and cfg["block_m"] in (64, 128)
+                        and cfg["num_warps"] == cfg["block_m"] // 16
+                        and cfg["block_k"] == 64)
+                else:
+                    fits = (mm_kernel.smem_bytes(
+                        itemsize, cfg["block_m"], cfg["block_n"],
+                        cfg["block_k"], cfg["num_stages"])
+                        <= H100.smem_per_block
+                        and cfg["block_m"] * cfg["block_n"]
+                        <= 4096 * cfg["num_warps"])
                 assert (cfg in valid) == fits, cfg
-            assert ops.MATMUL.default_config(ctx) == {
-                "block_m": 128, "block_n": 128, "block_k": 32,
-                "num_warps": 4, "num_stages": 3}
+            assert ops.MATMUL.default_config(ctx) == (
+                {"block_m": 128, "block_n": 256, "block_k": 64,
+                 "num_warps": 8, "num_stages": 3} if wgmma else
+                {"block_m": 128, "block_n": 128, "block_k": 32,
+                 "num_warps": 4, "num_stages": 3})
     # bf16's stages fit where f32's do not: 256 x 128 x 64 over 4 stages
+    # on the mma.sync kernel (K 300: rows TMA cannot read)
     cfg = {"block_m": 256, "block_n": 128, "block_k": 64, "num_warps": 8,
            "num_stages": 4}
     assert ops.MATMUL.space.is_valid(
-        cfg, ops.matmul_context(H100, 256, 256, 256, "bfloat16"))
+        cfg, ops.matmul_context(H100, 256, 300, 256, "bfloat16"))
     assert ops.MATMUL.space.why_invalid(
         cfg, ops.matmul_context(H100, 256, 256, 256, "float32")) == "smem"
+    # the wgmma kernel holds 128 x 256 over three stages, not four
+    cfg = {"block_m": 128, "block_n": 256, "block_k": 64, "num_warps": 8,
+           "num_stages": 4}
+    mm8k = ops.matmul_context(H100, 8192, 8192, 8192, "bfloat16")
+    assert ops.MATMUL.space.why_invalid(cfg, mm8k) == "smem"
+    assert ops.MATMUL.space.is_valid(dict(cfg, num_stages=3), mm8k)
+    assert ops.MATMUL.space.why_invalid(dict(cfg, num_stages=3,
+                                             num_warps=4),
+                                        mm8k) == "registers"
 
 
 def test_canonicalize_clamps_blocks_to_the_shape():
@@ -109,6 +138,92 @@ def test_canonicalize_clamps_blocks_to_the_shape():
     assert ops.MATMUL.canonicalize(cfg, ragged) == cfg
     assert mm_kernel.clamp_blocks(256, 256, 64, 100, 130, 300) == \
         (128, 256, 64)
+    # the wgmma path: block_m to the warpgroups that cover M, num_warps
+    # after it, block_k the TMA box's 64 whatever K is
+    cfg = {"block_m": 128, "block_n": 256, "block_k": 64, "num_warps": 8,
+           "num_stages": 3}
+    decode = ops.matmul_context(cpu_host(), 8, 3072, 64, "bfloat16")
+    assert ops.MATMUL.canonicalize(cfg, decode) == {
+        "block_m": 64, "block_n": 64, "block_k": 64, "num_warps": 4,
+        "num_stages": 3}
+    assert mm_kernel.clamp_blocks(128, 256, 64, 8, 64, 16, "wgmma") == \
+        (64, 64, 64)
+    assert mm_kernel.clamp_blocks(128, 128, 64, 100, 200, 16, "wgmma") == \
+        (128, 128, 64)
+
+
+def test_wgmma_fits_equal_the_source():
+    """``wgmma_smem_bytes``, ``smem_bytes`` and ``regs_fit`` are
+    ``wgmma_smem``, ``smem_bytes`` and ``regs_fit`` of ``csrc/matmul.cu``."""
+    wgmma_smem = c_function("matmul.cu", "wgmma_smem")
+    mma_smem = c_function("matmul.cu", "smem_bytes")
+    regs = c_function("matmul.cu", "regs_fit")
+    for bm in mm_kernel.BLOCK_M:
+        for bn in mm_kernel.BLOCK_N:
+            for st in mm_kernel.NUM_STAGES:
+                assert mm_kernel.wgmma_smem_bytes(bm, bn, st) == \
+                    wgmma_smem(bm, bn, st)
+                for bk in mm_kernel.BLOCK_K:
+                    for item in (2, 4):
+                        assert mm_kernel.smem_bytes(item, bm, bn, bk, st) \
+                            == mma_smem(item, bm, bn, bk, st)
+            for nw in mm_kernel.NUM_WARPS:
+                assert mm_kernel.regs_fit(bm, bn, nw) == bool(
+                    regs(bm, bn, nw))
+
+
+# chip_smoke's matmul cases (ragged rows that TMA cannot read, decode-like
+# rows, the registry's m256), mm8k, and rows TMA can read at ragged M and N
+SHAPES = [(200, 300, 136), (37, 45, 29), (1000, 1030, 520), (8, 3072, 64),
+          (256, 256, 256), (8192, 8192, 8192), (1000, 1024, 520)]
+
+
+@pytest.mark.parametrize("dtype", ("bfloat16", "float32"))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_space_at_every_shape(shape, dtype):
+    """Valid configs and the heuristic among them; on the wgmma path each
+    config is a tile the kernel instantiates."""
+    M, K, N = shape
+    ctx = ops.matmul_context(H100, M, K, N, dtype)
+    valid = ops.MATMUL.space.valid_configs(ctx)
+    assert valid and ops.MATMUL.default_config(ctx) in valid
+    route = mm_kernel.path(getattr(torch, dtype), K, N)
+    for c in valid:
+        if route == "wgmma":
+            assert mm_kernel.wgmma_tile_ok(c["block_m"], c["block_k"],
+                                           c["num_warps"])
+            assert mm_kernel.wgmma_smem_bytes(
+                c["block_m"], c["block_n"], c["num_stages"]) <= \
+                H100.smem_per_block
+
+
+def test_layout_rule_sends_each_shape_to_its_kernel():
+    """mm8k, m256 in bf16 and a contiguous (8, 3072) x (3072, 64) take
+    wgmma; K 45, K 300 and N 29 (rows of no 16-byte multiple) and a base
+    off 16 bytes take mma.sync; float32 takes the FMAs. A pure function of
+    the layout, so the space and the wrapper agree."""
+    bf = torch.bfloat16
+    assert mm_kernel.path(bf, 8192, 8192) == "wgmma"
+    assert mm_kernel.path(bf, 256, 256) == "wgmma"
+    x = torch.empty(8, 3072, dtype=bf)
+    y = torch.empty(3072, 64, dtype=bf)
+    assert mm_kernel.path(bf, 3072, 64, x.data_ptr(), y.data_ptr()) == \
+        "wgmma"
+    assert mm_kernel.tma_layout_error(3072, 64, 2, x.data_ptr(),
+                                      y.data_ptr()) is None
+    for K, N in ((45, 29), (300, 136), (1030, 520), (64, 29)):
+        assert mm_kernel.path(bf, K, N) == "mma_sync", (K, N)
+        assert "16-byte" in mm_kernel.tma_layout_error(K, N, 2)
+    flat = torch.empty(8 * 64 + 8, dtype=bf)
+    off = flat[1:1 + 8 * 64].view(8, 64)
+    assert mm_kernel.path(bf, 64, 64, off.data_ptr(), y.data_ptr()) == \
+        "mma_sync"
+    assert "aligned" in mm_kernel.tma_layout_error(64, 64, 2,
+                                                   off.data_ptr(), 0)
+    assert mm_kernel.path(torch.float32, 8192, 8192) == "fma"
+    for M, K, N in SHAPES:
+        ctx = ops.matmul_context(H100, M, K, N, "bfloat16")
+        assert ops._mm_path(ctx) == mm_kernel.path(bf, K, N)
 
 
 def test_workload_counts_two_mkn_operations():

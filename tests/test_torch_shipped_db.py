@@ -114,8 +114,8 @@ KERNEL_SOURCES = {
                             "e30dcb0c97bd53a2"),
     "gqa_decode_kv8": (1, ("csrc/gqa_decode_kv8.cu",), "119b40526bc0644d"),
     "gqa_decode_ragged": (1, ("csrc/gqa_decode.cu",), "2abf051c8f7540de"),
-    "matmul": (1, ("csrc/matmul.cu",), "894a4aae4af34d6d"),
-    "matmul_w8a8": (1, ("csrc/matmul_w8a8.cu",), "b757f3f19d4e8439"),
+    "matmul": (2, ("csrc/matmul.cu",), "68f21caaa118627a"),
+    "matmul_w8a8": (2, ("csrc/matmul_w8a8.cu",), "a4952bcb68e9f36b"),
     "mla_decode": (1, ("csrc/mla_decode.cu",), "19cece73424a9f20"),
     "paged_decode": (1, ("csrc/paged_decode.cu",), "32ead95c5e8836ea"),
     "paged_verify": (1, ("csrc/paged_verify.cu",), "eccc60eb571ab384"),

@@ -751,27 +751,40 @@ W8A8_SERVING = [(8, 3072, 16384), (8, 8192, 3072), (4096, 3072, 16384),
 
 
 def test_matmul_w8a8_space_workload_and_canonical_dedupe():
-    """The w8a8 GEMM's Hopper space: tens of valid configs a granularity,
-    each within shared memory and the registers the source instantiates;
-    a workload of 2·M·K·N int8 operations over the bytes each operand
-    needs once; the roofline bounds of the serving GEMMs (decode by bytes,
-    prefill by operations); configs clamping to one tile timed once."""
+    """The w8a8 GEMM's Hopper space (version 2): at decode wi 100 valid
+    configs of the wgmma kernel (the operands swapped, x's 8 rows as
+    wgmma's N, split-K), each within shared memory and the registers the
+    source instantiates; a workload of 2·M·K·N int8 operations over the
+    bytes each operand needs once; the roofline bounds of the serving
+    GEMMs (decode by bytes, prefill by operations); on the mma.sync path
+    (K 200) configs clamping to one tile timed once."""
     from repro_torch.kernels import matmul_w8a8 as mm8_kernel
     space = ops.MATMUL_W8A8.space
+    assert space.version == ops.MATMUL_W8A8.version == 2
     ctx = ops.matmul_w8a8_context(H100_SXM, 8, 3072, 16384)
     valid = space.valid_configs(ctx)
     assert valid == _valid_by_brute_force(space, ctx)
-    assert len(valid) == 86
+    assert len(valid) == 100
     for c in valid:
-        assert c["scale_gran"] == "per_channel"
-        assert mm8_kernel.regs_fit(c["block_m"], c["block_n"],
-                                   c["num_warps"], c["dequant"])
+        assert c["scale_gran"] == "per_channel" and c["block_m"] == 8
+        assert mm8_kernel.wgmma_regs_fit(c["block_m"], c["block_n"],
+                                         c["dequant"])
         assert ops._w8a8_smem(c, ctx) <= H100_SXM.smem_per_block
     assert space.why_invalid(dict(valid[0], block_m=128, block_n=256,
-                                  num_warps=4), ctx) == "registers"
+                                  num_warps=4), ctx) == "tile"
+    prefill = ops.matmul_w8a8_context(H100_SXM, 4096, 3072, 16384)
+    cfg = {"block_m": 128, "block_n": 256, "block_k": 128, "num_warps": 8,
+           "num_stages": 4, "split_k": 1, "dequant": "inline",
+           "scale_gran": "per_channel"}
+    assert space.why_invalid(cfg, prefill) == "registers"
+    assert space.is_valid(dict(cfg, dequant="epilogue"), prefill)
+    assert space.why_invalid(dict(cfg, dequant="epilogue", split_k=2),
+                             prefill) == "tile"
     assert mm8_kernel.smem_bytes(128, 256, 128) == 2 * 384 * 144
+    assert mm8_kernel.wgmma_smem_bytes(128, 256, 4) == 1280 + 4 * 128 * 384
     heur = ops.MATMUL_W8A8.default_config(ctx)
     assert heur in valid and heur["dequant"] == "epilogue"
+    assert heur["split_k"] == 4
     # bytes and bounds of the serving GEMMs (PERF.md row 4)
     want_bytes = [50946080, 25341984, 331431936, 109080576]
     want_ms = [50946080 / 3.35e9, 25341984 / 3.35e9,
@@ -788,18 +801,23 @@ def test_matmul_w8a8_space_workload_and_canonical_dedupe():
         assert t * 1e3 == pytest.approx(ms)
     assert ops.matmul_w8a8_bytes(8, 64, 32, "per_tensor") == \
         8 * 64 + 64 * 32 + 4 * 8 * 32 + 8
-    # decode's 8 rows clamp every block_m to 16: 24 programs of 86
-    canon = {tuple(sorted(ops._w8a8_canonical(c, ctx).items()))
-             for c in valid}
-    assert len(canon) == 24
+    # decode's 8 rows at K 200 (mma.sync) clamp every block_m to 16: 16
+    # programs of 86
+    ragged = ops.matmul_w8a8_context(H100_SXM, 8, 200, 96)
+    rvalid = space.valid_configs(ragged)
+    canon = {tuple(sorted(ops._w8a8_canonical(c, ragged).items()))
+             for c in rvalid}
+    assert len(rvalid) == 86 and len(canon) == 16
     assert {dict(c)["block_m"] for c in canon} == {16}
     backend = _FakeBackend(lambda c: 1.0 + c["block_k"])
-    entry = Autotuner(backend=backend).tune(ops.MATMUL_W8A8, ctx)
+    entry = Autotuner(backend=backend).tune(ops.MATMUL_W8A8, ragged)
     assert backend.calls == len(canon) < entry.n_evaluated == 86
     assert mm8_kernel.clamp_blocks(128, 256, 128, 100, 96, 200) == \
         (128, 128, 128)
     assert mm8_kernel.clamp_blocks(64, 256, 128, 8, 3072, 16) == \
         (16, 256, 32)
+    assert mm8_kernel.clamp_blocks(64, 256, 128, 8, 3072, 16, "wgmma") == \
+        (8, 128, 128)
 
 
 def test_matmul_w8a8_operands_and_the_scale_gran_pin(monkeypatch):

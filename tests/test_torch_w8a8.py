@@ -12,8 +12,12 @@ with a seed. Tolerances: the reference's (``tests/test_kernel_oracles.py``
 ``_tol``): f32 1e-4, int8 2e-3 (rtol 1e-4); ``qmatmul`` sim to 1e-6, since
 its integer-grid float32 sums are exact (every partial sum here stays far
 below 2**24) and the scales multiply in the same order on both sides.
-The CUDA kernel is held against the plain version on the card in
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+The Hopper kernels' host-side rules are checked too: the fits equal the
+CUDA source's formulas, the version-2 space has valid configs and a valid
+heuristic at every shape chip_smoke and the shipped DB use, the layout
+rule sends each shape to wgmma or mma.sync, and split_k falls where K is
+too short to split. The CUDA kernels are held against the plain version on
+the card in ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
 import dataclasses
@@ -42,6 +46,8 @@ from repro_torch.quant import (
     QTensor, calibrate, qmatmul, quantize_params, quantize_tensor,
 )
 from repro_torch.serving import ServingEngine
+
+from test_torch_flash_hopper import c_function
 
 ARCH = "phi4-mini-3.8b"
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -185,6 +191,124 @@ def test_matmul_w8a8_cpu_runs_plain_and_counts_nothing():
         mm8_kernel.matmul_w8a8(xq, w, xs, ws, scale_gran="per_tensor")
     with pytest.raises(ValueError, match="int8"):
         mm8_kernel.matmul_w8a8(xq.float(), w, xs, ws)
+
+
+# The Hopper kernels' host-side rules: what decides which kernel a launch
+# takes and which configs the version-2 space holds is Python; the fits
+# equal the CUDA source's formulas (read out of csrc/matmul_w8a8.cu).
+# chip_smoke's shapes: phi4-mini's four serving GEMMs, its ragged ones, and
+# the shipped DB's two.
+W8A8_SERVING = [(4096, 3072, 16384), (4096, 8192, 3072), (8, 3072, 16384),
+                (8, 8192, 3072)]
+W8A8_RAGGED = [(M, K, N) for M in (8, 100, 257) for K in (200, 3072)
+               for N in (96, 3072)]
+W8A8_DB = [(8192, 8192, 8192), (512, 4096, 4096)]
+
+
+def test_w8a8_fits_equal_the_source():
+    """``wgmma_smem_bytes``, ``wgmma_regs_fit`` and ``effective_splits``
+    are the source's ``wgmma_smem``, ``wgmma_regs_fit`` and
+    ``effective_splits``."""
+    wgmma_smem = c_function("matmul_w8a8.cu", "wgmma_smem")
+    wgmma_regs = c_function("matmul_w8a8.cu", "wgmma_regs_fit")
+    splits = c_function("matmul_w8a8.cu", "effective_splits")
+    for bm in mm8_kernel.BLOCK_M:
+        for bn in mm8_kernel.BLOCK_N:
+            for st in mm8_kernel.NUM_STAGES:
+                assert mm8_kernel.wgmma_smem_bytes(bm, bn, st) == \
+                    wgmma_smem(bm, bn, st)
+            n = bm if mm8_kernel.swapped(bm) else bn
+            for dq in ("epilogue", "inline"):
+                assert mm8_kernel.wgmma_regs_fit(bm, bn, dq) == bool(
+                    wgmma_regs(n, dq == "inline"))
+    for K in (16, 128, 200, 3072, 8192, 8320):
+        for sk in mm8_kernel.SPLIT_K:
+            assert mm8_kernel.effective_splits(K, sk) == splits(K, sk)
+
+
+@pytest.mark.parametrize("gran", ["per_channel", "per_tensor"])
+@pytest.mark.parametrize(
+    "shape", W8A8_SERVING + W8A8_RAGGED + W8A8_DB,
+    ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_space_at_every_shape(shape, gran):
+    """Valid configs and the heuristic among them at each granularity; on
+    the wgmma path the operands swap roles exactly at M <= 32, split-K only
+    there, and every config is a tile the kernel instantiates; on the
+    mma.sync path none of the wgmma kernel's knobs moves."""
+    from repro_torch.core.hardware import chip_from_properties
+    h100 = chip_from_properties("NVIDIA H100 80GB HBM3", 132, 232448,
+                                50 * 2**20, 80 * 2**30)
+    M, K, N = shape
+    ctx = ops.matmul_w8a8_context(h100, M, K, N, gran)
+    valid = ops.MATMUL_W8A8.space.valid_configs(ctx)
+    assert valid and ops.MATMUL_W8A8.default_config(ctx) in valid
+    route = mm8_kernel.path(K)
+    for c in valid:
+        assert c["scale_gran"] == gran
+        if route == "wgmma":
+            assert mm8_kernel.swapped(c["block_m"]) == (M <= 32)
+            assert c["split_k"] == 1 or M <= 32
+            assert mm8_kernel.wgmma_tile_ok(c["block_m"], c["block_n"],
+                                            c["block_k"], c["num_warps"])
+            assert mm8_kernel.wgmma_regs_fit(c["block_m"], c["block_n"],
+                                             c["dequant"])
+            assert mm8_kernel.wgmma_smem_bytes(
+                c["block_m"], c["block_n"], c["num_stages"]) <= \
+                h100.smem_per_block
+        else:
+            assert c["num_stages"] == 2 and c["split_k"] == 1
+            assert mm8_kernel.regs_fit(c["block_m"], c["block_n"],
+                                       c["num_warps"], c["dequant"])
+    if route == "wgmma" and M <= 32:
+        assert max(c["split_k"] for c in valid) == 16
+
+
+def test_w8a8_layout_rule_sends_each_shape_to_its_kernel():
+    """K a multiple of 16 with aligned bases takes wgmma (every serving
+    and DB shape, K 3072 and 8192), K 200 takes mma.sync, as does a base
+    off 16 bytes. A pure function of the layout."""
+    for M, K, N in W8A8_SERVING + W8A8_DB:
+        assert mm8_kernel.path(K) == "wgmma"
+    assert mm8_kernel.path(200) == "mma_sync"
+    assert "16-byte" in mm8_kernel.tma_layout_error(200)
+    x = torch.empty(8, 3072, dtype=torch.int8)
+    w = torch.empty(64, 3072, dtype=torch.int8)
+    assert mm8_kernel.path(3072, x.data_ptr(), w.data_ptr()) == "wgmma"
+    flat = torch.empty(8 * 3072 + 16, dtype=torch.int8)
+    off = flat[4:4 + 8 * 3072]
+    assert mm8_kernel.path(3072, off.data_ptr(), w.data_ptr()) == \
+        "mma_sync"
+    assert "aligned" in mm8_kernel.tma_layout_error(3072, off.data_ptr())
+
+
+def test_w8a8_split_k_canonicalises_down_where_k_is_short():
+    """The splits that run: each takes ceil(slices / split_k) slices of 128
+    bytes of K and none is empty, so split_k falls where K has too few
+    slices; canonical configs that launch the same splits are timed once.
+    The space holds no more splits than slices."""
+    from repro_torch.core import cpu_host
+    cfg = {"block_m": 8, "block_n": 128, "block_k": 128, "num_warps": 8,
+           "num_stages": 4, "split_k": 16, "dequant": "epilogue",
+           "scale_gran": "per_channel"}
+    for K, want in ((128, 1), (256, 2), (1024, 8), (3072, 12), (8192, 16)):
+        ctx = ops.matmul_w8a8_context(cpu_host(), 8, K, 3072)
+        canon = ops.MATMUL_W8A8.canonicalize(cfg, ctx)
+        assert canon["split_k"] == want, K
+        assert mm8_kernel.effective_splits(K, 16) == want
+    short = ops.matmul_w8a8_context(cpu_host(), 8, 256, 3072)
+    assert ops.MATMUL_W8A8.space.why_invalid(cfg, short) == \
+        "split_k<=slices"
+    assert ops.MATMUL_W8A8.space.is_valid(dict(cfg, split_k=2), short)
+    # K 200 takes mma.sync: split_k and num_stages canonicalise away
+    ragged = ops.matmul_w8a8_context(cpu_host(), 8, 200, 96)
+    canon = ops.MATMUL_W8A8.canonicalize(
+        dict(cfg, block_k=64, num_warps=4, split_k=4), ragged)
+    assert canon["split_k"] == 1 and canon["num_stages"] == 2
+    assert canon["block_m"] == 16
+    assert mm8_kernel.clamp_blocks(8, 128, 128, 8, 100, 128, "wgmma") == \
+        (8, 128, 128)
+    assert mm8_kernel.clamp_blocks(128, 256, 128, 100, 96, 3072,
+                                   "wgmma") == (128, 128, 128)
 
 
 def test_qmatmul_matches_the_reference():
