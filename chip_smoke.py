@@ -18,6 +18,9 @@ Phases, each failing loudly:
   3. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, for every valid config of its space, with its time, the
      plain version's, a yardstick library call's and the roofline bound;
+     ``paged_decode`` (version 2: ``kv_splits`` blocks a row in one
+     thread-block cluster, a ring of two chunks) also bit-equal
+     across two calls at ``kv_splits`` 8, float and int8 pools;
      ``gqa_decode_kv8`` and the int8 branches of ``paged_decode`` and
      ``paged_verify`` (depths 2, 4, 8) for q in bf16 and in f32; the fixed
      configs of off-space layouts (float and int8 pages of 4 and 256, a
@@ -51,7 +54,11 @@ Phases, each failing loudly:
      valid ``paged_decode`` (float and int8) and ``paged_verify`` (float
      and int8) config at the pool layouts the
      tuning chose (the tuned ones among them) against the plain versions,
-     and the tuned ones timed; the kv8 dense serving context tuned and
+     and the tuned ones timed (``paged_decode`` asserted on its bulk-copy
+     path); ``paged_decode`` at the shipped deployment shape (phi4-mini,
+     16 sequences of 32,768 slots, bf16 and int8 pools) under the shipped
+     configs, beside SDPA and the bound; the kv8 dense serving context
+     tuned and
      timed; the four ``matmul_w8a8`` contexts of a w8a8 dense run
      (prefill and decode rows, ``wi`` and ``wo``) tuned and timed beside
      the plain version, ``torch._int_mm`` and a bf16 ``torch.matmul``;
@@ -71,7 +78,8 @@ Phases, each failing loudly:
      prefill chunks of 256, once by plain decode and once by speculative
      decode (``--speculative``: draft and verify, depth from the tuned
      deployment entry), with the kernels' launch counts read around each
-     run; the two runs' tokens must agree; the same requests with
+     run (every ``paged_decode`` launch on its bulk-copy path, float and
+     int8); the two runs' tokens must agree; the same requests with
      ``--quant kv8`` (int8 page pools) through the int8 branch of
      ``paged_decode`` and through the plain versions, streams equal 8/8;
      then ``--quant kv8 --speculative`` through the int8 branch of
@@ -456,7 +464,23 @@ def check_paged_decode(chip) -> dict:
         ctx, _, worst = check_paged_layout(chip, name, args, ps, max_pages)
         out["max_abs_err"] = max(out["max_abs_err"], worst)
         time_heuristic(chip, ops.PAGED_DECODE, ctx, args, ps, max_pages)
+        splits_repeatable(name, args, ctx)
     return out
+
+
+def splits_repeatable(name, args, ctx, scales=None) -> None:
+    """Two calls at kv_splits 8 (eight blocks a row, merged by rank 0 in
+    rank order) give the same bits."""
+    from repro_torch.kernels import ops
+    cfg = next(c for c in ops.PAGED_DECODE.space.valid_configs(ctx)
+               if c["kv_splits"] == 8)
+    scales = scales or {}
+    one = ops.paged_decode(*args, **scales, config=cfg)
+    two = ops.paged_decode(*args, **scales, config=cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"paged_decode {name} {cfg}: two calls differ")
+    print(f"  kv_splits 8 ({cfg}): two calls bit-equal")
 
 
 def check_paged_decode_kv8(chip) -> dict:
@@ -478,6 +502,68 @@ def check_paged_decode_kv8(chip) -> dict:
         if q_dtype == torch.bfloat16:
             time_heuristic(chip, ops.PAGED_DECODE, ctx, args, ps, max_pages,
                            scales)
+        splits_repeatable(name, args, ctx, scales)
+    return out
+
+
+def on_bulk_path(run):
+    """``run()``, asserting that every paged_decode launch it makes copies
+    its chunks by bulk copies (none by cp.async); returns its result."""
+    from repro_torch.kernels import paged_decode as pd_kernel
+    before = dict(pd_kernel.paged_decode.path_launches)
+    out = run()
+    after = pd_kernel.paged_decode.path_launches
+    if after["cp_async"] != before["cp_async"] or \
+            after["bulk"] == before["bulk"]:
+        raise AssertionError(f"paged_decode left the bulk path: {before} "
+                             f"-> {after}")
+    return out
+
+
+def time_deployment(chip, tuner, full_cfg) -> dict:
+    """paged_decode at the shipped deployment shape (16 sequences of
+    32,768 slots, the runner's seed-7 lengths) under the shipped config,
+    bf16 and int8 pools (q bf16), held against the plain version and
+    timed beside SDPA over K/V pre-gathered (int8: dequantized to bf16
+    beforehand, not timed) and the bound. o there is a softmax-weighted
+    mean of about 18k random rows, |o| about 0.05, so the bf16 limit is
+    taken relative to the plain version's largest |o|."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    out = {}
+    for quant in (None, "kv8"):
+        ctx = serve.deployment_context(full_cfg, chip, quant)
+        cfg = tuner.best_config(ops.PAGED_DECODE, ctx)
+        ps = cfg["page_size"]
+        run = ops._paged_runner(cfg, ctx)     # the tuner's own operands
+        args, scales = run.args, {k: run.kwargs[k] for k in
+                                  ("k_scales", "v_scales") if k in run.kwargs}
+        got = run().float()
+        want = ref.paged_decode(*args, **scales).float()
+        err = float((got - want).abs().max())
+        limit = BF16_TOL * float(want.abs().max())
+        if err > limit:
+            raise AssertionError(f"paged_decode at the deployment shape "
+                                 f"{cfg}: max abs err {err} > {limit}")
+        kernel_ms = on_bulk_path(lambda: timer().time_runner(run)) * 1e3
+        yard = args
+        if scales:
+            pools = ((args[1], scales["k_scales"]),
+                     (args[2], scales["v_scales"]))
+            yard = (args[0], *((pool.float() * sc[..., None]).bfloat16()
+                               for pool, sc in pools), *args[3:])
+        bound_ms, by = bound(ops._paged_workload(cfg, ctx), chip)
+        label = "int8" if quant else "bf16"
+        out[label] = {"max_abs_err": err, "limit": limit,
+                      "kernel_ms": kernel_ms,
+                      "library_ms": sdpa_ms(yard, ps * args[3].shape[1]),
+                      "bound_ms": bound_ms, "bound_by": by,
+                      "kv_tokens": int(args[4].sum()), "config": cfg}
+        print(f"paged_decode at the deployment shape ({label} pools, "
+              f"{ctx.shapes}, the shipped config): " + json.dumps(out[label]))
+        del args, scales, yard, run, got, want
+        ops.release_tuning_operands()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2099,6 +2185,7 @@ def kv8_paged_serving(engine, reqs, bf16_reqs, counters) -> dict:
     the plain path, no failed request; how many streams equal the bf16
     paged run's is printed, not held. Returns the kernel run's report and
     launch counts."""
+    from repro_torch.kernels import paged_decode as pd_kernel
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving import Request, ServingEngine
@@ -2117,9 +2204,14 @@ def kv8_paged_serving(engine, reqs, bf16_reqs, counters) -> dict:
                            ("plain", plain_engine, plain_reqs)):
         for fn in counters.values():
             fn.launches = 0
+        pd_kernel.paged_decode.path_launches = {"bulk": 0, "cp_async": 0}
         report = serve.serve(eng, rs)
         launches = {k: fn.launches for k, fn in counters.items()}
         runs[label] = (report, launches)
+        if label == "kernel":
+            assert pd_kernel.paged_decode.path_launches == {
+                "bulk": launches["paged_decode"], "cp_async": 0}, \
+                pd_kernel.paged_decode.path_launches
         print(f"run report (--quant kv8, {label}): "
               + json.dumps(report, sort_keys=True))
         print(f"launches in the run (--quant kv8, {label}): "
@@ -3168,7 +3260,9 @@ def main(argv=None) -> int:
                                  f"{contexts[name]} is not among the "
                                  f"configs checked under {ctx}")
         out["max_abs_err"] = max(out["max_abs_err"], worst)
-        out.update(time_paged(chip, args, tuned, ps, max_pages))
+        timed = functools.partial(time_paged, chip, args, tuned, ps,
+                                  max_pages)
+        out.update(on_bulk_path(timed) if name == "paged_decode" else timed())
         print(f"{name} at the serving layout (page {ps}, {max_pages} "
               f"pages a table) under {tuned}: " + json.dumps(
                   {k: v for k, v in out.items() if k != "max_abs_err"}))
@@ -3190,12 +3284,15 @@ def main(argv=None) -> int:
                              f"{kv8_ctx} is not among the configs checked "
                              f"under {ctx}")
     pd8["max_abs_err"] = max(pd8["max_abs_err"], worst)
-    pd8.update(time_paged(chip, args, kv8_tuned, ps8, mp8, scales),
+    pd8.update(on_bulk_path(lambda: time_paged(chip, args, kv8_tuned, ps8,
+                                               mp8, scales)),
                library="SDPA over the pools pre-gathered and dequantized "
                        "to bf16 (dequant not timed)")
     print(f"paged_decode int8 at the kv8 serving layout (page {ps8}, {mp8} "
           f"pages a table) under {kv8_tuned}: " + json.dumps(
               {k: v for k, v in pd8.items() if k != "max_abs_err"}))
+    ops.release_tuning_operands()
+    time_deployment(chip, tuner, full_cfg)
     # The kv8 speculative engine's layout: the int8 verify context (q bf16)
     # at its pool and depth
     ((pv8_tunable, pv8_ctx),) = [(k, c) for k, c in
@@ -3287,14 +3384,16 @@ def main(argv=None) -> int:
                 "rms_norm": rms_kernel.rms_norm}
     n_layers = engine.cfg.n_layers
     assert n_layers == 32 and engine.cfg.d_model == 3072
-    runs = {}
+    runs, paths = {}, {}
     for label, eng, rs in (("plain", engine, reqs),
                            (f"--speculative {K}", spec_engine, spec_reqs)):
         for fn in counters.values():
             fn.launches = 0
+        pd_kernel.paged_decode.path_launches = {"bulk": 0, "cp_async": 0}
         report = serve.serve(eng, rs)
         launches = {k: fn.launches for k, fn in counters.items()}
         runs[label] = (report, launches)
+        paths[label] = dict(pd_kernel.paged_decode.path_launches)
         print(f"run report ({label}): " + json.dumps(report, sort_keys=True))
         print(f"launches in the run ({label}): " + json.dumps(launches))
         assert report["lifecycle"]["terminal"] == len(rs) == 8
@@ -3310,6 +3409,9 @@ def main(argv=None) -> int:
     (report, launches), (spec_report, spec_launches) = runs.values()
     assert launches["paged_decode"] == report["decode_steps"] * n_layers, \
         launches
+    assert paths["plain"] == {"bulk": launches["paged_decode"],
+                              "cp_async": 0}, paths
+    print(f"paged_decode launches by path (plain run): {paths['plain']}")
     assert launches["paged_verify"] == 0, launches
     sp = spec_report["speculative"]
     assert sp["draft_k"] == K and not sp["degraded"], sp

@@ -14,7 +14,7 @@ tuner's ``CudaEventTimer`` times every valid config on the card (the
 reference's cost-model backend is not ported).
 
 The whole tune takes tens of minutes, most of it the paged deployments
-(about 1,500 configs an arch). So the file is written after each entry,
+(paged_decode 300-600 configs each). So the file is written after each entry,
 and the entries already in it are kept and not tuned again: a run that is
 cut keeps what it finished, and ``--kernels`` splits the tune over several
 runs. A scenario whose tune fails is left out and the run exits 1.

@@ -137,6 +137,12 @@ def _paged_smem(cfg: Config, ctx: TuningContext) -> int:
                                 cfg["num_warps"])
 
 
+def _paged_chunks(cfg: Config, ctx: TuningContext) -> int:
+    """Chunks of ``block_kv`` tokens in the pool's capacity."""
+    cap = _rup(ctx.shape("k")[2], cfg["page_size"])
+    return _cdiv(cap, cfg["block_kv"])
+
+
 def paged_decode_space() -> ConfigSpace:
     sp = ConfigSpace(
         "paged_decode",
@@ -145,12 +151,16 @@ def paged_decode_space() -> ConfigSpace:
             Param("block_kv", BLOCK_KV),
             Param("pack_gqa", (True, False)),
             Param("num_warps", (2, 4, 8)),
+            Param("kv_splits", pd_kernel.KV_SPLITS),
         ],
-        version=1,
+        version=2,
     )
     sp.constrain("smem", smem_fits(_paged_smem))
-    sp.constrain("block_kv%page_size",
-                 lambda c, x: c["block_kv"] % c["page_size"] == 0)
+    # A chunk is whole pages, or a part of one page (the bulk copies start
+    # mid-page), so a large page still streams in small chunks.
+    sp.constrain("block_kv:page_size",
+                 lambda c, x: c["block_kv"] % c["page_size"] == 0
+                 or c["page_size"] % c["block_kv"] == 0)
     sp.constrain(
         "block_kv<=capacity",
         lambda c, x: c["block_kv"] <= _rup(x.shape("k")[2], c["page_size"]))
@@ -164,6 +174,13 @@ def paged_decode_space() -> ConfigSpace:
     sp.constrain("pack_gqa:group",
                  lambda c, x: not c["pack_gqa"]
                  or 1 < _group(x) <= pd_kernel.MAX_PACKED_GROUP)
+    # No split smaller than one chunk: it would run as a smaller split does.
+    sp.constrain("kv_splits<=chunks",
+                 lambda c, x: c["kv_splits"] <= _paged_chunks(c, x))
+    # The splits of a row run as one thread-block cluster: at most the
+    # portable cluster size, which any SM layout of the card can hold.
+    sp.constrain("cluster",
+                 lambda c, x: c["kv_splits"] <= pd_kernel.MAX_CLUSTER)
     return sp
 
 
@@ -218,14 +235,21 @@ def _paged_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
 
 
 def _paged_heuristic(ctx: TuningContext) -> Config:
-    """vLLM-style default: 16-token pages, 64 rows per step, packed heads."""
+    """vLLM-style default: 16-token pages, 64 rows per step, packed heads;
+    the fewest splits that give every SM a block."""
     ps = int(ctx.extra.get("page_size", 16))
     cap = _rup(ctx.shape("k")[2], ps)
     fits = [v for v in BLOCK_KV if v % ps == 0 and v <= max(64, ps)
             and v <= cap]
-    return {"page_size": ps, "block_kv": max(fits) if fits else ps,
-            "pack_gqa": 1 < _group(ctx) <= pd_kernel.MAX_PACKED_GROUP,
-            "num_warps": 4}
+    block_kv = max(fits) if fits else ps
+    pack = 1 < _group(ctx) <= pd_kernel.MAX_PACKED_GROUP
+    B, Hq = ctx.shape("q")[:2]
+    rows = B * (ctx.shape("k")[1] if pack else Hq)
+    splits = [s for s in pd_kernel.KV_SPLITS if s <= _cdiv(cap, block_kv)]
+    kv_splits = next((s for s in splits if rows * s >= ctx.chip.sm_count),
+                     splits[-1])
+    return {"page_size": ps, "block_kv": block_kv, "pack_gqa": pack,
+            "num_warps": 4, "kv_splits": kv_splits}
 
 
 def _pool_operands(ctx: TuningContext, ps: int, lens: torch.Tensor,
@@ -273,13 +297,14 @@ def _paged_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
         lambda: _pool_operands(ctx, ps, _ragged_lens(ctx), "cuda"))
     return KernelRunner(pd_kernel.paged_decode, *args, **kw,
                         block_kv=cfg["block_kv"], pack_gqa=cfg["pack_gqa"],
-                        num_warps=cfg["num_warps"])
+                        num_warps=cfg["num_warps"],
+                        kv_splits=cfg["kv_splits"])
 
 
 PAGED_DECODE = TunableKernel(
     name="paged_decode",
     space=paged_decode_space(),
-    version=1,
+    version=2,
     workload_fn=_paged_workload,
     make_runner=_paged_runner,
     heuristic=_paged_heuristic,
@@ -308,16 +333,17 @@ def paged_decode_fixed_config(group: int, D: int, page_size: int,
                               itemsize: int) -> Config:
     """What a pool with an off-space page size dispatches, untuned: the
     reference's one page per step with packed heads
-    (``src/repro/kernels/ops.py:836-840``), the block halved until it fits
-    in shared memory (pages of 256 at bf16 and D 128 would stage 256 KB).
-    ``itemsize`` is the pool's (1 for int8, whose rows stage their
-    scales too), not q's."""
+    (``src/repro/kernels/ops.py:836-840``), one block a row, the block
+    halved until it fits in shared memory (pages of 256 at bf16 and D 128
+    would stage 256 KB). ``itemsize`` is the pool's (1 for int8, whose
+    rows stage their scales too), not q's."""
     pack = 1 < group <= pd_kernel.MAX_PACKED_GROUP
     block_kv = _fixed_block_kv(
         page_size, lambda bkv: pd_kernel.smem_bytes(D, itemsize, bkv, group,
                                                     pack, 4),
         pd_kernel.MAX_SMEM_BYTES)
-    return {"block_kv": block_kv, "pack_gqa": pack, "num_warps": 4}
+    return {"block_kv": block_kv, "pack_gqa": pack, "num_warps": 4,
+            "kv_splits": 1}
 
 
 def paged_decode_config(q, k_pages, block_tables,

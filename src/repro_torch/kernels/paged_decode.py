@@ -4,24 +4,29 @@ The CUDA C++ kernel replaces the TPU kernel ``paged_decode`` of
 ``src/repro/kernels/paged_decode.py``, both its branches: float pools
 (q's dtype) and int8 pools with per-token f32 scale pools (the kv8
 policy); the source's header note says what bounds it on Hopper (HBM
-bytes) and how its design answers that.
+bytes) and how its design answers that: each (sequence, head) row split
+over a thread-block cluster of ``kv_splits`` blocks whose partials merge
+in distributed shared memory, and a ring of two chunks fed by bulk
+copies.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``LIB``, ``kernels.build``) and
 loaded with ``ctypes``. Tensor pointers and the current stream go in as
 ``c_void_p``; the C function returns ``cudaGetLastError()`` and the
-wrapper raises on anything but 0.
+wrapper raises on anything but 0 (a cluster the card cannot hold
+resident is refused, never launched another way).
 
-Tunables (``kernels.ops.PAGED_DECODE``): ``block_kv`` rows staged in
-shared memory per step, ``pack_gqa`` (one block per KV head scoring its
-whole query group, or one block per query head) and ``num_warps``. The
-tuned space takes multiples of the pool's page size; the kernel takes any
-positive ``block_kv``, because its copies chase the block table row by
-row, and a block smaller than a page is what the fixed config of a pool
-with an off-space page size uses where a whole page would not fit in
-shared memory (checked against the plain version on the card,
-``tests/test_torch_gpu.py``). Tensors on the CPU take the plain version
-in ``kernels.ref``; a CUDA tensor launches the kernel or raises.
+Tunables (``kernels.ops.PAGED_DECODE``): ``block_kv`` rows a chunk,
+``pack_gqa`` (one block per KV head scoring its whole query group, or one
+block per query head), ``num_warps`` and ``kv_splits`` (blocks a row);
+the ring's depth is the source's constant ``STAGES``. The tuned space takes whole pages or a
+part of one page; the kernel takes any positive ``block_kv`` (checked
+against the plain version on the card, ``tests/test_torch_gpu.py``), and
+the fixed config of a pool with an off-space page size halves a page
+until it fits in shared memory. ``path`` says how a launch copies its
+chunks; ``paged_decode.path_launches`` counts launches by path. Tensors
+on the CPU take the plain version in ``kernels.ref``; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,13 +42,18 @@ from repro_torch.kernels.build import KernelLibrary
 MAX_HEAD_DIM = 256
 MAX_PACKED_GROUP = 8
 MAX_SMEM_BYTES = 232448          # 227 KB: the opt-in per-block limit
+MAX_WARPS = 8                    # the kernel's launch bounds
+MAX_CLUSTER = 8                  # the portable thread-block cluster size
+KV_SPLITS = (1, 2, 4, 8)         # blocks (one cluster) a row
+STAGES = 2                       # the ring's depth (kStages in the source)
+BAR_BYTES = 64                   # the ring's mbarriers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_launch.argtypes = (
-        [vp] * 8 + [i32] * 7 + [ctypes.c_float] + [i32] * 5 + [vp])
+        [vp] * 8 + [i32] * 7 + [ctypes.c_float] + [i32] * 7 + [vp])
     lib.paged_decode_launch.restype = i32
     lib.paged_decode_smem_bytes.argtypes = [i32] * 6
     lib.paged_decode_smem_bytes.restype = i32
@@ -65,13 +75,28 @@ def smem_bytes(D: int, itemsize: int, block_kv: int, group: int,
                pack_gqa: bool, num_warps: int) -> int:
     """Dynamic shared memory of one launch — the same formula as
     ``paged_decode_smem_bytes`` in the CUDA source (kept in Python so the
-    config space can check it without the card). ``itemsize`` is the
-    pool's: 1 for an int8 pool, whose staged rows carry their two f32
-    scales."""
+    config space can check it without the card): the ring's mbarriers,
+    the block's partial (m, l and acc of each packed head, what rank 0
+    reads), and the larger of the ring of ``STAGES`` chunks of K and
+    V rows and the row groups' merge. ``itemsize`` is the pool's: 1 for
+    an int8 pool, whose staged rows carry their two f32 scales."""
     g = group if pack_gqa and group > 1 else 1
     n_rg = num_warps * 32 // _lanes_per_row(D, itemsize)
     row = D * itemsize + (4 if itemsize == 1 else 0)
-    return max(4 * block_kv * row, n_rg * g * (D + 2) * 4)
+    partial = -(-g * (D + 2) * 4 // 16) * 16
+    return BAR_BYTES + partial + max(STAGES * 2 * block_kv * row,
+                                     n_rg * g * (D + 2) * 4)
+
+
+def path(itemsize: int, page_size: int, block_kv: int) -> str:
+    """How a launch copies its chunks, from the layout alone: ``"bulk"``
+    (one bulk copy a page run) where every run is a 16-byte multiple at a
+    16-byte aligned address, which float pools always are and an int8
+    pool's f32 scale runs are when the page size and ``block_kv`` are
+    multiples of 4 rows; else ``"cp_async"`` (16-byte copies a row)."""
+    if itemsize != 1 or (page_size % 4 == 0 and block_kv % 4 == 0):
+        return "bulk"
+    return "cp_async"
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -82,7 +107,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  scale: Optional[float] = None,
                  block_kv: Optional[int] = None,
                  pack_gqa: bool = True,
-                 num_warps: int = 4) -> torch.Tensor:
+                 num_warps: int = 4,
+                 kv_splits: int = 1) -> torch.Tensor:
     """Block-table-indexed decode attention over a shared page pool.
 
     q (B, Hq, D) float32 or bfloat16; k/v_pages (Hkv, P, page_size, D) in
@@ -90,7 +116,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     float32 per-token scales (the kv8 policy; scales go with int8 pools
     only); block_tables (B, max_pages) int; kv_len (B,) int, clamped to
     the table capacity. Rows with kv_len == 0 return zeros. ``block_kv``
-    defaults to one page. Returns (B, Hq, D) in q's dtype."""
+    defaults to one page; ``kv_splits`` blocks (one cluster) share each
+    row. Returns (B, Hq, D) in q's dtype."""
     quant = k_pages.dtype == torch.int8
     if (k_scales is not None) != quant or (v_scales is not None) != quant:
         raise ValueError("paged_decode: k_scales and v_scales go with int8 "
@@ -124,7 +151,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         (block_kv > 0, f"block_kv {block_kv}"),
         (not (pack_gqa and group > MAX_PACKED_GROUP),
          f"pack_gqa with group {group} > {MAX_PACKED_GROUP}"),
-        (1 <= num_warps <= 32, f"num_warps {num_warps}"),
+        (1 <= num_warps <= MAX_WARPS, f"num_warps {num_warps}"),
+        (kv_splits in KV_SPLITS, f"kv_splits {kv_splits} (of {KV_SPLITS})"),
         (block_tables.dim() == 2 and block_tables.shape[0] == B
          and kv_len.shape == (B,), "block_tables (B, max_pages), kv_len (B,)"),
         (all(t.is_cuda and t.device == q.device
@@ -147,6 +175,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         scale = D ** -0.5
     tables = block_tables.to(torch.int32).contiguous()
     lens = kv_len.to(torch.int32).contiguous()
+    route = path(k_pages.element_size(), page_size, block_kv)
     out = torch.empty_like(q)
     lib = LIB.load()
     err = lib.paged_decode_launch(
@@ -155,13 +184,17 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         v_scales.data_ptr() if quant else None,
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, D, n_pages, page_size, tables.shape[1], float(scale),
-        block_kv, int(bool(pack_gqa)), num_warps, _DTYPE_CODE[q.dtype],
+        block_kv, int(bool(pack_gqa)), num_warps, kv_splits,
+        int(route == "bulk"), _DTYPE_CODE[q.dtype],
         _DTYPE_CODE[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
+        raise RuntimeError(f"paged_decode launch failed ({route}, kv_splits "
+                           f"{kv_splits}): cudaError {err}")
     paged_decode.launches += 1
+    paged_decode.path_launches[route] += 1
     return out
 
 
 paged_decode.launches = 0
+paged_decode.path_launches = {"bulk": 0, "cp_async": 0}

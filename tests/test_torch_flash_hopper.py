@@ -30,28 +30,40 @@ H100_SXM = chip_from_properties("NVIDIA H100 80GB HBM3", 132, 232448,
 CSRC = pathlib.Path(fa_kernel.__file__).resolve().parents[1] / "csrc"
 
 
-def c_function(source: str, name: str):
+TERNARY = re.compile(r"\(([^()?]*)\?([^():]*):([^()]*)\)")
+
+
+def c_function(source: str, name: str, scope: dict = None):
     """A small integer function of a CUDA source (its ``const int``
-    locals and one ``return``) as a Python callable, C's integer division
-    and logic translated."""
+    locals, ternaries and one ``return``, on one line or several) as a
+    Python callable, C's integer division and logic translated;
+    ``scope`` holds the constants and functions it calls."""
     text = (CSRC / source).read_text()
-    m = re.search(r"\b%s\(([^)]*)\)\s*\{(.*?)\n\}" % name, text, re.S)
+    m = re.search(r"\b%s\(([^)]*)\)\s*\{(?:([^\n]*)\}|(.*?)\n\})" % name,
+                  text, re.S)
     assert m, name
     params = [p.split()[-1] for p in m.group(1).split(",")]
     body = []
-    for stmt in m.group(2).split(";"):
+    for stmt in (m.group(2) or m.group(3)).split(";"):
         stmt = " ".join(stmt.split())
         if not stmt:
             continue
         stmt = stmt.replace("const int ", "").replace("/", "//")
         stmt = stmt.replace("&&", " and ").replace("||", " or ")
-        body.append(stmt)
+        lhs, eq, rhs = (("return", " ", stmt[len("return "):])
+                        if stmt.startswith("return ")
+                        else stmt.partition(" = "))
+        assert eq, stmt
+        rhs = "(%s)" % rhs
+        while TERNARY.search(rhs):
+            rhs = TERNARY.sub(r"((\2) if (\1) else (\3))", rhs)
+        body.append(lhs + eq + rhs)
     src = "def f(%s):\n    %s" % (", ".join(params), "\n    ".join(body))
     round16 = lambda d: (d + 15) // 16 * 16  # noqa: E731 (the header's)
-    scope = {"round16": round16,
-             "row_bytes": lambda d, isz: round16(d) * isz + 16}
-    exec(src, scope)
-    return scope["f"]
+    env = {"round16": round16,
+           "row_bytes": lambda d, isz: round16(d) * isz + 16, **(scope or {})}
+    exec(src, env)
+    return env["f"]
 
 
 HEAD_DIMS = (64, 96, 120, 128, 160)

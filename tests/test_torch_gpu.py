@@ -170,11 +170,14 @@ def test_paged_decode_kv8_off_space_pages_dispatch_a_fixed_config(cuda, ps):
                                                          cap // 2 + 1],
                                              torch.float32, cuda)
     kq, vq, ks, vs = kv8_pools((q, kp, vp), cuda)
-    assert ops.paged_decode_config(q.bfloat16(), kq, tables)["block_kv"] \
-        == min(ps, 256)
+    cfg = ops.paged_decode_config(q.bfloat16(), kq, tables)
+    assert cfg["block_kv"] == min(ps, 256)
+    assert cfg["kv_splits"] == 1
     for q_dtype in (torch.bfloat16, torch.float32):
         args = (q.to(q_dtype), kq, vq, tables, lens)
+        before = pd_kernel.paged_decode.path_launches["bulk"]
         out = ops.paged_decode(*args, k_scales=ks, v_scales=vs, tuner=tuner)
+        assert pd_kernel.paged_decode.path_launches["bulk"] == before + 1
         torch.testing.assert_close(
             out.float(), ref.paged_decode(*args, k_scales=ks,
                                           v_scales=vs).float(),
@@ -210,6 +213,71 @@ def test_paged_decode_kv8_rejects_what_it_does_not_take(cuda):
         assert lib.paged_decode_smem_bytes(D, item, block_kv, g, pack,
                                            warps) == \
             pd_kernel.smem_bytes(D, item, block_kv, g, bool(pack), warps)
+    with pytest.raises(ValueError, match="kv_splits"):
+        pd_kernel.paged_decode(q, kq, vq, tables, lens, k_scales=ks,
+                               v_scales=vs, kv_splits=3)
+    with pytest.raises(TypeError, match="num_stages"):
+        pd_kernel.paged_decode(q, kq, vq, tables, lens, k_scales=ks,
+                               v_scales=vs, num_stages=3)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_kv_splits_8_is_repeatable(cuda, int8):
+    """Eight blocks a row, merged by rank 0 in rank order: two calls give
+    the same bits, and both match the plain version (lengths 0, past the
+    capacity and fewer than eight chunks among them)."""
+    B, Hq, Hkv, D, ps, max_pages = 8, 24, 8, 128, 16, 36
+    cap = ps * max_pages
+    kv_len = [0, cap + 1, 1, 5 * ps, cap, 17, cap // 2 + 3, cap - 1]
+    q, kp, vp, tables, lens = paged_operands(8, B, Hq, Hkv, D, ps, max_pages,
+                                             kv_len, torch.float32, cuda)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = kv8_pools((q, kp, vp), cuda)
+        scales = {"k_scales": ks, "v_scales": vs}
+    args = (q.bfloat16(), kp if int8 else kp.bfloat16(),
+            vp if int8 else vp.bfloat16(), tables, lens)
+    cfg = dict(block_kv=16, pack_gqa=True, num_warps=4, kv_splits=8)
+    one = pd_kernel.paged_decode(*args, **scales, **cfg)
+    two = pd_kernel.paged_decode(*args, **scales, **cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    torch.testing.assert_close(one.float(),
+                               ref.paged_decode(*args, **scales).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert not one[0].any()
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_decode_takes_the_bulk_path_at_serving_pages(cuda, ps):
+    """Float and int8 pools at pages of 16 and 128 copy their chunks by
+    bulk copies; an int8 pool whose scale runs are not 16-byte multiples
+    (a block of 2 rows) takes cp.async, and both are right."""
+    B, Hq, Hkv, D, max_pages = 4, 24, 8, 128, max(2, 512 // ps)
+    cap = ps * max_pages
+    kv_len = [0, cap, 3, cap // 2 + 1]
+    q, kp, vp, tables, lens = paged_operands(ps + 1, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len,
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((q, kp, vp), cuda)
+    q = q.bfloat16()
+    runs = [("bulk", (q, kp.bfloat16(), vp.bfloat16(), tables, lens), {},
+             ps),
+            ("bulk", (q, kq, vq, tables, lens),
+             {"k_scales": ks, "v_scales": vs}, ps),
+            ("cp_async", (q, kq, vq, tables, lens),
+             {"k_scales": ks, "v_scales": vs}, 2)]
+    for route, args, scales, block_kv in runs:
+        assert pd_kernel.path(args[1].element_size(), ps, block_kv) == route
+        before = dict(pd_kernel.paged_decode.path_launches)
+        out = pd_kernel.paged_decode(*args, **scales, block_kv=block_kv,
+                                     kv_splits=2)
+        assert pd_kernel.paged_decode.path_launches[route] == \
+            before[route] + 1
+        torch.testing.assert_close(
+            out.float(), ref.paged_decode(*args, **scales).float(),
+            atol=2e-2, rtol=2e-2, msg=lambda m: f"{route}: {m}")
+        assert not out[0].any()
 
 
 @pytest.mark.parametrize("draft_k", [2, 4, 8])

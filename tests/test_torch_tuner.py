@@ -57,7 +57,9 @@ def test_valid_configs_of_the_hopper_spaces():
         assert valid == _valid_by_brute_force(ops.PAGED_DECODE.space, ctx)
         assert valid and ops.PAGED_DECODE.default_config(ctx) in valid
         for c in valid:
-            assert c["block_kv"] % c["page_size"] == 0
+            # whole pages, or a part of one page
+            assert c["block_kv"] % c["page_size"] == 0 or \
+                c["page_size"] % c["block_kv"] == 0
             assert ops._paged_smem(c, ctx) <= H100_SXM.smem_per_block
     deploy, pinned, mha = ctxs
     assert {c["page_size"] for c in
@@ -68,8 +70,10 @@ def test_valid_configs_of_the_hopper_spaces():
     # group 1: packing is the unpacked kernel, so only one of the two
     assert not any(c["pack_gqa"] for c in
                    ops.PAGED_DECODE.space.valid_configs(mha))
-    # 256 bf16 rows of 128 stage 256 KB: over the 227 KB a block may use
-    big = {"page_size": 16, "block_kv": 256, "pack_gqa": True, "num_warps": 4}
+    # 256 bf16 rows of 128 in a ring of two stage 256 KB: over the 227 KB
+    # a block may use
+    big = {"page_size": 16, "block_kv": 256, "pack_gqa": True, "num_warps": 4,
+           "kv_splits": 1}
     assert ops.PAGED_DECODE.space.why_invalid(big, deploy) == "smem"
 
 
@@ -153,12 +157,15 @@ def test_rms_norm_space_limits_registers():
 
 
 def test_smem_formula_matches_staging_and_merge():
-    # double-buffered K and V staging dominates at 64 bf16 rows of 128
-    assert pd_kernel.smem_bytes(128, 2, 64, 3, True, 4) == 4 * 64 * 128 * 2
+    # the mbarriers, the partial of 3 heads (m, l, acc of 128), then the
+    # ring: two stages of K and V dominate at 64 bf16 rows of 128
+    partial = 3 * 130 * 4 + 8            # rounded up to 16 bytes
+    assert pd_kernel.smem_bytes(128, 2, 64, 3, True, 4) == \
+        64 + partial + 2 * 2 * 64 * 128 * 2
     # the row-group merge dominates with tiny staging and many warps
     n_rg = 8 * 32 // 16
-    assert pd_kernel.smem_bytes(128, 2, 16, 3, True, 8) == max(
-        4 * 16 * 128 * 2, n_rg * 3 * 130 * 4)
+    assert pd_kernel.smem_bytes(128, 2, 16, 3, True, 8) == 64 + partial + \
+        max(2 * 2 * 16 * 128 * 2, n_rg * 3 * 130 * 4)
 
 
 def test_workloads_count_bytes_and_bound():
@@ -346,7 +353,8 @@ def test_off_space_layouts_dispatch_a_fixed_config(monkeypatch):
                              (256, torch.float32, 64)):
         cfg = ops.paged_decode_config(q.to(dtype), pool(ps, dtype), tables,
                                       tuner)
-        assert cfg == {"block_kv": block, "pack_gqa": True, "num_warps": 4}
+        assert cfg == {"block_kv": block, "pack_gqa": True, "num_warps": 4,
+                       "kv_splits": 1}
         assert pd_kernel.smem_bytes(128, dtype.itemsize, block, 3, True,
                                     4) <= pd_kernel.MAX_SMEM_BYTES
     for K, ps in ((5, 16), (5, 4), (2, 256), (12, 128)):
@@ -551,13 +559,14 @@ def test_paged_kv8_context_workload_smem_and_operands():
     assert w8.dtype == "bfloat16" and w8.flops == w16.flops
     assert 0.5 < w8.hbm_bytes / w16.hbm_bytes < 0.55
     assert ops._paged_workload(cfg, kv8_f32).dtype == "float32"
-    # shared memory: int8 rows of D plus two f32 scales, double-buffered
+    # shared memory: int8 rows of D plus two f32 scales in the ring
     for c in ops.PAGED_DECODE.space.valid_configs(kv8):
         assert ops._paged_smem(c, kv8) == pd_kernel.smem_bytes(
             D, 1, c["block_kv"], 3, c["pack_gqa"], c["num_warps"])
         assert ops._paged_smem(c, kv8) <= H100_SXM.smem_per_block
-    assert pd_kernel.smem_bytes(D, 1, 256, 3, True, 4) == 4 * 256 * (D + 4)
-    big = dict(cfg, block_kv=256)
+    assert pd_kernel.smem_bytes(D, 1, 256, 3, True, 4) == \
+        64 + 3 * (D + 2) * 4 + 8 + 2 * 2 * 256 * (D + 4)
+    big = dict(cfg, block_kv=256, kv_splits=1)
     assert ops.PAGED_DECODE.space.is_valid(big, kv8)
     assert ops.PAGED_DECODE.space.why_invalid(big, bf16) == "smem"
     # operands: the seeded f32 pools quantized by the wire format
@@ -605,8 +614,9 @@ def test_paged_decode_dispatch_key_and_fixed_config_follow_the_pool(
         for ps in (4, 256):
             pool = torch.zeros(8, 3, ps, 128, dtype=torch.int8)
             cfg = ops.paged_decode_config(q, pool, tables, tuner)
-            # 256 int8 rows with their scales stage in 132 KB: a whole page
-            assert cfg == {"block_kv": ps, "pack_gqa": True, "num_warps": 4}
+            # 256 int8 rows with their scales stage in 134 KB: a whole page
+            assert cfg == {"block_kv": ps, "pack_gqa": True, "num_warps": 4,
+                           "kv_splits": 1}
             assert pd_kernel.smem_bytes(128, 1, ps, 3, True, 4) <= \
                 pd_kernel.MAX_SMEM_BYTES
     assert tuner.stats()["misses"] == 2
