@@ -10,8 +10,10 @@ Phases, each failing loudly:
   1. the card (``nvidia-smi`` name and power limit) and tool versions;
   2. the build of every kernel, started together: ``nvcc`` for the CUDA
      ``paged_decode`` and ``paged_verify`` (float and int8 pools each),
-     ``gqa_decode`` (which also serves ``decode_attention``),
-     ``gqa_decode_kv8`` (the same kernel template built for int8 caches),
+     ``gqa_decode`` (which also serves ``decode_attention``: one launch,
+     a row's splits in one thread-block cluster),
+     ``gqa_decode_kv8`` (the earlier dense-decode template built for int8
+     caches),
      ``matmul``, ``matmul_w8a8``, ``flash_attention``,
      ``flash_attention_bwd`` and ``mla_decode``, and the Triton compile of
      ``rms_norm``;
@@ -21,6 +23,9 @@ Phases, each failing loudly:
      ``paged_decode`` (version 2: ``kv_splits`` blocks a row in one
      thread-block cluster, a ring of two chunks) also bit-equal
      across two calls at ``kv_splits`` 8, float and int8 pools;
+     every valid ``gqa_decode_ragged`` and ``decode_attention`` config at
+     ragged lengths (0 and past T) in bf16 and f32 and at the serving
+     shape;
      ``gqa_decode_kv8`` and the int8 branches of ``paged_decode`` and
      ``paged_verify`` (depths 2, 4, 8) for q in bf16 and in f32; the fixed
      configs of off-space layouts (float and int8 pages of 4 and 256, a
@@ -57,8 +62,11 @@ Phases, each failing loudly:
      and the tuned ones timed (``paged_decode`` asserted on its bulk-copy
      path); ``paged_decode`` at the shipped deployment shape (phi4-mini,
      16 sequences of 32,768 slots, bf16 and int8 pools) under the shipped
-     configs, beside SDPA and the bound; the kv8 dense serving context
-     tuned and
+     configs, beside SDPA and the bound; ``decode_attention`` tuned at
+     the serving shape and timed there and, under its shipped config, at
+     the deployment shape (16 requests of 32,768, held within 2e-2 of the
+     plain version's largest |o|) beside SDPA; the kv8 dense
+     serving context tuned and
      timed; the four ``matmul_w8a8`` contexts of a w8a8 dense run
      (prefill and decode rows, ``wi`` and ``wo``) tuned and timed beside
      the plain version, ``torch._int_mm`` and a bf16 ``torch.matmul``;
@@ -97,7 +105,14 @@ Phases, each failing loudly:
      and ``sim``, streams equal 8/8 up to a tie, and by ``--decode-impl
      full``; then ``--decode-impl pallas --attn-impl pallas`` (the
      prefill through ``flash_attention``, 32 launches, none in the
-     chunked runs), streams equal the chunked run's up to a tie;
+     chunked runs), streams equal the chunked run's up to a tie; then
+     ``gqa_decode_ragged`` under the serving config timed at the serving
+     shape and, under its shipped config, at the deployment shape (the
+     seed-7 lengths; held and timed as ``decode_attention`` is), and the
+     timer's floor measured by
+     this script's own CUDA events (the kernel with every kv_len 0, a
+     ``copy_`` of the kernel's 17.3 MB, and the kernel, SDPA and the copy
+     after the timer's zeroing L2 flush and after one that reads);
   6. one full-width decode step (float pools and int8 pools) and one
      full-width verify step (float pools and int8 pools) through the
      kernels against the same step through the plain versions on the same
@@ -109,7 +124,9 @@ Phases, each failing loudly:
      and one profiled w8a8 prefill of the 8 prompts by each;
      one full-width dense prefill through ``flash_attention`` against the
      chunked prefill (KV chunks of 64), logits held, and a profile of
-     each;
+     each; one call of ``decode_attention`` and one of
+     ``gqa_decode_ragged`` at k_splits 8 under ``torch.profiler`` in a
+     fresh process: one kernel each, two calls bit-equal;
      then a small f32 model whose drafts are often rejected,
      served speculatively on the CPU (plain versions) and on the card
      (kernels), and by plain decode on the card: the same tokens and
@@ -880,11 +897,12 @@ def time_kv8(chip, cfg) -> dict:
         "config": cfg}
 
 
-def time_dense(chip, name: str, cfg) -> dict:
+def time_dense(chip, name: str, cfg, tuner) -> dict:
     """Kernel (under ``cfg``), plain version, SDPA over the same cache and
     the roofline bound at the serving shape: B 8, 24/8 heads of 128, T
     544, bf16, every request at 528 tokens (decode_attention, which takes
-    no lengths in the reference's runner, attends all 544)."""
+    no lengths in the reference's runner, attends all 544); then the
+    kernel at the deployment shape (``dense_deployment``)."""
     from repro_torch.core import KernelWorkload
     from repro_torch.kernels import ops, ref
     ragged = name == "gqa_decode_ragged"
@@ -909,7 +927,156 @@ def time_dense(chip, name: str, cfg) -> dict:
             lambda: fn(q[:, :, None], k, v, attn_mask=mask,
                        enable_gqa=True)) * 1e3,
         "bound_ms": bound_ms, "bound_by": by, "kv_tokens": kv_tokens,
-        "config": cfg}
+        "config": cfg, "deployment": dense_deployment(chip, tuner, name)}
+
+
+def dense_deployment(chip, tuner, name: str) -> dict:
+    """``name`` at the shipped deployment shape of phi4-mini (16 requests
+    of 32,768 slots, 24/8 heads of 128, bf16; gqa_decode_ragged at the
+    runner's seed-7 lengths, decode_attention at all T) under its shipped
+    config: held against the plain version within 2e-2 of the plain
+    version's largest |o| (o there is a softmax-weighted mean of
+    thousands of random rows, so an absolute 2e-2 could not see a lost
+    split), and timed beside SDPA over the same cache and the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    ragged = name == "gqa_decode_ragged"
+    full = get_config("phi4-mini-3.8b")
+    B, T = 16, 32768
+    shape = (B, full.n_heads, full.n_kv_heads, full.head_dim, T, "bfloat16")
+    tunable, ctx = ((ops.GQA_DECODE_RAGGED, ops.gqa_decode_context(
+        chip, *shape)) if ragged else (ops.DECODE_ATTENTION,
+                                       ops.decode_attention_context(
+                                           chip, *shape)))
+    cfg = tuner.best_config(tunable, ctx)
+    run = tunable.make_runner(cfg, ctx)       # the tuner's own operands
+    q, k, v = run.args
+    lens = run.kwargs.get("kv_len")
+    got = run().float()
+    want = ref.gqa_decode(q, k, v, kv_len=lens).float()
+    err = float((got - want).abs().max())
+    limit = BF16_TOL * float(want.abs().max())
+    del got, want
+    if err > limit:
+        raise AssertionError(f"{name} at the deployment shape {cfg}: max "
+                             f"abs err {err} > {limit}")
+    mask = None if lens is None else (
+        torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    bound_ms, by = bound(tunable.workload_fn(cfg, ctx), chip)
+    out = {"config": cfg, "max_abs_err": err, "limit": limit,
+           "kernel_ms": timer().time_runner(run) * 1e3,
+           "library_ms": timer().time_runner(
+               lambda: fn(q[:, :, None], k, v, attn_mask=mask,
+                          enable_gqa=True)) * 1e3,
+           "bound_ms": bound_ms, "bound_by": by}
+    ops.release_tuning_operands()
+    print(f"{name} at the deployment shape (B {B}, T {T}, "
+          f"{'seed-7 lengths' if ragged else 'all T'}) under the shipped "
+          f"config: " + json.dumps(out))
+    return out
+
+
+def one_launch(name: str, cfg) -> None:
+    """One call of ``name`` at k_splits 8 (eight blocks a row in a
+    cluster) under torch.profiler launches exactly one kernel: no combine,
+    no workspace; two such calls give the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    q, k, v, kv_len = dense_case(13, 8, DENSE_T, ragged_lens(DENSE_T, 3),
+                                 torch.bfloat16)
+    entry = ops.ragged_decode if name == "gqa_decode_ragged" else ops.decode
+    cfg = dict(cfg, k_splits=8, block_kv=32, num_warps=1)
+    one = entry(q, k, v, kv_len=kv_len, config=cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        two = entry(q, k, v, kv_len=kv_len, config=cfg)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not torch.equal(one, two):
+        raise AssertionError(f"{name} {cfg}: two calls differ")
+    if len(kernels) != 1 or "gqa_decode_kernel" not in kernels[0]:
+        raise AssertionError(f"{name} {cfg}: launched {kernels}, not one "
+                             f"kernel")
+    print(f"{name} {cfg}: one kernel a call under the profiler "
+          f"({kernels[0][:60]}), two calls bit-equal")
+
+
+def one_launch_fresh(cfgs: dict) -> None:
+    """``one_launch`` for each kernel name and its config, in a fresh
+    process: in this script's own process, after the serving runs, the
+    profiler's sessions saw no device events of these kernels (three chip
+    runs), where a process's first session does."""
+    code = ("import json, sys; sys.path.insert(0, %r); import chip_smoke; "
+            "[chip_smoke.one_launch(n, c) for n, c in "
+            "json.loads(sys.argv[1]).items()]" % REPO)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code, json.dumps(cfgs)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600, check=False)
+    print(res.stdout, end="")
+    if res.returncode != 0:
+        raise AssertionError(f"the one-launch check failed:\n{res.stderr}")
+
+
+def timer_floor(chip, cfg) -> dict:
+    """What the tuner's timer (``CudaEventTimer``: a flush that zeroes 4x
+    the L2, the card spun ahead, events around one call) adds to a decode
+    kernel at the serving shape, by this script's own CUDA events under
+    the same protocol, median of 50: gqa_decode_ragged with every kv_len
+    0 (one launch through the same ctypes path, clusters and barriers,
+    that reads no key); a ``copy_`` of the bytes the kernel reads (17.3
+    MB); and the kernel (every request at 528), SDPA and that copy after
+    the zeroing flush and after a flush that reads the same buffer
+    instead of writing it."""
+    import statistics
+    from repro_torch.core.measure import LEAD_CYCLES
+    from repro_torch.kernels import ops
+    q, k, v, kv_len = dense_case(11, 8, DENSE_T, [528] * 8, torch.bfloat16)
+    empty = torch.zeros_like(kv_len)
+    nbytes = int(kv_len.sum()) * 8 * 128 * 2 * 2
+    src = torch.randn(nbytes // 2, device="cuda").bfloat16()
+    dst = torch.empty_like(src)
+    buf = timer()._flush_buffer()
+    words = buf.view(torch.int32)
+    flushes = {"zero": buf.zero_, "read": lambda: words.max()}
+    mask = (torch.arange(DENSE_T, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    runs = {
+        "kernel": lambda: ops.ragged_decode(q, k, v, kv_len=kv_len,
+                                            config=cfg),
+        "kernel_kv_len_0": lambda: ops.ragged_decode(q, k, v, kv_len=empty,
+                                                     config=cfg),
+        "sdpa": lambda: fn(q[:, :, None], k, v, attn_mask=mask,
+                           enable_gqa=True),
+        "copy": lambda: dst.copy_(src)}
+
+    def ms(run, flush):
+        for _ in range(5):
+            run()
+        samples = []
+        for _ in range(50):
+            flush()
+            torch.cuda._sleep(LEAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        return statistics.median(samples)
+
+    out = {"config": cfg, "copy_bytes": 2 * nbytes}
+    for flush in ("zero", "read"):
+        for label, run in runs.items():
+            out[f"{label}_ms_{flush}_flush"] = ms(run, flushes[flush])
+    print("the timer's floor at the serving shape (own CUDA events, median "
+          "of 50): " + json.dumps(out))
+    return out
 
 
 # phi4-mini's four w8a8 serving GEMMs, (M, K, N): the MLP's wi (d_model x
@@ -3327,9 +3494,10 @@ def main(argv=None) -> int:
         lambda: ops.rmsnorm(x, w, config=rms_cfg)) * 1e3
     print(f"rms_norm (8, 3072) bf16 under {rms_cfg}: kernel_ms "
           f"{rms['kernel_ms']:.4f}")
-    dak = time_dense(chip, "decode_attention", tuner.best_config(
-        ops.DECODE_ATTENTION, ops.decode_attention_context(
-            chip, 8, 24, 8, 128, DENSE_T, "bfloat16")))
+    da_cfg = tuner.best_config(ops.DECODE_ATTENTION,
+                               ops.decode_attention_context(
+                                   chip, 8, 24, 8, 128, DENSE_T, "bfloat16"))
+    dak = time_dense(chip, "decode_attention", da_cfg, tuner)
     dak["max_abs_err"] = dense_err["decode_attention"]
     print("decode_attention at the serving shape, tuned: " + json.dumps(dak))
     kv8_kernel_, kv8_ctx = serve.dense_context(
@@ -3441,11 +3609,13 @@ def main(argv=None) -> int:
     print(f"--quant kv8 vs bf16 caches (--decode-impl pallas): {same}/8 "
           f"token streams equal (reported, not held)")
     w8a8 = w8a8_dense_serving(tuner, n_layers, dense["report"]["tokens"])
-    gqk = time_dense(chip, "gqa_decode_ragged", tuner.best_config(
-        *serve.dense_context(engine.cfg, 8, DENSE_T, torch.device("cuda"))))
+    gq_cfg = tuner.best_config(
+        *serve.dense_context(engine.cfg, 8, DENSE_T, torch.device("cuda")))
+    gqk = time_dense(chip, "gqa_decode_ragged", gq_cfg, tuner)
     gqk["max_abs_err"] = dense_err["gqa_decode_ragged"]
     print("gqa_decode_ragged at the serving shape under the serving config: "
           + json.dumps(gqk))
+    timer_floor(chip, gq_cfg)
 
     phase(f"6. full-width steps: kernels against plain versions, and where "
           f"their time goes {elapsed()}")
@@ -3461,6 +3631,8 @@ def main(argv=None) -> int:
     profile_verify(spec_engine)
     profile_decode(kv8_engine)
     profile_verify(kv8_spec_engine)
+    one_launch_fresh({"decode_attention": da_cfg,
+                      "gqa_decode_ragged": gq_cfg})
     rejection_run()
     rejection_run(K=5, page_size=4)
     rejection_run(quant="kv8")

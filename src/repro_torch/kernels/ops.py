@@ -626,11 +626,15 @@ def paged_verify(q, k_pages, v_pages, block_tables, kv_len, *,
 # ===========================================================================
 # Dense-cache decode: one token per head against a (B, Hkv, T, D) cache.
 # decode_attention (heads packed) and gqa_decode_ragged (per-request
-# kv_len, pack_gqa tunable) share one CUDA kernel
+# kv_len, pack_gqa tunable) share one CUDA kernel (csrc/gqa_decode.cu: one
+# launch, the splits of a row in one thread-block cluster); the int8
+# kernel (gqa_decode_kv8) keeps the template of csrc/gqa_decode.cuh, with
+# the splits on a grid axis and a second launch combining them
 # ===========================================================================
 
 DENSE_BLOCK_KV = (32, 64, 128, 256)
-K_SPLITS = (1, 2, 4, 8, 16, 32)
+K_SPLITS = (1, 2, 4, 8, 16, 32)            # gqa_decode_kv8's
+FLOAT_WARPS = (1, 2, 4, 8)
 
 
 def _dense_pack(cfg: Config) -> bool:
@@ -669,6 +673,74 @@ def _dense_space(name: str, version: int, with_pack: bool) -> ConfigSpace:
     return sp
 
 
+def _float_dense_smem(cfg: Config, ctx: TuningContext) -> int:
+    D = ctx.shape("q")[2]
+    return gqa_kernel.float_smem_bytes(
+        D, dtype_bytes(ctx.dtype),
+        gqa_kernel.clamp_block_kv(cfg["block_kv"], ctx.shape("k")[2]),
+        _group(ctx), _dense_pack(cfg), cfg["num_warps"])
+
+
+def _dense_chunks(cfg: Config, ctx: TuningContext) -> int:
+    """Chunks of the (clamped) ``block_kv`` keys in the cache's T."""
+    T = ctx.shape("k")[2]
+    return _cdiv(T, gqa_kernel.clamp_block_kv(cfg["block_kv"], T))
+
+
+def _float_dense_space(name: str, version: int,
+                      with_pack: bool) -> ConfigSpace:
+    """The float kernel's space (csrc/gqa_decode.cu): ``k_splits`` blocks
+    of one thread-block cluster a row (at most the portable cluster size,
+    which any SM layout of the card holds), ``num_warps`` warps of 32
+    keys."""
+    params = [Param("block_kv", DENSE_BLOCK_KV),
+              Param("k_splits", gqa_kernel.KV_SPLITS)]
+    if with_pack:
+        params.append(Param("pack_gqa", (True, False)))
+    params.append(Param("num_warps", FLOAT_WARPS))
+    sp = ConfigSpace(name, params, version=version)
+    sp.constrain("smem", smem_fits(_float_dense_smem))
+    # No split smaller than one chunk: it would run as a smaller split does.
+    sp.constrain("k_splits<=chunks",
+                 lambda c, x: c["k_splits"] <= _dense_chunks(c, x))
+    # Every warp scores 32 keys of a chunk at a time: a warp past the chunk
+    # would idle.
+    sp.constrain("warps<=block_kv/32",
+                 lambda c, x: c["num_warps"] * gqa_kernel.KEY_TILE
+                 <= gqa_kernel.clamp_block_kv(c["block_kv"], x.shape("k")[2]))
+    if with_pack:
+        sp.constrain("pack_gqa:group",
+                     lambda c, x: not c["pack_gqa"]
+                     or 1 < _group(x) <= gqa_kernel.MAX_PACKED_GROUP)
+    else:
+        sp.constrain("group",
+                     lambda c, x: _group(x) <= gqa_kernel.MAX_PACKED_GROUP)
+    return sp
+
+
+def _float_decode_heuristic(ctx: TuningContext) -> Config:
+    """Packed heads where the group allows, 64 keys a chunk scored by two
+    warps, and the fewest splits whose rows x k_splits blocks reach every
+    SM (at most one split a chunk)."""
+    pack = 1 < _group(ctx) <= gqa_kernel.MAX_PACKED_GROUP
+    B, Hq = ctx.shape("q")[:2]
+    rows = B * (ctx.shape("k")[1] if pack else Hq)
+    block = gqa_kernel.clamp_block_kv(64, ctx.shape("k")[2])
+    cfg = {"block_kv": block, "pack_gqa": pack,
+           "num_warps": min(2, block // gqa_kernel.KEY_TILE)}
+    # f32 rows of 256 stage in 32-key chunks
+    while block > gqa_kernel.KEY_TILE and \
+            _float_dense_smem(cfg, ctx) > ctx.chip.smem_per_block:
+        block //= 2
+        cfg.update(block_kv=block, num_warps=1)
+    splits = [s for s in gqa_kernel.KV_SPLITS
+              if s <= _dense_chunks(cfg, ctx)]
+    cfg["k_splits"] = next((s for s in splits
+                            if rows * s >= ctx.chip.sm_count), splits[-1])
+    return {k: cfg[k] for k in ("block_kv", "k_splits", "pack_gqa",
+                                "num_warps")}
+
+
 def dense_decode_bytes(B: int, Hq: int, Hkv: int, D: int, kv_tokens: float,
                        itemsize: int, *, q_itemsize: Optional[int] = None,
                        scale_bytes: int = 0) -> float:
@@ -691,12 +763,15 @@ def _dense_canonical(cfg: Config, ctx: TuningContext) -> Config:
 
 
 def _dense_workload(cfg: Config, ctx: TuningContext,
-                    lens: Optional[torch.Tensor]) -> KernelWorkload:
+                    lens: Optional[torch.Tensor],
+                    combine: bool = False) -> KernelWorkload:
     """What the timed call moves under ``cfg``: the valid K/V rows (int8
     rows with their f32 scales under kv8; each group head re-reads them
-    unpacked), q and o in q's dtype, and with k_splits > 1 the f32
-    partials written and read back by the combine. Operations are counted
-    at q's dtype's peak (an int8 cache is dequantized to f32 first)."""
+    unpacked), q and o in q's dtype, and, for a kernel that ``combine``s
+    its splits in a second launch (gqa_decode_kv8), with k_splits > 1 the
+    f32 partials written and read back; the float kernel merges them in
+    shared memory. Operations are counted at q's dtype's peak (an int8
+    cache is dequantized to f32 first)."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     kv_tokens = float(B * T if lens is None
@@ -705,7 +780,8 @@ def _dense_workload(cfg: Config, ctx: TuningContext,
     g = gqa_kernel.rows_per_block(_group(ctx), pack)
     reads = 1 if pack else _group(ctx)
     ks = cfg["k_splits"]
-    partials = 0.0 if ks == 1 else 2.0 * (B * Hq // g) * ks * g * (D + 1) * 4
+    partials = 0.0 if ks == 1 or not combine else \
+        2.0 * (B * Hq // g) * ks * g * (D + 1) * 4
     q_dtype = _q_dtype(ctx)
     return KernelWorkload(
         flops=paged_decode_flops(Hq, D, kv_tokens),
@@ -749,11 +825,13 @@ def _refuse_int8(k: torch.Tensor) -> None:
 
 DECODE_ATTENTION = TunableKernel(
     name="decode_attention",
-    space=_dense_space("decode_attention", 2, with_pack=False),
-    version=2,
+    space=_float_dense_space("decode_attention", 3, with_pack=False),
+    version=3,
     workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, None),
     make_runner=_dense_runner(da_kernel.decode_attention, with_lens=False),
-    heuristic=lambda ctx: {"block_kv": 64, "k_splits": 1, "num_warps": 4},
+    heuristic=lambda ctx: {k: v for k, v in
+                           _float_decode_heuristic(ctx).items()
+                           if k != "pack_gqa"},
     canonicalize=_dense_canonical,
 )
 
@@ -784,7 +862,7 @@ def decode(q, k, v, *, kv_len=None, config: Optional[Config] = None,
 
 def _gqa_decode_heuristic(ctx: TuningContext) -> Config:
     """The reference's one split with packed heads, at a block the card
-    stages comfortably."""
+    stages comfortably: the int8 kernel's base (``_kv8_heuristic``)."""
     return {"block_kv": 64, "k_splits": 1,
             "pack_gqa": 1 < _group(ctx) <= gqa_kernel.MAX_PACKED_GROUP,
             "num_warps": 4}
@@ -792,11 +870,11 @@ def _gqa_decode_heuristic(ctx: TuningContext) -> Config:
 
 GQA_DECODE_RAGGED = TunableKernel(
     name="gqa_decode_ragged",
-    space=_dense_space("gqa_decode_ragged", 1, with_pack=True),
-    version=1,
+    space=_float_dense_space("gqa_decode_ragged", 2, with_pack=True),
+    version=2,
     workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, _ragged_lens(ctx)),
     make_runner=_dense_runner(gqa_kernel.gqa_decode, with_lens=True),
-    heuristic=_gqa_decode_heuristic,
+    heuristic=_float_decode_heuristic,
     canonicalize=_dense_canonical,
 )
 
@@ -836,8 +914,8 @@ def ragged_decode(q, k, v, *, kv_len=None, config: Optional[Config] = None,
 # ===========================================================================
 
 def _kv8_heuristic(ctx: TuningContext) -> Config:
-    """The float kernel's default at 128 int8 rows a block (72 KB of
-    staging at D 128, where 64 bf16 rows take 68 KB)."""
+    """``_gqa_decode_heuristic`` at 128 int8 rows a block (72 KB of
+    staging at D 128, where 64 bf16 rows took 68 KB)."""
     return dict(_gqa_decode_heuristic(ctx), block_kv=128)
 
 
@@ -867,7 +945,8 @@ GQA_DECODE_KV8 = TunableKernel(
     name="gqa_decode_kv8",
     space=_dense_space("gqa_decode_kv8", 1, with_pack=True),
     version=1,
-    workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, _ragged_lens(ctx)),
+    workload_fn=lambda cfg, ctx: _dense_workload(cfg, ctx, _ragged_lens(ctx),
+                                                 combine=True),
     make_runner=_kv8_runner,
     heuristic=_kv8_heuristic,
     canonicalize=_dense_canonical,

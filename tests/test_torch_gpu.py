@@ -564,12 +564,48 @@ def test_gqa_decode_rejects_what_it_does_not_take(cuda):
     q, k, v = dense_operands(0, 2, 4, 2, 16, 40, torch.float32, cuda)
     with pytest.raises(ValueError, match="dtype"):
         gqa_kernel.gqa_decode(q.bfloat16(), k, v)
-    with pytest.raises(ValueError, match="k_splits"):
-        gqa_kernel.gqa_decode(q, k, v, k_splits=0)
+    # one cluster of 1, 2, 4 or 8 blocks a row: no 0, 3, or v1's 16 and 32
+    for splits in (0, 3, 16, 32):
+        with pytest.raises(ValueError, match="k_splits"):
+            gqa_kernel.gqa_decode(q, k, v, k_splits=splits)
+    with pytest.raises(ValueError, match="block_kv"):
+        gqa_kernel.gqa_decode(q, k, v, block_kv=40)
+    with pytest.raises(ValueError, match="num_warps"):
+        gqa_kernel.gqa_decode(q, k, v, num_warps=16)
     with pytest.raises(ValueError, match="contiguous"):
         gqa_kernel.gqa_decode(q, k.transpose(2, 3), v.transpose(2, 3))
     with pytest.raises(ValueError, match="gqa_decode_kv8"):
         gqa_kernel.gqa_decode(q, k.to(torch.int8), v.to(torch.int8))
+    lib = gqa_kernel.LIB.load()
+    for D, item, block_kv, g, warps in ((128, 2, 64, 3, 2), (96, 2, 256, 1, 8),
+                                        (160, 2, 128, 4, 4), (64, 4, 32, 1, 1),
+                                        (80, 4, 128, 8, 4)):
+        assert lib.gqa_decode_smem_bytes(D, item, block_kv, g, warps) == \
+            gqa_kernel.float_smem_bytes(D, item, block_kv, g, g > 1, warps)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_gqa_decode_k_splits_8_is_one_launch_and_repeatable(cuda, dtype):
+    """Eight blocks a row in one cluster, merged by rank 0 in rank order:
+    one kernel a call and the same bits from call to call."""
+    q, k, v = dense_operands(5, 8, 24, 8, 128, 544, dtype, cuda)
+    lens = torch.tensor([0, 600, 1, 31, 32, 300, 528, 544],
+                        dtype=torch.int32, device=cuda)
+    cfg = dict(block_kv=32, k_splits=8, pack_gqa=True, num_warps=1)
+    one = gqa_kernel.gqa_decode(q, k, v, kv_len=lens, **cfg)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        two = gqa_kernel.gqa_decode(q, k, v, kv_len=lens, **cfg)
+        torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "gqa_decode_kernel" in kernels[0], kernels
+    torch.testing.assert_close(
+        one.float(), ref.gqa_decode(q, k, v, kv_len=lens).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def kv8_operands(seed, B, Hq, Hkv, D, T, dtype, device):

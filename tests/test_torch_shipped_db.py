@@ -108,12 +108,12 @@ def test_every_entry_parses_against_the_current_spaces(db):
 # (``gen_shipped_db --kernels NAME``), or, for an edit that cannot change
 # which config wins (a comment), update the digest alone.
 KERNEL_SOURCES = {
-    "decode_attention": (2, ("csrc/gqa_decode.cu",), "2abf051c8f7540de"),
+    "decode_attention": (3, ("csrc/gqa_decode.cu",), "93f24af3d786d271"),
     "flash_attention": (2, ("csrc/flash_attention.cu",), "077db1659d4c7cc7"),
     "flash_attention_bwd": (2, ("csrc/flash_attention_bwd.cu",),
                             "e30dcb0c97bd53a2"),
     "gqa_decode_kv8": (1, ("csrc/gqa_decode_kv8.cu",), "119b40526bc0644d"),
-    "gqa_decode_ragged": (1, ("csrc/gqa_decode.cu",), "2abf051c8f7540de"),
+    "gqa_decode_ragged": (2, ("csrc/gqa_decode.cu",), "93f24af3d786d271"),
     "matmul": (2, ("csrc/matmul.cu",), "68f21caaa118627a"),
     "matmul_w8a8": (2, ("csrc/matmul_w8a8.cu",), "a4952bcb68e9f36b"),
     "mla_decode": (1, ("csrc/mla_decode.cu",), "19cece73424a9f20"),

@@ -383,15 +383,17 @@ def test_dense_decode_spaces(kernel):
     valid = tunable.space.valid_configs(ctx)
     assert valid == _valid_by_brute_force(tunable.space, ctx)
     for c in valid:
-        assert c["k_splits"] <= -(-544 // c["block_kv"])      # splits<=blocks
-        assert ops._dense_smem(c, ctx) <= H100_SXM.smem_per_block
-    # 256 bf16 rows of 128, double-buffered K and V: 256 KB, over 227 KB
+        assert c["k_splits"] <= -(-544 // c["block_kv"])    # k_splits<=chunks
+        assert c["k_splits"] <= 8 and c["num_warps"] * 32 <= c["block_kv"]
+        assert ops._float_dense_smem(c, ctx) <= H100_SXM.smem_per_block
+    # 256 bf16 rows of 128, a ring of two stages of K and V: 256 KB, over
+    # 227 KB
     assert {c["block_kv"] for c in valid} == {32, 64, 128}
     big = dict(valid[0], block_kv=256)
     assert tunable.space.why_invalid(big, ctx) == "smem"
     assert tunable.space.why_invalid(dict(valid[0], block_kv=128,
                                           k_splits=8), ctx) == \
-        "splits<=blocks"
+        "k_splits<=chunks"
     assert tunable.default_config(ctx) in valid
     # a short cache clamps the block: 256 rows stage as 64 at T 40
     short = make(H100_SXM, 2, 4, 2, 16, 40, "float32")
@@ -422,7 +424,13 @@ def test_dense_workloads_and_canonical_dedupe():
     unpacked = ops._dense_workload(dict(cfg, pack_gqa=False), ctx, None)
     split = ops._dense_workload(dict(cfg, k_splits=4), ctx, None)
     assert unpacked.hbm_bytes > packed.hbm_bytes     # the group re-reads
-    assert split.hbm_bytes > packed.hbm_bytes        # the f32 partials
+    # the float kernel merges its splits in shared memory; the int8 kernel
+    # writes f32 partials that its combine reads back
+    assert split.hbm_bytes == packed.hbm_bytes
+    combined = ops._dense_workload(dict(cfg, k_splits=4), ctx, None,
+                                   combine=True)
+    assert combined.hbm_bytes == packed.hbm_bytes + \
+        2 * (8 * 24 // 3) * 4 * 3 * (128 + 1) * 4
     ragged = ops.GQA_DECODE_RAGGED.workload_fn(cfg, ctx)
     assert ragged.hbm_bytes < packed.hbm_bytes       # lengths below T
     # configs that clamp to the same block are timed once
