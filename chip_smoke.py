@@ -23,6 +23,8 @@ Phases, each failing loudly:
      ``paged_decode`` (version 2: ``kv_splits`` blocks a row in one
      thread-block cluster, a ring of two chunks) also bit-equal
      across two calls at ``kv_splits`` 8, float and int8 pools;
+     ``paged_verify`` (version 2, the same design over K·g query rows)
+     at every valid config, ``kv_splits`` among its tunables;
      every valid ``gqa_decode_ragged`` and ``decode_attention`` config at
      ragged lengths (0 and past T) in bf16 and f32 and at the serving
      shape;
@@ -59,10 +61,11 @@ Phases, each failing loudly:
      valid ``paged_decode`` (float and int8) and ``paged_verify`` (float
      and int8) config at the pool layouts the
      tuning chose (the tuned ones among them) against the plain versions,
-     and the tuned ones timed (``paged_decode`` asserted on its bulk-copy
-     path); ``paged_decode`` at the shipped deployment shape (phi4-mini,
-     16 sequences of 32,768 slots, bf16 and int8 pools) under the shipped
-     configs, beside SDPA and the bound; ``decode_attention`` tuned at
+     and the tuned ones timed (both asserted on their bulk-copy paths);
+     ``paged_decode`` and ``paged_verify`` at the shipped deployment
+     shape (phi4-mini, 16 sequences of 32,768 slots, bf16 and int8 pools)
+     under the shipped configs, held within 2e-2 of the plain version's
+     largest |o|, beside SDPA and the bound; ``decode_attention`` tuned at
      the serving shape and timed there and, under its shipped config, at
      the deployment shape (16 requests of 32,768, held within 2e-2 of the
      plain version's largest |o|) beside SDPA; the kv8 dense
@@ -125,8 +128,9 @@ Phases, each failing loudly:
      one full-width dense prefill through ``flash_attention`` against the
      chunked prefill (KV chunks of 64), logits held, and a profile of
      each; one call of ``decode_attention`` and one of
-     ``gqa_decode_ragged`` at k_splits 8 under ``torch.profiler`` in a
-     fresh process: one kernel each, two calls bit-equal;
+     ``gqa_decode_ragged`` at k_splits 8, and one of ``paged_verify`` at
+     kv_splits 8, under ``torch.profiler`` in a fresh process: one kernel
+     each, two calls bit-equal;
      then a small f32 model whose drafts are often rejected,
      served speculatively on the CPU (plain versions) and on the card
      (kernels), and by plain decode on the card: the same tokens and
@@ -523,17 +527,19 @@ def check_paged_decode_kv8(chip) -> dict:
     return out
 
 
-def on_bulk_path(run):
-    """``run()``, asserting that every paged_decode launch it makes copies
-    its chunks by bulk copies (none by cp.async); returns its result."""
+def on_bulk_path(run, wrapper=None):
+    """``run()``, asserting that every launch of ``wrapper`` (a paged
+    kernel's wrapper, by default paged_decode's) it makes copies its
+    chunks by bulk copies (none by cp.async); returns its result."""
     from repro_torch.kernels import paged_decode as pd_kernel
-    before = dict(pd_kernel.paged_decode.path_launches)
+    wrapper = wrapper or pd_kernel.paged_decode
+    before = dict(wrapper.path_launches)
     out = run()
-    after = pd_kernel.paged_decode.path_launches
+    after = wrapper.path_launches
     if after["cp_async"] != before["cp_async"] or \
             after["bulk"] == before["bulk"]:
-        raise AssertionError(f"paged_decode left the bulk path: {before} "
-                             f"-> {after}")
+        raise AssertionError(f"{wrapper.__name__} left the bulk path: "
+                             f"{before} -> {after}")
     return out
 
 
@@ -578,6 +584,56 @@ def time_deployment(chip, tuner, full_cfg) -> dict:
                       "kv_tokens": int(args[4].sum()), "config": cfg}
         print(f"paged_decode at the deployment shape ({label} pools, "
               f"{ctx.shapes}, the shipped config): " + json.dumps(out[label]))
+        del args, scales, yard, run, got, want
+        ops.release_tuning_operands()
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_verify_deployment(chip, tuner, full_cfg) -> dict:
+    """paged_verify at the shipped deployment shape (16 sequences of
+    32,768 slots, the runner's seed-11 lengths, the entry's depth) under
+    the shipped config, bf16 and int8 pools (q bf16), on its bulk-copy
+    path, held against the plain version within 2e-2 of the plain
+    version's largest |o| (as ``time_deployment``) and timed beside SDPA
+    with a causal-tail mask over K/V pre-gathered (int8: dequantized to
+    bf16 beforehand, not timed) and the bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_verify as pv_kernel
+    from repro_torch.launch import serve
+    out = {}
+    for quant in (None, "kv8"):
+        ctx = serve.verify_deployment_context(full_cfg, chip, quant)
+        cfg = tuner.best_config(ops.PAGED_VERIFY, ctx)
+        ps = cfg["page_size"]
+        run = ops._paged_verify_runner(cfg, ctx)  # the tuner's operands
+        args, scales = run.args, {k: run.kwargs[k] for k in
+                                  ("k_scales", "v_scales") if k in run.kwargs}
+        got = run().float()
+        want = ref.paged_verify(*args, **scales).float()
+        err = float((got - want).abs().max())
+        limit = BF16_TOL * float(want.abs().max())
+        if err > limit or got[want.abs().amax(-1) == 0].any():
+            raise AssertionError(f"paged_verify at the deployment shape "
+                                 f"{cfg}: max abs err {err} > {limit}")
+        kernel_ms = on_bulk_path(lambda: timer().time_runner(run),
+                                 pv_kernel.paged_verify) * 1e3
+        yard = args
+        if scales:
+            pools = ((args[1], scales["k_scales"]),
+                     (args[2], scales["v_scales"]))
+            yard = (args[0], *((pool.float() * sc[..., None]).bfloat16()
+                               for pool, sc in pools), *args[3:])
+        bound_ms, by = bound(ops._paged_verify_workload(cfg, ctx), chip)
+        label = "int8" if quant else "bf16"
+        out[label] = {"max_abs_err": err, "limit": limit,
+                      "kernel_ms": kernel_ms,
+                      "library_ms": sdpa_ms(yard, ps * args[3].shape[1]),
+                      "bound_ms": bound_ms, "bound_by": by,
+                      "kv_tokens": int(args[4].sum()), "config": cfg}
+        print(f"paged_verify at the deployment shape ({label} pools, "
+              f"{ctx.shapes}, K {cfg['draft_k']}, the shipped config): "
+              + json.dumps(out[label]))
         del args, scales, yard, run, got, want
         ops.release_tuning_operands()
         torch.cuda.empty_cache()
@@ -978,26 +1034,42 @@ def dense_deployment(chip, tuner, name: str) -> dict:
 
 
 def one_launch(name: str, cfg) -> None:
-    """One call of ``name`` at k_splits 8 (eight blocks a row in a
-    cluster) under torch.profiler launches exactly one kernel: no combine,
-    no workspace; two such calls give the same bits."""
+    """One call of ``name`` at k_splits 8 (``paged_verify``: kv_splits 8;
+    eight blocks a row in a cluster) under torch.profiler launches exactly
+    one kernel: no combine, no workspace; two such calls give the same
+    bits."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
-    q, k, v, kv_len = dense_case(13, 8, DENSE_T, ragged_lens(DENSE_T, 3),
-                                 torch.bfloat16)
-    entry = ops.ragged_decode if name == "gqa_decode_ragged" else ops.decode
-    cfg = dict(cfg, k_splits=8, block_kv=32, num_warps=1)
-    one = entry(q, k, v, kv_len=kv_len, config=cfg)
+    if name == "paged_verify":
+        ps, max_pages, K = 16, 36, cfg["draft_k"]
+        args = paged_case(14, 8, 24, 8, 128, ps, max_pages,
+                          verify_lens(ps * max_pages, K), torch.bfloat16, K)
+        cfg = dict(cfg, page_size=ps, block_kv=16, kv_splits=8)
+
+        def call():
+            return ops.paged_verify(*args, config=cfg)
+        kernel_name = "paged_verify_kernel"
+    else:
+        q, k, v, kv_len = dense_case(13, 8, DENSE_T,
+                                     ragged_lens(DENSE_T, 3), torch.bfloat16)
+        entry = ops.ragged_decode if name == "gqa_decode_ragged" \
+            else ops.decode
+        cfg = dict(cfg, k_splits=8, block_kv=32, num_warps=1)
+
+        def call():
+            return entry(q, k, v, kv_len=kv_len, config=cfg)
+        kernel_name = "gqa_decode_kernel"
+    one = call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        two = entry(q, k, v, kv_len=kv_len, config=cfg)
+        two = call()
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not torch.equal(one, two):
         raise AssertionError(f"{name} {cfg}: two calls differ")
-    if len(kernels) != 1 or "gqa_decode_kernel" not in kernels[0]:
+    if len(kernels) != 1 or kernel_name not in kernels[0]:
         raise AssertionError(f"{name} {cfg}: launched {kernels}, not one "
                              f"kernel")
     print(f"{name} {cfg}: one kernel a call under the profiler "
@@ -3429,7 +3501,9 @@ def main(argv=None) -> int:
         out["max_abs_err"] = max(out["max_abs_err"], worst)
         timed = functools.partial(time_paged, chip, args, tuned, ps,
                                   max_pages)
-        out.update(on_bulk_path(timed) if name == "paged_decode" else timed())
+        wrapper = {"paged_decode": pd_kernel.paged_decode,
+                   "paged_verify": pv_kernel.paged_verify}[name]
+        out.update(on_bulk_path(timed, wrapper))
         print(f"{name} at the serving layout (page {ps}, {max_pages} "
               f"pages a table) under {tuned}: " + json.dumps(
                   {k: v for k, v in out.items() if k != "max_abs_err"}))
@@ -3460,6 +3534,7 @@ def main(argv=None) -> int:
               {k: v for k, v in pd8.items() if k != "max_abs_err"}))
     ops.release_tuning_operands()
     time_deployment(chip, tuner, full_cfg)
+    time_verify_deployment(chip, tuner, full_cfg)
     # The kv8 speculative engine's layout: the int8 verify context (q bf16)
     # at its pool and depth
     ((pv8_tunable, pv8_ctx),) = [(k, c) for k, c in
@@ -3480,7 +3555,9 @@ def main(argv=None) -> int:
                              f"under {pv8_ctx} is not among the configs "
                              f"checked under {ctx}")
     pv8["max_abs_err"] = max(pv8["max_abs_err"], worst)
-    pv8.update(time_paged(chip, args, pv8_tuned, ps8, mp8, scales),
+    pv8.update(on_bulk_path(lambda: time_paged(chip, args, pv8_tuned, ps8,
+                                               mp8, scales),
+                            pv_kernel.paged_verify),
                library="SDPA with a causal-tail mask over the pools "
                        "pre-gathered and dequantized to bf16 (dequant not "
                        "timed)")
@@ -3632,7 +3709,9 @@ def main(argv=None) -> int:
     profile_decode(kv8_engine)
     profile_verify(kv8_spec_engine)
     one_launch_fresh({"decode_attention": da_cfg,
-                      "gqa_decode_ragged": gq_cfg})
+                      "gqa_decode_ragged": gq_cfg,
+                      "paged_verify": tuner.best_config(
+                          ops.PAGED_VERIFY, contexts["paged_verify"])})
     rejection_run()
     rejection_run(K=5, page_size=4)
     rejection_run(quant="kv8")

@@ -234,6 +234,18 @@ def _paged_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
         dtype=q_dtype)
 
 
+def _fill_splits(ctx: TuningContext, pack: bool, block_kv: int) -> int:
+    """The fewest kv_splits (none smaller than a chunk) whose rows x
+    kv_splits blocks give every SM a block: a row is (b, kv head) packed,
+    (b, q head) unpacked."""
+    B, Hq = ctx.shape("q")[:2]
+    rows = B * (ctx.shape("k")[1] if pack else Hq)
+    cap = _rup(ctx.shape("k")[2], int(ctx.extra.get("page_size", 16)))
+    splits = [s for s in pd_kernel.KV_SPLITS if s <= _cdiv(cap, block_kv)]
+    return next((s for s in splits if rows * s >= ctx.chip.sm_count),
+                splits[-1])
+
+
 def _paged_heuristic(ctx: TuningContext) -> Config:
     """vLLM-style default: 16-token pages, 64 rows per step, packed heads;
     the fewest splits that give every SM a block."""
@@ -243,13 +255,8 @@ def _paged_heuristic(ctx: TuningContext) -> Config:
             and v <= cap]
     block_kv = max(fits) if fits else ps
     pack = 1 < _group(ctx) <= pd_kernel.MAX_PACKED_GROUP
-    B, Hq = ctx.shape("q")[:2]
-    rows = B * (ctx.shape("k")[1] if pack else Hq)
-    splits = [s for s in pd_kernel.KV_SPLITS if s <= _cdiv(cap, block_kv)]
-    kv_splits = next((s for s in splits if rows * s >= ctx.chip.sm_count),
-                     splits[-1])
     return {"page_size": ps, "block_kv": block_kv, "pack_gqa": pack,
-            "num_warps": 4, "kv_splits": kv_splits}
+            "num_warps": 4, "kv_splits": _fill_splits(ctx, pack, block_kv)}
 
 
 def _pool_operands(ctx: TuningContext, ps: int, lens: torch.Tensor,
@@ -393,16 +400,19 @@ def paged_decode(q, k_pages, v_pages, block_tables, kv_len, *,
 # ===========================================================================
 
 def _verify_smem(cfg: Config, ctx: TuningContext) -> int:
-    """The kernel's shared memory: query rows in q's dtype, staging in the
-    pool's (an int8 context's rows with their scales)."""
+    """The kernel's shared memory: staging in the pool's dtype (an int8
+    context's rows with their scales) and the block's partial; q stays in
+    registers."""
     D = ctx.shape("q")[2]
-    return pv_kernel.smem_bytes(D, dtype_bytes(_q_dtype(ctx)),
-                                dtype_bytes(ctx.dtype), cfg["block_kv"],
-                                cfg["draft_k"], _group(ctx), cfg["pack_gqa"],
-                                cfg["num_warps"])
+    return pv_kernel.smem_bytes(D, dtype_bytes(ctx.dtype), cfg["block_kv"],
+                                cfg["draft_k"], _group(ctx), cfg["pack_gqa"])
 
 
 def paged_verify_space() -> ConfigSpace:
+    # No num_warps: every block runs pv_kernel.NUM_WARPS, so a deployment
+    # context keeps at most 1,000 valid configs (five depths, 25 page and
+    # block pairs, both packings, four splits) and the DB's tune of its six
+    # entries stays one chip call.
     sp = ConfigSpace(
         "paged_verify",
         [
@@ -410,14 +420,16 @@ def paged_verify_space() -> ConfigSpace:
             Param("page_size", PAGE_SIZES),
             Param("block_kv", BLOCK_KV),
             Param("pack_gqa", (True, False)),
-            # 16 warps give rows of the packed layouts two key splits
-            Param("num_warps", (2, 4, 8, 16)),
+            Param("kv_splits", pv_kernel.KV_SPLITS),
         ],
-        version=1,
+        version=2,
     )
     sp.constrain("smem", smem_fits(_verify_smem))
-    sp.constrain("block_kv%page_size",
-                 lambda c, x: c["block_kv"] % c["page_size"] == 0)
+    # A chunk is whole pages, or a part of one page (the bulk copies start
+    # mid-page), so a large page still streams in small chunks.
+    sp.constrain("block_kv:page_size",
+                 lambda c, x: c["block_kv"] % c["page_size"] == 0
+                 or c["page_size"] % c["block_kv"] == 0)
     # With this constraint the reference's canonicalisation (block_kv
     # clamped to the capacity) maps every valid config to itself.
     sp.constrain(
@@ -435,6 +447,13 @@ def paged_verify_space() -> ConfigSpace:
     # Packing a group of one is the unpacked kernel.
     sp.constrain("pack_gqa:group",
                  lambda c, x: not c["pack_gqa"] or _group(x) > 1)
+    # No split smaller than one chunk: it would run as a smaller split does.
+    sp.constrain("kv_splits<=chunks",
+                 lambda c, x: c["kv_splits"] <= _paged_chunks(c, x))
+    # The splits of a row run as one thread-block cluster: at most the
+    # portable cluster size, which any SM layout of the card can hold.
+    sp.constrain("cluster",
+                 lambda c, x: c["kv_splits"] <= pv_kernel.MAX_CLUSTER)
     return sp
 
 
@@ -479,9 +498,10 @@ def _verify_lens(ctx: TuningContext, K: int) -> torch.Tensor:
 
 def _paged_verify_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
     """What the timed call moves under ``cfg``: unpacked heads each read
-    their KV head's rows, so the group re-reads them. An int8 context
-    (kv8) reads int8 rows with their f32 scales, q and o in q's dtype,
-    and counts operations at q's dtype's peak, as ``_paged_workload``."""
+    their KV head's rows, so the group re-reads them; kv_splits moves no
+    byte (the partials stay in shared memory). An int8 context (kv8) reads
+    int8 rows with their f32 scales, q and o in q's dtype, and counts
+    operations at q's dtype's peak, as ``_paged_workload``."""
     B, Hq, D = ctx.shape("q")
     Hkv, T = ctx.shape("k")[1], ctx.shape("k")[2]
     ps, K = cfg["page_size"], cfg["draft_k"]
@@ -500,10 +520,15 @@ def _paged_verify_workload(cfg: Config, ctx: TuningContext) -> KernelWorkload:
 
 
 def _paged_verify_heuristic(ctx: TuningContext) -> Config:
-    """The reference's default: depth 4, one page per step, packed heads."""
-    ps = int(ctx.extra.get("page_size", 16))
-    return {"draft_k": int(ctx.extra.get("draft_k", 4)), "page_size": ps,
-            "block_kv": ps, "pack_gqa": _group(ctx) > 1, "num_warps": 4}
+    """The reference's depth 4 and packed heads; ``_paged_heuristic``'s
+    chunk (64 rows, or a page past 64) and its fewest splits that give
+    every SM a block."""
+    cfg = _paged_heuristic(ctx)
+    pack = _group(ctx) > 1
+    return {"draft_k": int(ctx.extra.get("draft_k", 4)),
+            "page_size": cfg["page_size"], "block_kv": cfg["block_kv"],
+            "pack_gqa": pack,
+            "kv_splits": _fill_splits(ctx, pack, cfg["block_kv"])}
 
 
 def _paged_verify_operands(ctx: TuningContext, cfg: Optional[Config] = None,
@@ -525,13 +550,13 @@ def _paged_verify_runner(cfg: Config, ctx: TuningContext) -> KernelRunner:
         lambda: _pool_operands(ctx, ps, _verify_lens(ctx, K), "cuda", K))
     return KernelRunner(pv_kernel.paged_verify, *args, **kw,
                         block_kv=cfg["block_kv"], pack_gqa=cfg["pack_gqa"],
-                        num_warps=cfg["num_warps"])
+                        kv_splits=cfg["kv_splits"])
 
 
 PAGED_VERIFY = TunableKernel(
     name="paged_verify",
     space=paged_verify_space(),
-    version=1,
+    version=2,
     workload_fn=_paged_verify_workload,
     make_runner=_paged_verify_runner,
     heuristic=_paged_verify_heuristic,
@@ -563,19 +588,18 @@ def paged_verify_context(chip, B: int, Hq: int, Hkv: int, D: int,
 
 
 def paged_verify_fixed_config(K: int, group: int, D: int, page_size: int,
-                              itemsize: int, q_itemsize: int) -> Config:
+                              itemsize: int) -> Config:
     """What a verify at an off-space depth or page size dispatches,
     untuned: the reference's one page per step with packed heads
-    (``src/repro/kernels/ops.py:1056-1060``), the block halved until it
-    fits in shared memory. ``itemsize`` is the pool's (1 for int8, whose
-    rows stage their scales too), ``q_itemsize`` q's (its rows stage
-    beside them)."""
+    (``src/repro/kernels/ops.py:1056-1060``), one block a row, the block
+    halved until it fits in shared memory. ``itemsize`` is the pool's (1
+    for int8, whose rows stage their scales too); q stays in registers."""
     pack = group > 1
     block_kv = _fixed_block_kv(
-        page_size, lambda bkv: pv_kernel.smem_bytes(D, q_itemsize, itemsize,
-                                                    bkv, K, group, pack, 4),
+        page_size, lambda bkv: pv_kernel.smem_bytes(D, itemsize, bkv, K,
+                                                    group, pack),
         pv_kernel.MAX_SMEM_BYTES)
-    return {"block_kv": block_kv, "pack_gqa": pack, "num_warps": 4}
+    return {"block_kv": block_kv, "pack_gqa": pack, "kv_splits": 1}
 
 
 def paged_verify_config(q, k_pages, block_tables,
@@ -587,8 +611,7 @@ def paged_verify_config(q, k_pages, block_tables,
     Hkv, _, ps, _ = k_pages.shape
     if ps not in PAGE_SIZES or K not in pv_kernel.DRAFT_KS:
         return paged_verify_fixed_config(K, Hq // Hkv, D, ps,
-                                         k_pages.element_size(),
-                                         q.element_size())
+                                         k_pages.element_size())
     tuner = tuner or default_tuner()
     max_pages = block_tables.shape[1]
     dt, qt = dtype_name(k_pages.dtype), dtype_name(q.dtype)

@@ -440,14 +440,111 @@ def test_paged_verify_kv8_rejects_what_it_does_not_take(cuda):
                                vq[..., :8].contiguous(), tables, lens,
                                k_scales=ks, v_scales=vs)
     lib = pv_kernel.LIB.load()
-    for D, q_item, kv_item, block_kv, K, g, pack, warps in (
-            (128, 2, 1, 128, 4, 3, 1, 4), (128, 4, 1, 16, 8, 3, 1, 16),
-            (96, 2, 1, 64, 2, 1, 0, 2), (160, 2, 1, 32, 4, 4, 1, 8),
-            (128, 2, 2, 64, 4, 3, 1, 4), (64, 4, 4, 32, 2, 4, 0, 8)):
-        assert lib.paged_verify_smem_bytes(D, q_item, kv_item, block_kv, K,
-                                           g, pack, warps) == \
-            pv_kernel.smem_bytes(D, q_item, kv_item, block_kv, K, g,
-                                 bool(pack), warps)
+    for D, kv_item, block_kv, K, g, pack, warps in (
+            (128, 1, 128, 4, 3, 1, 4), (128, 1, 16, 8, 3, 1, 8),
+            (96, 1, 64, 2, 1, 0, 2), (160, 1, 32, 4, 4, 1, 8),
+            (128, 2, 64, 4, 3, 1, 4), (64, 4, 32, 2, 4, 0, 8)):
+        assert lib.paged_verify_smem_bytes(D, kv_item, block_kv, K, g, pack,
+                                           warps) == \
+            pv_kernel.smem_bytes(D, kv_item, block_kv, K, g, bool(pack),
+                                 warps)
+    with pytest.raises(ValueError, match="kv_splits"):
+        pv_kernel.paged_verify(q, kq, vq, tables, lens, k_scales=ks,
+                               v_scales=vs, kv_splits=3)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_verify_kv_splits_8_is_repeatable(cuda, int8):
+    """Eight blocks a row, merged by rank 0 in rank order: two calls give
+    the same bits and match the plain version, at K 2 and at K 8 (24
+    query rows a block: four sets), lengths 0, shorter than K, past the
+    capacity and fewer than eight chunks among them."""
+    B, Hq, Hkv, D, ps, max_pages = 8, 24, 8, 128, 16, 36
+    cap = ps * max_pages
+    kv_len = [0, cap + 1, 1, 5 * ps, cap, 17, cap // 2 + 3, cap - 1]
+    _, kp, vp, tables, lens = paged_operands(9, B, Hq, Hkv, D, ps, max_pages,
+                                             kv_len, torch.float32, cuda)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = kv8_pools((None, kp, vp), cuda)
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for K in (2, 8):
+        q = torch.randn(B, K, Hq, D, generator=g, device=cuda).bfloat16()
+        args = (q, kp, vp, tables, lens)
+        cfg = dict(block_kv=16, pack_gqa=True, kv_splits=8)
+        one = pv_kernel.paged_verify(*args, **scales, **cfg)
+        two = pv_kernel.paged_verify(*args, **scales, **cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two)
+        torch.testing.assert_close(one.float(),
+                                   ref.paged_verify(*args, **scales).float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert not one[0].any() and not one[2, 0].any()
+
+
+@pytest.mark.parametrize("num_warps", [1, 2, 8])
+def test_paged_verify_streams_once_per_pass_of_query_sets(cuda, num_warps):
+    """A block with more query sets than row groups (f32 pools at D 128:
+    one 32-lane row group a warp; K 8 x group 3 = four sets) streams its
+    span once per pass; every pass, split and packing matches the plain
+    version at f32's tolerance."""
+    B, Hq, Hkv, D, ps, max_pages = 4, 24, 8, 128, 16, 8
+    cap = ps * max_pages
+    kv_len = [0, cap + 1, 7, cap // 2 + 3]
+    _, kp, vp, tables, lens = paged_operands(10, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len,
+                                             torch.float32, cuda)
+    g = torch.Generator(device=cuda).manual_seed(num_warps)
+    for K in (8, 9):
+        q = torch.randn(B, K, Hq, D, generator=g, device=cuda)
+        args = (q, kp, vp, tables, lens)
+        want = ref.paged_verify(*args).float()
+        for pack in (True, False):
+            for splits in (1, 4):
+                out = pv_kernel.paged_verify(*args, block_kv=16,
+                                             pack_gqa=pack,
+                                             num_warps=num_warps,
+                                             kv_splits=splits)
+                torch.testing.assert_close(
+                    out, want, atol=1e-4, rtol=1e-4,
+                    msg=lambda m: f"K {K} pack {pack} splits {splits}: {m}")
+                assert not out[0].any()
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_verify_takes_the_bulk_path_at_serving_pages(cuda, ps):
+    """Float and int8 pools at pages of 16 and 128 copy their chunks by
+    bulk copies; an int8 pool whose scale runs are not 16-byte multiples
+    (a block of 2 rows) takes cp.async, and both are right."""
+    B, Hq, Hkv, D, K, max_pages = 4, 24, 8, 128, 2, max(2, 512 // ps)
+    cap = ps * max_pages
+    kv_len = [0, cap, 3, cap // 2 + 1]
+    _, kp, vp, tables, lens = paged_operands(ps + 2, B, Hq, Hkv, D, ps,
+                                             max_pages, kv_len,
+                                             torch.float32, cuda)
+    kq, vq, ks, vs = kv8_pools((None, kp, vp), cuda)
+    g = torch.Generator(device=cuda).manual_seed(ps)
+    q = torch.randn(B, K, Hq, D, generator=g, device=cuda).bfloat16()
+    runs = [("bulk", (q, kp.bfloat16(), vp.bfloat16(), tables, lens), {},
+             ps),
+            ("bulk", (q, kq, vq, tables, lens),
+             {"k_scales": ks, "v_scales": vs}, ps),
+            ("cp_async", (q, kq, vq, tables, lens),
+             {"k_scales": ks, "v_scales": vs}, 2)]
+    for route, args, scales, block_kv in runs:
+        assert pv_kernel.path(args[1].element_size(), ps, block_kv) == route
+        before = dict(pv_kernel.paged_verify.path_launches)
+        out = pv_kernel.paged_verify(*args, **scales, block_kv=block_kv,
+                                     kv_splits=2)
+        assert pv_kernel.paged_verify.path_launches[route] == \
+            before[route] + 1
+        torch.testing.assert_close(
+            out.float(), ref.paged_verify(*args, **scales).float(),
+            atol=2e-2, rtol=2e-2, msg=lambda m: f"{route}: {m}")
+        assert not out[0].any()
 
 
 # (page_size, block_kv): blocks smaller than a page, not dividing it, and

@@ -118,7 +118,7 @@ KERNEL_SOURCES = {
     "matmul_w8a8": (2, ("csrc/matmul_w8a8.cu",), "a4952bcb68e9f36b"),
     "mla_decode": (1, ("csrc/mla_decode.cu",), "19cece73424a9f20"),
     "paged_decode": (2, ("csrc/paged_decode.cu",), "a825b751267cc3e2"),
-    "paged_verify": (1, ("csrc/paged_verify.cu",), "eccc60eb571ab384"),
+    "paged_verify": (2, ("csrc/paged_verify.cu",), "c0a2209aa61086eb"),
     "rms_norm": (1, ("kernels/rms_norm.py",), "2c72f964811bb574"),
 }
 

@@ -90,7 +90,9 @@ def test_valid_configs_of_the_verify_space():
         assert valid == _valid_by_brute_force(space, ctx)
         assert valid and ops.PAGED_VERIFY.default_config(ctx) in valid
         for c in valid:
-            assert c["block_kv"] % c["page_size"] == 0
+            # whole pages, or a part of one page
+            assert c["block_kv"] % c["page_size"] == 0 or \
+                c["page_size"] % c["block_kv"] == 0
             assert ops._verify_smem(c, ctx) <= H100_SXM.smem_per_block
     # deployment tuning sweeps the depth and the page; a pinned context
     # keeps the pool's page and the engine's depth
@@ -102,10 +104,10 @@ def test_valid_configs_of_the_verify_space():
     assert not any(c["pack_gqa"] for c in space.valid_configs(mha))
     # 256 bf16 rows of 128 stage 256 KB: over the 227 KB a block may use
     big = {"draft_k": 2, "page_size": 16, "block_kv": 256, "pack_gqa": True,
-           "num_warps": 4}
+           "kv_splits": 1}
     assert space.why_invalid(big, deploy) == "smem"
     ok = {"draft_k": 4, "page_size": 128, "block_kv": 128, "pack_gqa": True,
-          "num_warps": 4}
+          "kv_splits": 1}
     assert space.is_valid(ok, pinned)
     assert space.why_invalid(dict(ok, page_size=16), pinned) == \
         "page_size==pool"
@@ -114,15 +116,21 @@ def test_valid_configs_of_the_verify_space():
 
 
 def test_verify_smem_bytes_and_workload():
-    # staging of 64 bf16 rows of 128, then 12 query rows (K 4, group 3)
-    # in bf16 and their f32 accumulators and (m, l): one warp a row
-    assert pv_kernel.smem_bytes(128, 2, 2, 64, 4, 3, True, 8) == (
-        4 * 64 * 128 * 2 + 12 * 128 * 2 + 12 * (128 + 2) * 4)
-    # 4 rows (unpacked) and 8 warps: two warps split each row's keys, so
-    # each row keeps two running states
-    assert pv_kernel.key_splits(4, 8) == 2 and pv_kernel.key_splits(4, 4) == 1
-    assert pv_kernel.smem_bytes(128, 2, 2, 64, 4, 3, False, 8) == (
-        4 * 64 * 128 * 2 + 4 * 128 * 2 + 8 * (128 + 2) * 4)
+    # the mbarriers, the partial of 12 query rows (K 4, group 3: f32 m, l
+    # and acc each), then the larger of a ring of two chunks of 64 bf16 K
+    # and V rows of 128 and the merge of 16 row groups (8 warps of two
+    # 16-lane groups) of one set of 4 rows each (12 rows: three sets)
+    assert pv_kernel.query_sets(12) == 3
+    assert pv_kernel.smem_bytes(128, 2, 64, 4, 3, True, 8) == (
+        64 + 12 * (128 + 2) * 4 + max(2 * 2 * 64 * 128 * 2,
+                                      16 * 4 * (128 + 2) * 4))
+    # 4 rows (unpacked): one set of 4; K 8 x group 3 = 24 rows: six sets
+    # of 4; at most 4 rows a set
+    assert [pv_kernel.query_sets(r) for r in (2, 4, 6, 8, 9, 18, 24, 27,
+                                             64, 65)] == \
+        [1, 1, 2, 2, 3, 5, 6, 7, 16, 17]
+    assert pv_kernel.smem_bytes(128, 2, 64, 4, 3, False, 8) == (
+        64 + 4 * (128 + 2) * 4 + 2 * 2 * 64 * 128 * 2)
     B, K, Hq, Hkv, D, max_pages = 8, 4, 24, 8, 128, 36
     # the verify call moves decode's K/V bytes with K query rows
     assert ops.paged_verify_bytes(B, 1, Hq, Hkv, D, 3000, max_pages, 2) \
@@ -138,7 +146,7 @@ def test_verify_smem_bytes_and_workload():
     ctx = ops.paged_verify_context(H100_SXM, 4, 8, 2, 64, 256, "bfloat16",
                                    draft_k=4)
     cfg = {"draft_k": 4, "page_size": 16, "block_kv": 64, "pack_gqa": True,
-           "num_warps": 4}
+           "kv_splits": 1}
     packed = ops._paged_verify_workload(cfg, ctx)
     unpacked = ops._paged_verify_workload(dict(cfg, pack_gqa=False), ctx)
     assert unpacked.hbm_bytes > packed.hbm_bytes   # the group re-reads KV
@@ -334,7 +342,7 @@ def test_off_space_layouts_dispatch_a_fixed_config(monkeypatch):
     reference's one page per step, packed), halved to fit in shared
     memory; in-space layouts still tune. Timed by a stub backend."""
     monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
-    backend = _FakeBackend(lambda c: c["block_kv"] * 1e-6 + c["num_warps"])
+    backend = _FakeBackend(lambda c: c["block_kv"] * 1e-6 + c["kv_splits"])
     tuner = Autotuner(backend=backend, on_miss="tune")
     # the smallest input that raised before: no config of depth 5 to tune
     with pytest.raises(ValueError, match="no valid config"):
@@ -361,8 +369,8 @@ def test_off_space_layouts_dispatch_a_fixed_config(monkeypatch):
         qk = torch.zeros(8, K, 24, 128, dtype=bf16)
         cfg = ops.paged_verify_config(qk, pool(ps), tables, tuner)
         assert cfg["pack_gqa"] and cfg["block_kv"] <= ps
-        assert pv_kernel.smem_bytes(128, 2, 2, cfg["block_kv"], K, 3, True,
-                                    4) <= pv_kernel.MAX_SMEM_BYTES
+        assert pv_kernel.smem_bytes(128, 2, cfg["block_kv"], K, 3,
+                                    True) <= pv_kernel.MAX_SMEM_BYTES
     assert backend.calls == 0 and tuner.stats()["misses"] == 0
     tuned = ops.paged_verify_config(torch.zeros(8, 4, 24, 128, dtype=bf16),
                                     pool(16), tables, tuner)
@@ -653,7 +661,7 @@ def test_paged_verify_kv8_context_workload_smem_and_operands():
                                   q_itemsize=2, scale_bytes=4) == \
         2 * 3000 * Hkv * (D + 4) + 2 * B * K * Hq * D * 2 + 4 * B * 37
     cfg = {"draft_k": K, "page_size": 16, "block_kv": 64, "pack_gqa": True,
-           "num_warps": 4}
+           "kv_splits": 1}
     lens = ops._verify_lens(kv8, K)
     tokens = float(torch.clamp(lens, max=cap).sum())
     w8, w16 = (ops._paged_verify_workload(cfg, c) for c in (kv8, bf16))
@@ -662,19 +670,20 @@ def test_paged_verify_kv8_context_workload_smem_and_operands():
     assert w8.dtype == "bfloat16" and w8.flops == w16.flops
     assert w8.hbm_bytes < w16.hbm_bytes
     assert ops._paged_verify_workload(cfg, kv8_f32).dtype == "float32"
-    # shared memory: int8 staging rows of D plus two f32 scales, the K·g
-    # query rows in q's dtype, then the f32 states of the key splits
-    assert pv_kernel.smem_bytes(D, 2, 1, 64, K, 3, True, 4) == (
-        4 * 64 * (D + 4) + 12 * D * 2 + 12 * (D + 2) * 4)
-    assert pv_kernel.smem_bytes(D, 4, 1, 64, K, 3, True, 4) - \
-        pv_kernel.smem_bytes(D, 2, 1, 64, K, 3, True, 4) == 12 * D * 2
-    for ctx, q_item in ((kv8, 2), (kv8_f32, 4)):
+    # shared memory: the partial of the K·g = 12 query rows, then the
+    # larger of the ring (int8 staging rows of D plus two f32 scales) and
+    # the merge of 16 row groups of 4 rows; q stays in registers, so its
+    # dtype takes none
+    assert pv_kernel.smem_bytes(D, 1, 64, K, 3, True) == (
+        64 + 12 * (D + 2) * 4 + max(2 * 2 * 64 * (D + 4),
+                                    16 * 4 * (D + 2) * 4))
+    for ctx in (kv8, kv8_f32):
         valid = ops.PAGED_VERIFY.space.valid_configs(ctx)
         assert valid
         for c in valid:
             assert ops._verify_smem(c, ctx) == pv_kernel.smem_bytes(
-                D, q_item, 1, c["block_kv"], K, 3, c["pack_gqa"],
-                c["num_warps"])
+                D, 1, c["block_kv"], K, 3, c["pack_gqa"]) == \
+                ops._verify_smem(c, kv8)
             assert ops._verify_smem(c, ctx) <= H100_SXM.smem_per_block
     big = dict(cfg, block_kv=256)
     assert ops.PAGED_VERIFY.space.is_valid(big, kv8)
@@ -701,9 +710,9 @@ def test_paged_verify_dispatch_key_and_fixed_config_follow_the_pool(
     """Under int8 pools the verify's dispatch key holds q's dtype as well
     as the pool's, so bf16 and f32 queries tune apart; a verify at an
     off-space depth or page size over int8 pools dispatches the fixed
-    config sized by the pool's rows (1 byte and their scales) beside q's
-    rows, which fits in shared memory where q's itemsize for the staging
-    would not have given the same block."""
+    config sized by the pool's rows (1 byte and their scales), which fits
+    in shared memory where q's itemsize for the staging would not have
+    given the same block."""
     monkeypatch.setattr(ops, "device_chip", lambda index: H100_SXM)
     seen = []
 
@@ -728,22 +737,20 @@ def test_paged_verify_dispatch_key_and_fixed_config_follow_the_pool(
             q = torch.zeros(8, K, 24, 128, dtype=dtype)
             pool = torch.zeros(8, 3, ps, 128, dtype=torch.int8)
             cfg = ops.paged_verify_config(q, pool, tables, tuner)
-            assert cfg["pack_gqa"] and cfg["num_warps"] == 4
-            assert cfg == ops.paged_verify_fixed_config(
-                K, 3, 128, ps, 1, dtype.itemsize)
-            smem = pv_kernel.smem_bytes(128, dtype.itemsize, 1,
-                                        cfg["block_kv"], K, 3, True, 4)
+            assert cfg["pack_gqa"] and cfg["kv_splits"] == 1
+            assert cfg == ops.paged_verify_fixed_config(K, 3, 128, ps, 1)
+            smem = pv_kernel.smem_bytes(128, 1, cfg["block_kv"], K, 3, True)
             assert smem <= pv_kernel.MAX_SMEM_BYTES
             # halved only while the int8 rows do not fit
             if cfg["block_kv"] < ps:
                 assert pv_kernel.smem_bytes(
-                    128, dtype.itemsize, 1, 2 * cfg["block_kv"], K, 3, True,
-                    4) > pv_kernel.MAX_SMEM_BYTES
+                    128, 1, 2 * cfg["block_kv"], K, 3,
+                    True) > pv_kernel.MAX_SMEM_BYTES
     # pages of 256 at K 4: a whole page of int8 rows fits, where staging
     # bf16 rows would have halved the block
-    assert ops.paged_verify_fixed_config(4, 3, 128, 256, 1, 2)[
+    assert ops.paged_verify_fixed_config(4, 3, 128, 256, 1)[
         "block_kv"] == 256
-    assert ops.paged_verify_fixed_config(4, 3, 128, 256, 2, 2)[
+    assert ops.paged_verify_fixed_config(4, 3, 128, 256, 2)[
         "block_kv"] == 128
     assert tuner.stats()["misses"] == 2
 
